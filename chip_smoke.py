@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # full size, one card, ~1 minute; no options
+
+Phases, each an assertion (any failure exits non-zero and prints no result):
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+2. hold each kernel (TRSV, TRSM, GEMV, GEMM) against its plain PyTorch
+   version on the card, rtol = atol = 2e-5 (float32; the kernels and the
+   plain versions sum in different orders);
+3. the main path at full size: the suite's ``delaunay_n20`` generator at its
+   Table-I size (``grid2d_factor(1024, seed=6)``, n = 1,048,576, B = 32,
+   levelset, taskpool) through ``SpTRSVContext().analyse`` -> ``solve`` for
+   ``L x = b``, ``L^T x = b`` and an (n, 8) panel, each within 2e-4
+   (``max|x - x_ref| / max|x|``) of scipy; every kernel must have been
+   launched by this phase, exactly once per level that has work;
+4. IC(0)-PCG (``solve_ic0_pcg``) on the SPD matrix of ``grid2d_factor(512)``
+   to ``tol = 1e-6``: the true residual must be within 10 * tol and each
+   triangular sweep must run once per iteration.
+
+Then it times each kernel at the main path's widest level (CUDA events),
+beside its plain version, the one-call PyTorch equivalent and its bound,
+prints them as one ``{"kernels": [...]}`` line, and ends with the line
+``{"ok": true, "device": {...}}``. It needs the repository's ``src/`` next to
+it and a CUDA device; without either it exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SIDE = 1024  # main-path factor: grid2d_factor(SIDE), n = SIDE^2, delaunay_n20 size
+PCG_SIDE = 512  # IC(0)-PCG system, sized by the host-side ic0 factorisation's time
+SEED = 0  # right-hand sides and kernel-check inputs
+TOL_KERNEL = 2e-5
+TOL_SOLVE = 2e-4
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+PEAK_FP32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+# file:line of the Pallas kernel each CUDA kernel replaces, and its source
+KERNELS = {
+    "block_trsv": ("src/repro/kernels/block_trsv.py:22", "block_trsv.cu"),
+    "block_trsm": ("src/repro/kernels/block_trsv.py:77", "block_trsv.cu"),
+    "block_gemv": ("src/repro/kernels/block_spmv.py:23", "block_spmv.cu"),
+    "block_gemm": ("src/repro/kernels/block_spmv.py:54", "block_spmv.cu"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"[smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rel_err(x, ref) -> float:
+    import numpy as np
+
+    return float(np.abs(x - ref).max() / np.abs(x).max())
+
+
+def time_ms(fn, iters: int = 200) -> float:
+    """Mean time of one call over ``iters`` back-to-back calls, by CUDA
+    events on the current stream (the gaps the host leaves count too)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(name: str, k: int, B: int, R: int) -> tuple[float, str]:
+    """Least time (ms) for the work: each input read once, each output
+    written once, at peak bandwidth; its float32 operations at peak rate."""
+    if name in ("block_trsv", "block_trsm"):
+        nbytes = 4 * k * (B * (B + 1) // 2 + 2 * B * R)  # lower triangle + rhs + x
+        flops = k * B * B * R  # B(B-1)/2 multiply-adds and B divides per column
+    else:
+        nbytes = 4 * k * (B * B + 2 * B * R)
+        flops = 2 * k * B * B * R
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(ops, ref, torch, seed: int) -> dict:
+    """Every kernel against its plain version at the test shapes; ``ops``
+    is :mod:`repro_torch.kernels.ops`, whose ``KERNELS`` are the wrappers."""
+    trsv, trsm = ops.KERNELS["block_trsv"], ops.KERNELS["block_trsm"]
+    gemv, gemm = ops.KERNELS["block_gemv"], ops.KERNELS["block_gemm"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(*shape):
+        return torch.rand(*shape, device="cuda", generator=gen) * 2 - 1
+
+    def tri(k, B):
+        L = torch.tril(uniform(k, B, B))
+        idx = torch.arange(B, device="cuda")
+        L[:, idx, idx] = 2.0 + (uniform(k, B) + 1) / 2
+        return L
+
+    err = {name: 0.0 for name in KERNELS}
+
+    def compare(name, got, want):
+        torch.cuda.synchronize()
+        ok = torch.allclose(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
+        check(bool(ok) and got.shape == want.shape,
+              f"{name} disagrees with its plain version at {tuple(got.shape)}: "
+              f"max abs err {float((got - want).abs().max()):.3e}")
+        err[name] = max(err[name], float((got - want).abs().max()))
+
+    for B in (8, 16, 32, 64):
+        for k in (1, 17, 1000):
+            L, r = tri(k, B), uniform(k, B)
+            x = trsv(L, r)
+            compare("block_trsv", x, ref.block_trsv_ref(L, r))
+            for R in (2, 8):
+                rp = uniform(k, B, R)
+                xp = trsm(L, rp)
+                compare("block_trsm", xp, ref.block_trsv_ref(L, rp))
+                col = trsv(L, rp[..., 1].contiguous())
+                check(torch.equal(xp[..., 1], col),
+                      f"block_trsm column != independent block_trsv at B={B} k={k} R={R}")
+    for B in (8, 32, 128):
+        for m in (1, 17, 1000):
+            T, xv = uniform(m, B, B), uniform(m, B)
+            compare("block_gemv", gemv(T, xv), ref.block_gemv_ref(T, xv))
+            for R in (2, 8):
+                X = uniform(m, B, R)
+                compare("block_gemm", gemm(T, X), ref.block_gemv_ref(T, X))
+    # an empty batch launches nothing
+    before = ops.launch_counts()
+    check(trsv(tri(0, 8), uniform(0, 8)).shape == (0, 8), "k=0 TRSV shape")
+    check(gemv(uniform(0, 8, 8), uniform(0, 8)).shape == (0, 8), "m=0 GEMV shape")
+    check(ops.launch_counts() == before, "a k=0 call launched a kernel")
+    torch.cuda.synchronize()
+    return err
+
+
+def widths(plan, col: int):
+    """Per-level bucket widths of schedule ``col`` (0 = solve rows, 1 =
+    update tiles): the batch each level hands the kernels."""
+    from repro_torch.core.solver import level_widths
+
+    return level_widths(plan)[:, col]
+
+
+def widest(plan, col: int) -> tuple[int, int]:
+    """(offset, width) of the plan's widest level slice in schedule ``col``."""
+    w = widths(plan, col)
+    t = int(w.argmax())
+    return int(plan.lvl_off[t, col]), int(w[t])
+
+
+def main() -> None:
+    if len(sys.argv) > 1:
+        fail(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
+
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA device")
+    try:
+        from repro_torch.api import SpTRSVContext
+        from repro_torch.kernels import extension, ref
+        from repro_torch.kernels import ops as kops
+        from repro_torch.krylov import matvec_lower, solve_ic0_pcg, spd_lower_from_triangular
+        from repro_torch.sparse import suite
+        from repro_torch.sparse.matrix import reference_solve, to_scipy
+    except ImportError as e:
+        fail(f"the repro_torch package is not next to chip_smoke.py ({e})")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
+    torch.backends.cudnn.allow_tf32 = False
+
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"device {kind}; nvidia-smi: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    libs = extension.build()
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(p.name for p in libs.values())})")
+
+    # 2. kernels against their plain versions
+    t0 = time.perf_counter()
+    err = phase_kernels(kops, ref, torch, SEED)
+    log(f"phase 2 kernels vs plain: ok in {time.perf_counter() - t0:.1f} s, max abs err "
+        + ", ".join(f"{k}={v:.2e}" for k, v in err.items()))
+
+    # 3. main path at full size
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    a = suite.grid2d_factor(SIDE, seed=6)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = SpTRSVContext()
+    h = ctx.analyse(a)
+    plan, tplan = ctx.plan(h), ctx.plan(h, transpose=True)
+    ctx.executor(h), ctx.executor(h, transpose=True)  # uploads both plans
+    torch.cuda.synchronize()
+    analysis_s = time.perf_counter() - t0
+    store_mb = (plan.diag.nbytes + plan.tiles.nbytes) / 1e6
+    log(f"phase 3 problem: n={a.n} nnz={a.nnz} B={plan.bs.B} levels={plan.n_levels} "
+        f"tiles={plan.bs.n_tiles} diag+tiles={store_mb:.0f} MB; generate {gen_s:.1f} s, "
+        f"analyse+plan+upload (forward and transpose) {analysis_s:.1f} s")
+    b = rng.uniform(-1, 1, a.n)
+    panel = rng.uniform(-1, 1, (a.n, 8))
+    kops.reset_launch_counts()
+    x = ctx.solve(h, b)
+    xt = ctx.solve(h, b, transpose=True)
+    xp = ctx.solve(h, panel)
+    launches = kops.launch_counts()
+
+    def with_work(p, col):
+        return int((widths(p, col) > 0).sum())
+
+    expect = {"block_trsv": with_work(plan, 0) + with_work(tplan, 0),
+              "block_gemv": with_work(plan, 1) + with_work(tplan, 1),
+              "block_trsm": with_work(plan, 0), "block_gemm": with_work(plan, 1)}
+    check(launches == expect, f"main-path launches {launches} != one per level with work "
+                              f"{expect}")
+    log(f"phase 3 launches (forward + transpose + panel): {json.dumps(launches)}")
+    errs = {"forward": rel_err(x, reference_solve(a, b)),
+            "transpose": rel_err(xt, spla.spsolve_triangular(
+                to_scipy(a).T.tocsr(), b, lower=False)),
+            "panel_r8": rel_err(xp, reference_solve(a, panel))}
+    for form, e in errs.items():
+        check(np.isfinite(e) and e <= TOL_SOLVE, f"{form} solve rel err {e:.3e} > {TOL_SOLVE}")
+    timing = {}
+    for form, fn in (("forward", lambda: ctx.solve(h, b)),
+                     ("transpose", lambda: ctx.solve(h, b, transpose=True)),
+                     ("panel_r8", lambda: ctx.solve(h, panel))):
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()  # returns host numpy: ends with the device synchronised
+            reps.append(1e3 * (time.perf_counter() - t0))
+        timing[form] = sorted(reps)
+    log("phase 3 rel err vs scipy: " + ", ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    log("phase 3 ms/solve (median of 5; min, max): " + ", ".join(
+        f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})" for k, v in timing.items()))
+
+    # 4. IC(0)-PCG
+    a_spd = spd_lower_from_triangular(suite.grid2d_factor(PCG_SIDE, seed=6))
+    b_spd = rng.uniform(-1, 1, a_spd.n)
+    tol = 1e-6
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_ic0_pcg(a_spd, b_spd, tol=tol, maxiter=400)
+    pcg_s = time.perf_counter() - t0
+    pcg_launches = kops.launch_counts()
+    check(res.converged, f"IC(0)-PCG did not converge in {res.n_iters} iterations")
+    true_res = float(np.linalg.norm(b_spd - matvec_lower(a_spd, res.x)) / np.linalg.norm(b_spd))
+    check(true_res <= 10 * tol, f"PCG true residual {true_res:.3e} > {10 * tol}")
+    nf, nbk = res.info["forward"].n_solves, res.info["backward"].n_solves
+    check(nf == nbk == res.n_iters, f"PCG sweeps {nf}/{nbk} != iterations {res.n_iters}")
+    check(pcg_launches["block_trsv"] > 0 and pcg_launches["block_gemv"] > 0,
+          f"PCG did not run the kernels: {pcg_launches}")
+    log(f"phase 4 IC(0)-PCG n={a_spd.n}: {res.n_iters} iterations, {pcg_s:.1f} s "
+        f"(analysis + ic0 + iterations), true rel residual {true_res:.2e}, "
+        f"launches {json.dumps(pcg_launches)}")
+
+    # kernel timings at the main path's widest level (B = 32, R = 8 panels)
+    s0, ws = widest(plan, 0)
+    u0, wu = widest(plan, 1)
+    sr = plan.solve_rows[0][s0:s0 + ws]
+    L = torch.from_numpy(plan.diag[np.where(sr < 0, plan.bs.nb, sr)]).cuda()
+    T = torch.from_numpy(plan.tiles[0][plan.upd_tiles[0][u0:u0 + wu]]).cuda()
+    Bsz = plan.bs.B
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    shapes = {"block_trsv": (L, (ws, Bsz, 1)), "block_trsm": (L, (ws, Bsz, 8)),
+              "block_gemv": (T, (wu, Bsz, 1)), "block_gemm": (T, (wu, Bsz, 8))}
+    library = {"block_trsv": lambda m, v: torch.linalg.solve_triangular(
+                   m, v.unsqueeze(-1), upper=False),
+               "block_trsm": lambda m, v: torch.linalg.solve_triangular(m, v, upper=False),
+               "block_gemv": lambda m, v: torch.bmm(m, v.unsqueeze(-1)),
+               "block_gemm": lambda m, v: torch.bmm(m, v)}
+    plain = {"block_trsv": ref.block_trsv_ref, "block_trsm": ref.block_trsv_ref,
+             "block_gemv": ref.block_gemv_ref, "block_gemm": ref.block_gemv_ref}
+    rows_out = []
+    for name, (mat, (k, B, R)) in shapes.items():
+        vec = torch.rand((k, B) if R == 1 else (k, B, R), device="cuda", generator=gen) * 2 - 1
+        fn = kops.KERNELS[name]
+        got, want = fn(mat, vec), plain[name](mat, vec)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL),
+              f"{name} disagrees with its plain version at the main-path shape: {e:.3e}")
+        lib_out = library[name](mat, vec).reshape(want.shape)
+        check(torch.allclose(lib_out, want, rtol=TOL_KERNEL, atol=TOL_KERNEL),
+              f"{name}: the library yardstick computes something else")
+        bound_ms, bound_by = bound(name, k, B, R)
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{KERNELS[name][1]}",
+            "replaces": KERNELS[name][0], "launches": launches[name],
+            "max_abs_err": max(e, err[name]),
+            "ms": time_ms(lambda: fn(mat, vec)),
+            "plain_ms": time_ms(lambda: plain[name](mat, vec)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: library[name](mat, vec)),
+            "shape": [k, B, R],
+        })
+    # the same kernels on a wide batch, where the device, not the host, sets the pace
+    wide = []
+    for name, (k, B, R) in (("block_trsv", (4096, 32, 1)), ("block_gemv", (4096, 32, 1)),
+                            ("block_trsm", (4096, 32, 8)), ("block_gemm", (4096, 32, 8))):
+        mat = torch.rand(k, B, B, device="cuda", generator=gen) * 2 - 1
+        if name.startswith("block_tr"):  # well-conditioned lower-triangular tiles
+            mat = torch.tril(mat, -1) / B + 2 * torch.eye(B, device="cuda")
+        vec = torch.rand((k, B) if R == 1 else (k, B, R), device="cuda", generator=gen)
+        fn = kops.KERNELS[name]
+        wide.append(f"{name}[{k}x{B}x{R}] ms={time_ms(lambda: fn(mat, vec), 50):.4f} "
+                    f"plain_ms={time_ms(lambda: plain[name](mat, vec), 50):.4f} "
+                    f"library_ms={time_ms(lambda: library[name](mat, vec), 50):.4f} "
+                    f"bound_ms={bound(name, k, B, R)[0]:.4f}")
+    log("kernel times at k=4096 tiles: " + "; ".join(wide))
+    torch.cuda.synchronize()
+
+    print(card)
+    print(json.dumps({"kernels": rows_out}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

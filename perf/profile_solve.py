@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Where one triangular solve's time goes on the card.
+
+    python3 perf/profile_solve.py [--side 1024] [--rhs 1]
+
+Builds the ``chip_smoke.py`` main-path problem (``grid2d_factor(side,
+seed=6)``, B = 32, levelset), warms the executor, then traces one forward
+solve with ``torch.profiler`` and prints: the solve's wall time, the summed
+device time of its kernels, the device's idle share of the wall time, and
+the operations ranked by host and by device time. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--side", type=int, default=1024)
+    parser.add_argument("--rhs", type=int, default=1, help="RHS panel width (1 = vector)")
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import SpTRSVContext
+    from repro_torch.core.blocking import pad_rhs
+    from repro_torch.sparse import suite
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_solve.py needs a CUDA device")
+    a = suite.grid2d_factor(args.side, seed=6)
+    ctx = SpTRSVContext()
+    solver = ctx.executor(ctx.analyse(a))
+    shape = (a.n,) if args.rhs == 1 else (a.n, args.rhs)
+    b = np.random.default_rng(0).uniform(-1, 1, shape)
+    b_blocks = torch.from_numpy(pad_rhs(b, solver.plan.bs)).cuda()
+    for _ in range(2):
+        solver.solve_blocks(b_blocks)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    solver.solve_blocks(b_blocks)
+    torch.cuda.synchronize()
+    untraced_ms = 1e3 * (time.perf_counter() - t0)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve_blocks(b_blocks)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    # kernel rows only: the aten rows repeat their kernels' device time
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[profile] {torch.cuda.get_device_name(0)}; n={a.n} levels={solver.plan.n_levels} "
+          f"R={args.rhs}")
+    print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms, traced {traced_ms:.2f} ms; "
+          f"device kernel time {device_us / 1e3:.3f} ms; device idle share "
+          f"{1 - device_us / 1e3 / traced_ms:.4f} of the traced wall")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=14,
+                                    max_name_column_width=48))
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
+                                    max_name_column_width=48))
+
+
+if __name__ == "__main__":
+    main()

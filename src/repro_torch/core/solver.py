@@ -1,0 +1,669 @@
+"""SpTRSV plans and the single-device switch executor.
+
+Plan construction is host numpy and byte-identical to the reference
+package's: block rows are owned by a :class:`~repro_torch.core.partition.Partition`,
+tiles live on the owner of their *column*, and every schedule is stored
+*ragged* — one flat array per schedule (``solve_rows``, ``upd_tiles``,
+``ex_rows``) plus per-level offsets (``lvl_off``), each level's slice padded
+only up to a *bucket width* from a small ladder (``Plan.buckets``).
+
+Execution (:class:`Solver`) is the per-level switch executor on one device:
+for each block level, gather the level's rows, solve their diagonal tiles
+(block TRSV/TRSM), then apply the tile updates they source (block
+GEMV/GEMM) with an ``index_add_`` into the accumulator. Level offsets and
+widths are host Python ints, so the loop never waits on the device.
+
+Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
+exchange), ``sched="syncfree"``, and the fused superstep megakernel
+(``kernel_backend="fused"``/``"fused_streamed"``). Plans for all of them
+build; executing one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.blocking import (
+    BlockStructure, build_blocks, pad_rhs, refresh_block_values, unpad_x,
+)
+from repro_torch.core.partition import (
+    STRATEGIES, Partition, make_partition, merge_levels,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.sparse.matrix import CSR, reverse_transpose
+
+MAX_BUCKETS = 12  # cap on distinct (solve, update, exchange) width combos
+
+COMM_MODES = ("zerocopy", "unified")
+SCHED_MODES = ("levelset", "dagpart", "syncfree")
+# scheds that execute the compacted levelset tables (dagpart is levelset plus
+# a superstep coarsening on top of the same flats)
+LEVELSET_SCHEDS = ("levelset", "dagpart")
+
+
+def _check_choice(name: str, value, valid: tuple) -> None:
+    if value not in valid:
+        raise ValueError(
+            f"invalid {name}: {value!r} (valid choices: {', '.join(valid)})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    block_size: int = 32
+    comm: str = "zerocopy"  # "zerocopy" | "unified"
+    sched: str = "levelset"  # "levelset" | "dagpart" | "syncfree"
+    partition: str = "taskpool"  # "taskpool" | "contiguous" | "malleable"
+    tasks_per_device: int = 8
+    # None -> "cuda" on a CUDA device, "reference" on the CPU (kernels.ops)
+    kernel_backend: str | None = None
+    gemv_group: int = 0
+    rhs_hint: int = 1  # expected RHS panel width R, feeds the partition cost model
+    # dagpart merge heuristic knobs (ignored by the other scheds):
+    # merge_width caps the busiest device's accumulated rows per merged
+    # superstep; merge_cost is the narrow-level cost threshold (0 -> the
+    # costmodel.merge_cost_threshold default)
+    merge_width: int = 64
+    merge_cost: float = 0.0
+
+    def __post_init__(self):
+        _check_choice("comm", self.comm, COMM_MODES)
+        _check_choice("sched", self.sched, SCHED_MODES)
+        _check_choice("partition", self.partition, STRATEGIES)
+        if self.kernel_backend is not None:
+            _check_choice("kernel_backend", self.kernel_backend, ops.BACKENDS)
+        for name, lo in (("block_size", 1), ("tasks_per_device", 1), ("rhs_hint", 1),
+                         ("merge_width", 1)):
+            if int(getattr(self, name)) < lo:
+                raise ValueError(f"{name} must be >= {lo}, got {getattr(self, name)}")
+        if float(self.merge_cost) < 0:
+            raise ValueError(f"merge_cost must be >= 0, got {self.merge_cost}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Host-built execution plan: everything static for a (matrix, partition)."""
+
+    bs: BlockStructure
+    part: Partition
+    config: SolverConfig
+    n_devices: int
+    n_levels: int
+    # replicated
+    diag: np.ndarray  # (nb+1, B, B) identity at pad slot
+    owner: np.ndarray  # (nb+1,) int32, -1 at pad
+    indeg: np.ndarray  # (nb+1,) int32 tile in-degree per block row
+    ex_rows: np.ndarray  # (E,) ragged rows exchanged per level (levelset/zerocopy)
+    ex_boundary: np.ndarray  # (n_boundary or 1,) boundary rows (syncfree/zerocopy)
+    # ragged levelset schedules: flat arrays + per-level offsets + width buckets
+    lvl_off: np.ndarray  # (T, 3) int32 start of level t in (solve, upd, ex) flats
+    lvl_bucket: np.ndarray  # (T,) int32 index into `buckets`
+    buckets: tuple  # ((ws, wu, we), ...) level widths, small set (<= MAX_BUCKETS)
+    # sharded by leading device axis
+    solve_rows: np.ndarray  # (D, S) ragged owned rows per level, pad -1 (levelset)
+    upd_tiles: np.ndarray  # (D, U) ragged local tile ids per level, pad ML (levelset)
+    local_rows: np.ndarray  # (D, MLR) owned rows, pad nb (syncfree)
+    tile_row: np.ndarray  # (D, ML+1) dest block-row per local tile, pad nb
+    tile_col: np.ndarray  # (D, ML+1) src block-col per local tile, pad nb
+    tiles: np.ndarray  # (D, ML+1, B, B) zero tile at pad slot
+    transpose: bool = False  # plan solves a^T x = b (built on reverse_transpose(a))
+    # max (rows, tiles) any device schedules in one level — caps the syncfree
+    # runtime frontier width ladder
+    frontier_caps: tuple = (1, 1)
+    # dagpart only: (n_steps+1,) level offsets of the merged supersteps.
+    # None (levelset/syncfree) means the identity: one superstep per level.
+    step_off: np.ndarray | None = None
+
+    @property
+    def n_supersteps(self) -> int:
+        """Bulk-synchronous supersteps per solve: one per block level, or the
+        merged step count for dagpart."""
+        if self.step_off is not None:
+            return max(0, len(self.step_off) - 1)
+        return self.n_levels
+
+    @property
+    def n_boundary_rows(self) -> int:
+        """Block rows that receive updates from a remote device."""
+        return int(self.part.boundary.sum())
+
+    @property
+    def comm_bytes_per_solve(self) -> int:
+        """Predicted collective payload bytes for one solve (one device's
+        share); single-device plans execute no collectives and report 0."""
+        if self.n_devices == 1:
+            return 0
+        B = self.bs.B
+        itemsize = 4
+        if self.config.comm == "unified":
+            if self.n_boundary_rows == 0:
+                return 0
+            # syncfree additionally all-reduces the per-row in-degree counters
+            width = B + 1 if self.config.sched == "syncfree" else B
+            return (self.bs.nb + 1) * width * itemsize * self.n_supersteps
+        if self.config.sched in LEVELSET_SCHEDS:
+            # each boundary row is exchanged exactly once, before its level
+            if self.n_boundary_rows == 0:
+                return 0
+            ex_width = np.asarray(self.buckets, dtype=np.int64)[self.lvl_bucket, 2]
+            return int(ex_width.sum()) * B * itemsize
+        return self.n_boundary_rows * (B + 1) * itemsize * self.n_supersteps
+
+
+def _round_up_to(w: np.ndarray, base: int) -> np.ndarray:
+    """Round each width up to the next power of ``base`` (0 stays 0)."""
+    out = np.ones_like(w)
+    while np.any(out < w):
+        out = np.where(out < w, out * base, out)
+    return np.where(w == 0, 0, out)
+
+
+def _bucketize_levels(
+    ws: np.ndarray, wu: np.ndarray, we: np.ndarray
+) -> tuple[tuple, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Choose the per-level padded widths for the three ragged schedules.
+
+    Widths round up a geometric ladder; the ladder coarsens (base 2 -> 4 -> 16)
+    until the number of distinct (ws, wu, we) combos fits MAX_BUCKETS, and in
+    the worst case degenerates to the single global-max bucket. Returns
+    (buckets, bucket_id, bws, bwu, bwe).
+    """
+    T = ws.shape[0]
+    if T == 0:
+        # empty schedule: an all-zero bucket keeps every executor branch a no-op
+        z = np.zeros(0, dtype=np.int64)
+        return ((0, 0, 0),), np.zeros(0, np.int32), z, z, z
+    for base in (2, 4, 16, 0):
+        if base:
+            bws, bwu, bwe = (_round_up_to(w, base) for w in (ws, wu, we))
+        else:  # fallback: one global bucket per schedule (pad-to-max)
+            bws, bwu, bwe = (
+                np.where(w == 0, 0, max(1, int(w.max()))) for w in (ws, wu, we)
+            )
+        combos = np.unique(np.stack([bws, bwu, bwe], axis=1), axis=0)
+        if combos.shape[0] <= MAX_BUCKETS:
+            break
+    key = {tuple(int(v) for v in c): i for i, c in enumerate(combos)}
+    bucket_id = np.array(
+        [key[(int(bws[t]), int(bwu[t]), int(bwe[t]))] for t in range(T)], np.int32
+    )
+    buckets = tuple(tuple(int(v) for v in c) for c in combos)
+    return buckets, bucket_id, bws.astype(np.int64), bwu.astype(np.int64), bwe.astype(np.int64)
+
+
+def _tiles_by_device(bs: BlockStructure, part: Partition, D: int) -> list:
+    """Global tile ids resident on each device (tiles live on their column's
+    owner) — the one definition of the device tile-store ordering, shared by
+    :func:`build_plan` and :func:`refresh_plan`."""
+    tile_dev = part.owner[bs.off_cols]
+    return [np.nonzero(tile_dev == d)[0] for d in range(D)]
+
+
+def build_plan(
+    a: CSR, n_devices: int, config: SolverConfig = SolverConfig(),
+    *, transpose: bool = False, part: Partition | None = None,
+) -> Plan:
+    """Build the execution plan of ``a`` for ``n_devices`` devices.
+
+    ``part`` reuses an existing partition computed for the same sparsity
+    (e.g. a zero-fill factor shares its matrix's pattern). Not applicable to
+    transpose plans, which are built on the reversed structure.
+    """
+    if transpose:
+        # Solve a^T x = b with the forward-substitution machinery: reverse row
+        # and column order of a^T, which is lower-triangular again; rhs and
+        # solution are flipped at the Solver boundary.
+        if part is not None:
+            raise ValueError("partition reuse is not valid across reversal")
+        a = reverse_transpose(a)
+    bs = build_blocks(a, config.block_size)
+    if part is None:
+        part = make_partition(bs, n_devices, config.partition, config.tasks_per_device,
+                              cost_R=config.rhs_hint)
+    elif part.owner.shape[0] != bs.nb:
+        raise ValueError("partition/block-structure mismatch")
+    nb, B, D = bs.nb, bs.B, n_devices
+    T = bs.n_block_levels
+
+    diag = np.concatenate([bs.diag, np.eye(B, dtype=np.float32)[None]], axis=0)
+    owner = np.concatenate([part.owner, [-1]]).astype(np.int32)
+    indeg = np.concatenate([bs.block_indeg, [0]]).astype(np.int32)
+
+    # --- per-device tile stores (tiles live on their column's owner) ---
+    tile_dev = part.owner[bs.off_cols]
+    per_dev_tiles = _tiles_by_device(bs, part, D)
+    ML = max((t.shape[0] for t in per_dev_tiles), default=0)
+    tiles = np.zeros((D, ML + 1, B, B), dtype=np.float32)
+    tile_row = np.full((D, ML + 1), nb, dtype=np.int32)
+    tile_col = np.full((D, ML + 1), nb, dtype=np.int32)
+    local_tile_id = np.full(bs.n_tiles, -1, dtype=np.int64)  # global tile -> local slot
+    for d, ids in enumerate(per_dev_tiles):
+        k = ids.shape[0]
+        tiles[d, :k] = bs.off_tiles[ids]
+        tile_row[d, :k] = bs.off_rows[ids]
+        tile_col[d, :k] = bs.off_cols[ids]
+        local_tile_id[ids] = np.arange(k)
+
+    # --- compacted levelset schedules (ragged flats + width buckets) ---
+    lvl = bs.block_level
+    rows_by = [[np.nonzero((part.owner == d) & (lvl == t))[0] for t in range(T)]
+               for d in range(D)]
+    col_lvl = lvl[bs.off_cols]
+    tiles_by = [
+        [np.nonzero((tile_dev == d) & (col_lvl == t))[0] for t in range(T)] for d in range(D)
+    ]
+    b_rows = np.nonzero(part.boundary)[0]
+    per_level_ex = [b_rows[lvl[b_rows] == t] for t in range(T)]
+    # dagpart: coarsen the level range into merged supersteps, then hoist each
+    # merge group's exchange rows into the group's FIRST level slice
+    step_off = None
+    if config.sched == "dagpart":
+        step_off = merge_levels(
+            bs, part, merge_width=config.merge_width,
+            merge_cost=config.merge_cost, cost_R=config.rhs_hint,
+        )
+        ex_by_level = [np.zeros(0, dtype=b_rows.dtype) for _ in range(T)]
+        for k in range(len(step_off) - 1):
+            g, h = int(step_off[k]), int(step_off[k + 1])
+            ex_by_level[g] = (np.concatenate(per_level_ex[g:h])
+                              if h - g > 1 else per_level_ex[g])
+    else:
+        ex_by_level = per_level_ex
+
+    # per-level required widths (max over devices for the sharded schedules)
+    ws = np.array([max(rows_by[d][t].shape[0] for d in range(D)) for t in range(T)],
+                  dtype=np.int64) if T else np.zeros(0, np.int64)
+    wu = np.array([max(tiles_by[d][t].shape[0] for d in range(D)) for t in range(T)],
+                  dtype=np.int64) if T else np.zeros(0, np.int64)
+    we = np.array([e.shape[0] for e in ex_by_level], dtype=np.int64)
+    buckets, lvl_bucket, bws, bwu, bwe = _bucketize_levels(ws, wu, we)
+
+    lvl_off = np.zeros((T, 3), dtype=np.int32)
+    if T:
+        lvl_off[:, 0] = np.concatenate([[0], np.cumsum(bws)[:-1]])
+        lvl_off[:, 1] = np.concatenate([[0], np.cumsum(bwu)[:-1]])
+        lvl_off[:, 2] = np.concatenate([[0], np.cumsum(bwe)[:-1]])
+    S = max(1, int(bws.sum())) if T else 1
+    U = max(1, int(bwu.sum())) if T else 1
+    E = max(1, int(bwe.sum())) if T else 1
+    solve_rows = np.full((D, S), -1, dtype=np.int32)
+    upd_tiles = np.full((D, U), ML, dtype=np.int32)
+    ex_rows = np.full((E,), nb, dtype=np.int32)
+    for t in range(T):
+        for d in range(D):
+            r = rows_by[d][t]
+            solve_rows[d, lvl_off[t, 0]: lvl_off[t, 0] + r.shape[0]] = r
+            ids = tiles_by[d][t]
+            upd_tiles[d, lvl_off[t, 1]: lvl_off[t, 1] + ids.shape[0]] = local_tile_id[ids]
+        e = ex_by_level[t]
+        ex_rows[lvl_off[t, 2]: lvl_off[t, 2] + e.shape[0]] = e
+    ex_boundary = b_rows.astype(np.int32) if b_rows.size else np.full((1,), nb, dtype=np.int32)
+
+    # --- syncfree plan ---
+    per_dev_rows = [np.nonzero(part.owner == d)[0] for d in range(D)]
+    MLR = max((r.shape[0] for r in per_dev_rows), default=1) or 1
+    local_rows = np.full((D, MLR), nb, dtype=np.int32)
+    for d, r in enumerate(per_dev_rows):
+        local_rows[d, : r.shape[0]] = r
+
+    return Plan(
+        bs=bs, part=part, config=config, n_devices=D, n_levels=T,
+        diag=diag, owner=owner, indeg=indeg, ex_rows=ex_rows,
+        ex_boundary=ex_boundary, lvl_off=lvl_off, lvl_bucket=lvl_bucket,
+        buckets=buckets, solve_rows=solve_rows, upd_tiles=upd_tiles,
+        local_rows=local_rows, tile_row=tile_row, tile_col=tile_col, tiles=tiles,
+        transpose=transpose,
+        frontier_caps=(max(1, int(ws.max())) if T else 1,
+                       max(1, int(wu.max())) if T else 1),
+        step_off=step_off,
+    )
+
+
+def refresh_plan(plan: Plan, a: CSR) -> Plan:
+    """Numeric refresh: a new :class:`Plan` carrying ``a``'s values on
+    ``plan``'s exact pattern, partition and compacted schedules, bit-identical
+    to what a fresh :func:`build_plan` on the same pattern would produce.
+    Transpose plans refresh through the same reversal they were built with."""
+    if plan.transpose:
+        a = reverse_transpose(a)
+    bs = refresh_block_values(plan.bs, a)
+    B, D = bs.B, plan.n_devices
+    diag = np.concatenate([bs.diag, np.eye(B, dtype=np.float32)[None]], axis=0)
+    tiles = np.zeros_like(plan.tiles)
+    for d, ids in enumerate(_tiles_by_device(bs, plan.part, D)):
+        tiles[d, : ids.shape[0]] = bs.off_tiles[ids]
+    return dataclasses.replace(plan, bs=bs, diag=diag, tiles=tiles)
+
+
+def plan_from_arrays(fields: dict) -> Plan:
+    """Build a :class:`Plan` from plain values keyed by field name.
+
+    Plan fields go by their own names (``"diag"``, ``"lvl_off"``, ...), the
+    nested records' fields by a prefix: ``"bs.<field>"`` for
+    :class:`BlockStructure`, ``"part.<field>"`` for :class:`Partition`,
+    ``"config.<field>"`` for :class:`SolverConfig`. ``step_off`` may be
+    ``None``. Values are copied into fresh numpy arrays (or ints/tuples), so
+    a plan built by another implementation carries over without sharing
+    memory with it.
+    """
+    def arr(x):
+        return None if x is None else np.array(x)
+
+    def group(prefix: str) -> dict:
+        return {k[len(prefix):]: v for k, v in fields.items() if k.startswith(prefix)}
+
+    bs_f = group("bs.")
+    bs = BlockStructure(
+        n=int(bs_f["n"]), B=int(bs_f["B"]), nb=int(bs_f["nb"]),
+        **{k: arr(bs_f[k]) for k in ("diag", "off_rows", "off_cols", "off_tiles",
+                                     "block_level", "block_indeg")})
+    part_f = group("part.")
+    part = Partition(
+        n_devices=int(part_f["n_devices"]), strategy=str(part_f["strategy"]),
+        tasks_per_device=int(part_f["tasks_per_device"]),
+        owner=arr(part_f["owner"]), boundary=arr(part_f["boundary"]))
+    config = SolverConfig(**group("config."))
+    return Plan(
+        bs=bs, part=part, config=config,
+        n_devices=int(fields["n_devices"]), n_levels=int(fields["n_levels"]),
+        buckets=tuple(tuple(int(v) for v in b) for b in fields["buckets"]),
+        transpose=bool(fields["transpose"]),
+        frontier_caps=tuple(int(v) for v in fields["frontier_caps"]),
+        step_off=arr(fields["step_off"]),
+        **{k: arr(fields[k]) for k in (
+            "diag", "owner", "indeg", "ex_rows", "ex_boundary", "lvl_off",
+            "lvl_bucket", "solve_rows", "upd_tiles", "local_rows", "tile_row",
+            "tile_col", "tiles")},
+    )
+
+
+# ---------------------------------------------------------------------------
+# schedule statistics
+# ---------------------------------------------------------------------------
+
+
+def level_widths(plan: Plan) -> np.ndarray:
+    """(T, 3) per-level (solve, update, exchange) bucket widths."""
+    return np.asarray(plan.buckets, dtype=np.int64)[plan.lvl_bucket]
+
+
+def step_offsets(plan: Plan) -> np.ndarray:
+    """(n_steps + 1,) level offsets of the plan's supersteps. Identity
+    (one level per superstep) for levelset/syncfree; the merge pass's
+    coarsening for dagpart."""
+    if plan.step_off is not None:
+        return np.asarray(plan.step_off, dtype=np.int32)
+    return np.arange(plan.n_levels + 1, dtype=np.int32)
+
+
+def step_widths(plan: Plan) -> np.ndarray:
+    """(n_steps, 3) per-superstep (solve, update, exchange) schedule widths —
+    each superstep's contiguous flat slice sums its levels' bucket widths."""
+    wid = level_widths(plan)
+    so = step_offsets(plan).astype(np.int64)
+    cs = np.zeros((plan.n_levels + 1, 3), dtype=np.int64)
+    np.cumsum(wid, axis=0, out=cs[1:])
+    return cs[so[1:]] - cs[so[:-1]]
+
+
+def fused_segments(plan: Plan) -> np.ndarray:
+    """(n_seg, 2) ``[lo, hi)`` level ranges, one fused launch each: the
+    schedule splits before every level whose boundary rows must be combined
+    (zerocopy), at every superstep (unified with a cut), and not at all on
+    one device or an empty cut."""
+    T = plan.n_levels
+    if T == 0:
+        return np.zeros((0, 2), dtype=np.int32)
+    cfg = plan.config
+    if cfg.comm == "unified" and plan.n_devices > 1 and plan.n_boundary_rows > 0:
+        so = step_offsets(plan)
+        return np.stack([so[:-1], so[1:]], axis=1).astype(np.int32)
+    wid = level_widths(plan)
+    starts = [0]
+    if cfg.comm == "zerocopy" and plan.n_devices > 1 and plan.n_boundary_rows > 0:
+        starts += [t for t in range(1, T) if wid[t, 2] > 0]
+    starts = np.unique(np.asarray(starts, dtype=np.int32))
+    his = np.concatenate([starts[1:], [T]]).astype(np.int32)
+    return np.stack([starts, his], axis=1)
+
+
+# The fused megakernel's on-chip budget. The value is the reference's TPU
+# VMEM threshold (8 MiB), kept only so dispatch_stats reports the same keys;
+# it is a placeholder until the megakernel slice derives the budget from
+# Hopper's shared memory (227 KB per block).
+DEFAULT_STREAM_VMEM_LIMIT = 8 * 2**20
+
+
+def stream_vmem_limit() -> int:
+    """Resident-store budget (bytes) above which a fused plan would stream
+    its tile store. Placeholder: see ``DEFAULT_STREAM_VMEM_LIMIT``."""
+    return DEFAULT_STREAM_VMEM_LIMIT
+
+
+def fused_vmem_bytes(plan: Plan, R: int = 1, *, streamed: bool = False) -> int:
+    """Estimated on-chip footprint (bytes) of one fused superstep launch, by
+    the reference's TPU formula (resident: whole diag + tile stores; streamed:
+    two buffers of the widest superstep slice; carries and rhs in both).
+    Placeholder numbers until the megakernel slice re-derives them for Hopper."""
+    B = plan.bs.B
+    itemsize = 4
+    vec = (plan.bs.nb + 1) * B * max(1, R) * itemsize
+    n_carry = 3 if (plan.config.comm == "unified" and plan.n_devices > 1
+                    and plan.n_boundary_rows > 0) else 2
+    vecs = (2 * n_carry + 1) * vec  # carry in + carry out windows + b_pad
+    if streamed:
+        if plan.n_levels:
+            wid = step_widths(plan)
+            ws, wu = int(wid[:, 0].max()), int(wid[:, 1].max())
+        else:
+            ws = wu = 0
+        store = 2 * (max(1, ws) + max(1, wu)) * B * B * itemsize
+    else:
+        store = (plan.diag.shape[0] + plan.tiles.shape[1]) * B * B * itemsize
+    return store + vecs
+
+
+def stream_dma_bytes_per_solve(plan: Plan) -> int:
+    """Bytes a streamed megakernel would copy per solve (one device): every
+    level's diag + tile slice exactly once, at its bucket width."""
+    if plan.n_levels == 0:
+        return 0
+    wid = level_widths(plan)
+    return int(wid[:, 0].sum() + wid[:, 1].sum()) * plan.bs.B * plan.bs.B * 4
+
+
+def fused_streaming(plan: Plan, R: int | None = None) -> bool:
+    """Whether ``plan``'s fused levelset executor would use the streaming
+    store: explicitly (``kernel_backend="fused_streamed"``) or because the
+    resident footprint exceeds :func:`stream_vmem_limit`."""
+    if plan.config.sched not in LEVELSET_SCHEDS:
+        return False
+    backend = plan.config.kernel_backend
+    if backend == "fused_streamed":
+        return True
+    if backend != "fused":
+        return False
+    R = plan.config.rhs_hint if R is None else R
+    return fused_vmem_bytes(plan, R, streamed=False) > stream_vmem_limit()
+
+
+def schedule_table_bytes(plan: Plan) -> int:
+    """Bytes of the host-built schedule tables the executors index."""
+    arrs = [plan.lvl_off, plan.lvl_bucket, plan.solve_rows, plan.upd_tiles,
+            plan.ex_rows, plan.ex_boundary, plan.local_rows,
+            plan.tile_row, plan.tile_col]
+    if plan.step_off is not None:
+        arrs.append(plan.step_off)
+    return int(sum(np.asarray(x).nbytes for x in arrs))
+
+
+def dispatch_stats(plan: Plan) -> dict:
+    """Predicted per-solve dispatch counts, with the reference's keys.
+
+    ``switch_dispatches`` counts the switch executor's kernel dispatches
+    (gather+TRSV and GEMV+scatter per level with work, plus exchanges);
+    ``fused_launches`` the megakernel launches a fused plan would make;
+    ``fused_vmem_bytes``/``stream_dma_bytes`` are the placeholder TPU-formula
+    numbers described at :func:`fused_vmem_bytes`. ``supersteps`` is the
+    bulk-synchronous step count, ``supersteps_levelset`` the unmerged block
+    level count, ``superstep_reduction`` their ratio.
+    """
+    wid = level_widths(plan)
+    cfg = plan.config
+    has_ex = (cfg.comm == "zerocopy" and plan.n_devices > 1
+              and plan.n_boundary_rows > 0)
+    unified = (cfg.comm == "unified" and plan.n_devices > 1
+               and plan.n_boundary_rows > 0)
+    n_ex = (int((wid[:, 2] > 0).sum()) if has_ex
+            else (plan.n_supersteps if unified else 0))
+    switch = int(2 * (wid[:, 0] > 0).sum() + 2 * (wid[:, 1] > 0).sum()) + n_ex
+    streamed = fused_streaming(plan)
+    n_steps = plan.n_supersteps
+    return {"switch_dispatches": switch, "fused_launches": int(len(fused_segments(plan))),
+            "exchanges": n_ex, "streamed": streamed,
+            "fused_vmem_bytes": fused_vmem_bytes(
+                plan, plan.config.rhs_hint, streamed=streamed),
+            "stream_dma_bytes": stream_dma_bytes_per_solve(plan) if streamed else 0,
+            "supersteps": n_steps,
+            "supersteps_levelset": plan.n_levels,
+            "superstep_reduction": (plan.n_levels / n_steps) if n_steps else 1.0,
+            "schedule_table_bytes": schedule_table_bytes(plan)}
+
+
+# ---------------------------------------------------------------------------
+# single-device switch executor
+# ---------------------------------------------------------------------------
+
+
+class _Schedule:
+    """A plan's device-0 schedule as device tensors, built once per executor.
+
+    ``safe`` maps pad rows (-1) to the pad slot ``nb`` and ``valid`` marks
+    the real ones; ``urow``/``ucol`` are the update tiles' destination and
+    source block rows. ``levels`` holds each level's (solve offset, solve
+    width, update offset, update width) as Python ints, so the level loop
+    slices without reading anything back from the device.
+    """
+
+    def __init__(self, plan: Plan, device: torch.device):
+        nb = plan.bs.nb
+        sr = plan.solve_rows[0].astype(np.int64)
+        ut = plan.upd_tiles[0].astype(np.int64)
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+        self.safe = dev(np.where(sr < 0, nb, sr))
+        self.valid = dev(sr >= 0)
+        self.ut = dev(ut)
+        self.urow = dev(plan.tile_row[0].astype(np.int64)[ut])
+        self.ucol = dev(plan.tile_col[0].astype(np.int64)[ut])
+        widths = level_widths(plan)
+        self.levels = [
+            (int(plan.lvl_off[t, 0]), int(widths[t, 0]),
+             int(plan.lvl_off[t, 1]), int(widths[t, 1]))
+            for t in range(plan.n_levels)
+        ]
+
+
+def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
+                b_pad: torch.Tensor, backend: str, group: int) -> torch.Tensor:
+    """The switch executor's level loop (``_compact_level_body`` of the
+    reference) on padded blocks ``b_pad`` (nb+1, B[, R]); returns ``x``."""
+    acc = torch.zeros_like(b_pad)
+    x = torch.zeros_like(b_pad)
+    for s0, w_s, u0, w_u in sched.levels:
+        if w_s > 0:
+            safe = sched.safe[s0:s0 + w_s]
+            rhs = b_pad[safe] - acc[safe]
+            xs = ops.batched_block_trsv(diag[safe], rhs, backend=backend)
+            valid = ops.bcast_trailing(sched.valid[s0:s0 + w_s], xs)
+            x[safe] = torch.where(valid, xs, x[safe])
+        if w_u > 0:
+            tids = sched.ut[u0:u0 + w_u]
+            prods = ops.batched_block_gemv(tiles[tids], x[sched.ucol[u0:u0 + w_u]],
+                                           backend=backend, group=group)
+            acc.index_add_(0, sched.urow[u0:u0 + w_u], prods)
+    return x
+
+
+def _check_executable(plan: Plan, backend: str) -> None:
+    """Raise for plans whose executor is not ported yet."""
+    if plan.n_devices != 1:
+        raise NotImplementedError(
+            f"multi-device execution (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
+    if plan.config.sched not in LEVELSET_SCHEDS:
+        raise NotImplementedError(f"sched {plan.config.sched!r} execution is {ops.NOT_PORTED}")
+    if backend in ops.FUSED_BACKENDS:
+        raise NotImplementedError(f"kernel backend {backend!r} is {ops.NOT_PORTED}")
+
+
+def solve_local(plan: Plan, b_blocks: torch.Tensor) -> torch.Tensor:
+    """Level-scheduled solve on ``b_blocks``' device. b_blocks: (nb, B) or
+    (nb, B, R) -> x of the same shape."""
+    return Solver(plan, b_blocks.device).solve_blocks(b_blocks)
+
+
+class Solver:
+    """Single-device SpTRSV executor for one plan (the reference's
+    ``DistributedSolver`` with one device).
+
+    Plan values and schedule live on ``device`` (``None`` means the card).
+    ``n_solves`` counts invocations; a multi-RHS panel counts once.
+    """
+
+    def __init__(self, plan: Plan, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.backend = ops.executor_backend(plan.config.kernel_backend, self.device)
+        _check_executable(plan, self.backend)
+        self.plan = plan
+        self.n_solves = 0
+        self._sched = _Schedule(plan, self.device)
+        self._load_values(plan)
+
+    def _load_values(self, plan: Plan) -> None:
+        self._diag = torch.from_numpy(plan.diag).to(self.device)
+        self._tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(self.device)
+
+    def refresh(self, plan: Plan) -> None:
+        """Swap in a numerically refreshed plan (:func:`refresh_plan`): the
+        schedule tensors stay, only ``diag``/``tiles`` are replaced."""
+        old = self.plan
+        # a structurally different plan would pair new values with the old
+        # schedule — reject it (never an assert: -O must not disable this)
+        if not (plan.config == old.config and plan.n_devices == old.n_devices
+                and plan.transpose == old.transpose
+                and np.array_equal(plan.solve_rows, old.solve_rows)
+                and np.array_equal(plan.lvl_off, old.lvl_off)
+                and np.array_equal(step_offsets(plan), step_offsets(old))
+                and np.array_equal(plan.local_rows, old.local_rows)
+                and np.array_equal(plan.tile_row, old.tile_row)):
+            raise ValueError(
+                "refresh requires an identical symbolic schedule (same "
+                "pattern, config, and device count as the executor's plan)"
+            )
+        self.plan = plan
+        self._load_values(plan)
+
+    def solve_blocks(self, b_blocks: torch.Tensor) -> torch.Tensor:
+        """b_blocks: (nb, B) or a multi-RHS panel (nb, B, R) -> same shape."""
+        self.n_solves += 1
+        b_blocks = b_blocks.to(self.device, torch.float32)
+        b_pad = torch.cat([b_blocks, b_blocks.new_zeros((1,) + b_blocks.shape[1:])])
+        x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
+                        self.backend, self.plan.config.gemv_group)
+        return x[: self.plan.bs.nb]
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """b: (n,) or (n, R) RHS panel -> x, as numpy. Transpose plans flip
+        row order at this boundary (the plan was built on
+        ``reverse_transpose(a)``)."""
+        b = np.asarray(b, np.float32)
+        if self.plan.transpose:
+            b = b[::-1]
+        b_blocks = torch.from_numpy(pad_rhs(b, self.plan.bs))
+        x = unpad_x(self.solve_blocks(b_blocks).cpu().numpy(), self.plan.bs)
+        return x[::-1].copy() if self.plan.transpose else x

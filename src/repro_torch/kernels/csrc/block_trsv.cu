@@ -1,0 +1,125 @@
+// Batched dense lower-triangular block solves (block TRSV / TRSM) for Hopper.
+//
+// Replaces the Pallas row-sweep kernels of src/repro/kernels/block_trsv.py:
+// _trsv_rowsweep_kernel (one (B,) right-hand side per tile) and
+// _trsm_rowsweep_kernel (an (B,R) panel per tile). The TPU kernels run one
+// grid program per tile in order; here one CTA takes one tile and the k CTAs
+// run in parallel, which is legal because the tiles are independent.
+//
+// Arithmetic, kept op for op from the reference: row i takes the dot of
+// L[i, :i] with the solved prefix x[:i] (reduced across the 32 lanes of a
+// warp), then x[i] = (r[i] - s) / L[i, i] with an IEEE division.
+//
+// Bound: the least time for the work is set by bytes (each lower triangle
+// read once, at about one flop per byte). The kernel does not approach it:
+// each tile's solve is a chain of B dependent steps (load, reduce, divide),
+// so a tile takes the latency of that chain whatever the bandwidth. The
+// design answers with parallelism across tiles: a CTA is one warp (TRSV) or
+// one warp per right-hand-side column (TRSM), so dozens of tiles share an
+// SM. Staging the tile in shared memory before the sweep, to take the
+// global-load latency off the chain, is the next step (PERF.md).
+//
+// Layout: L (k,B,B), r and x (k,B) or (k,B,R), all row-major float32,
+// contiguous. The wrapper checks shapes, dtype, device and contiguity.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kMaxTrsmWarps = 16;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Forward substitution of one column held in shared memory: xc holds the
+// right-hand side on entry and the solution on exit. Only lane 0 writes
+// xc[i]; __syncwarp orders that write before the next row's reads.
+__device__ __forceinline__ void sweep_column(const float* __restrict__ Lt, float* xc,
+                                             int B, int lane) {
+  for (int i = 0; i < B; ++i) {
+    const float* li = Lt + static_cast<size_t>(i) * B;
+    float p = 0.f;
+    for (int j = lane; j < i; j += kWarp) p += __ldg(li + j) * xc[j];
+    const float s = warp_sum(p);
+    if (lane == 0) xc[i] = __fdiv_rn(xc[i] - s, __ldg(li + i));
+    __syncwarp();
+  }
+}
+
+// One warp per tile; x staged in shared memory (B floats).
+__global__ void trsv_rowsweep_kernel(const float* __restrict__ L, const float* __restrict__ r,
+                                     float* __restrict__ x, int B) {
+  extern __shared__ float xs[];
+  const size_t t = blockIdx.x;
+  const int lane = threadIdx.x;
+  for (int i = lane; i < B; i += kWarp) xs[i] = r[t * B + i];
+  __syncwarp();
+  sweep_column(L + t * B * B, xs, B, lane);
+  for (int i = lane; i < B; i += kWarp) x[t * B + i] = xs[i];
+}
+
+// One warp per right-hand-side column (columns strided over the CTA's
+// warps); the panel is staged column-major in shared memory (R*B floats) so
+// each column's sweep runs the same code, in the same order, as the TRSV
+// kernel: column j of a panel solve equals an independent TRSV bit for bit.
+__global__ void trsm_rowsweep_kernel(const float* __restrict__ L, const float* __restrict__ r,
+                                     float* __restrict__ x, int B, int R) {
+  extern __shared__ float xs[];
+  const size_t t = blockIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const float* rt = r + t * B * R;
+  float* xt = x + t * B * R;
+  for (int e = threadIdx.x; e < B * R; e += blockDim.x) xs[(e % R) * B + e / R] = rt[e];
+  __syncthreads();
+  for (int c = warp; c < R; c += n_warps) sweep_column(L + t * B * B, xs + c * B, B, lane);
+  __syncthreads();
+  for (int e = threadIdx.x; e < B * R; e += blockDim.x) xt[e] = xs[(e % R) * B + e / R];
+}
+
+// Opts the kernel in to `bytes` of dynamic shared memory. A refusal is
+// returned and cleared, so the next launch does not report it.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream` and returns cudaGetLastError() of
+// the launch (0 on success); it never synchronises.
+int repro_trsv_f32(const float* L, const float* r, float* x, int k, int B, void* stream) {
+  const size_t smem = static_cast<size_t>(B) * sizeof(float);
+  cudaError_t err = allow_shared(trsv_rowsweep_kernel, smem);
+  if (err != cudaSuccess) return err;
+  trsv_rowsweep_kernel<<<k, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(L, r, x, B);
+  return cudaGetLastError();
+}
+
+int repro_trsm_f32(const float* L, const float* r, float* x, int k, int B, int R, void* stream) {
+  const size_t smem = static_cast<size_t>(B) * R * sizeof(float);
+  cudaError_t err = allow_shared(trsm_rowsweep_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int warps = R < kMaxTrsmWarps ? R : kMaxTrsmWarps;
+  trsm_rowsweep_kernel<<<k, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      L, r, x, B, R);
+  return cudaGetLastError();
+}
+
+// Weak: every source defines it, so the sources also link into one module.
+__attribute__((weak)) const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,89 @@
+"""Block-op dispatch between the plain PyTorch ops and the CUDA kernels.
+
+Backends (the reference package's names on the left):
+
+* ``reference`` -> ``reference``: plain PyTorch (:mod:`repro_torch.kernels.ref`),
+  the default when the caller chose the CPU.
+* ``pallas``    -> ``cuda``: the hand-written Hopper kernels
+  (:mod:`~repro_torch.kernels.block_trsv`, :mod:`~repro_torch.kernels.block_spmv`),
+  the default on a CUDA device. Given CPU tensors, their wrappers run the
+  plain versions, so the same code path is testable without a card.
+* ``fused`` / ``fused_streamed``: the superstep megakernel executors. Not
+  ported yet (ROADMAP.md, Queue 2): plans may name them, executing one raises
+  ``NotImplementedError``.
+
+Every op accepts either a single right-hand side per tile (``(k, B)``) or a
+multi-RHS panel (``(k, B, R)``) and dispatches on that rank.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.block_spmv import block_gemm, block_gemv
+from repro_torch.kernels.block_trsv import block_trsm, block_trsv
+
+BACKENDS = ("reference", "cuda", "fused", "fused_streamed")
+FUSED_BACKENDS = ("fused", "fused_streamed")
+KERNELS = {"block_trsv": block_trsv, "block_trsm": block_trsm,
+           "block_gemv": block_gemv, "block_gemm": block_gemm}
+
+NOT_PORTED = "not ported to the PyTorch/CUDA package yet (see ROADMAP.md, Queues 1 and 2)"
+
+
+def executor_backend(backend: str | None, device: torch.device) -> str:
+    """Resolve the executor-level backend: ``None`` means ``"cuda"`` on a
+    CUDA device and ``"reference"`` on the CPU."""
+    b = backend or ("cuda" if torch.device(device).type == "cuda" else "reference")
+    if b not in BACKENDS:
+        raise ValueError(f"unknown kernel backend: {b!r} (expected {BACKENDS})")
+    return b
+
+
+def op_backend(backend: str | None, device: torch.device) -> str:
+    """Resolve the per-op backend; the megakernel backends raise."""
+    b = executor_backend(backend, device)
+    if b in FUSED_BACKENDS:
+        raise NotImplementedError(f"kernel backend {b!r} is {NOT_PORTED}")
+    return b
+
+
+def bcast_trailing(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Reshape ``mask`` with trailing singleton dims so it broadcasts against
+    ``x`` — lets solver code stay agnostic to single- vs multi-RHS shapes."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
+
+
+def batched_block_trsv(diag: torch.Tensor, rhs: torch.Tensor, *,
+                       backend: str | None = None,
+                       algorithm: str = "rowsweep") -> torch.Tensor:
+    backend = op_backend(backend, diag.device)
+    if backend == "reference":
+        return ref.block_trsv_ref(diag, rhs)
+    if algorithm != "rowsweep":
+        raise NotImplementedError(f"block_trsv algorithm {algorithm!r} is {NOT_PORTED}")
+    if rhs.ndim == 3:
+        return block_trsm(diag, rhs)
+    return block_trsv(diag, rhs)
+
+
+def batched_block_gemv(tiles: torch.Tensor, xs: torch.Tensor, *,
+                       backend: str | None = None, group: int = 0) -> torch.Tensor:
+    backend = op_backend(backend, tiles.device)
+    if backend == "reference":
+        return ref.block_gemv_ref(tiles, xs)
+    if xs.ndim == 3:
+        return block_gemm(tiles, xs)
+    if group > 1:
+        raise NotImplementedError(f"grouped block_gemv (gemv_group={group}) is {NOT_PORTED}")
+    return block_gemv(tiles, xs)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,162 @@
+"""Port kernel layer: each wrapper's plain version against the reference's
+oracles and Pallas kernels (interpret mode), the rank dispatch and the
+wrapper contract. The CUDA kernels themselves are tested on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.block_spmv import block_gemm as jgemm, block_gemv as jgemv
+from repro.kernels.block_trsv import block_trsm as jtrsm, block_trsv as jtrsv
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.block_spmv import block_gemm, block_gemv
+from repro_torch.kernels.block_trsv import block_trsm, block_trsv
+
+TOL = dict(rtol=2e-5, atol=2e-5)  # float32, different summation orders
+
+
+def _tri(k, B, seed=0):
+    rng = np.random.default_rng(seed)
+    L = np.tril(rng.uniform(-1, 1, (k, B, B))).astype(np.float32)
+    L[:, np.arange(B), np.arange(B)] = 2.0 + rng.uniform(0, 1, (k, B))
+    r = rng.uniform(-1, 1, (k, B)).astype(np.float32)
+    return L, r
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+@pytest.mark.parametrize("k", [1, 3, 17])
+def test_trsv_plain_matches_reference_and_pallas(B, k):
+    L, r = _tri(k, B, seed=B * 100 + k)
+    out = block_trsv(_t(L), _t(r)).numpy()
+    np.testing.assert_allclose(out, jref.block_trsv_ref(jnp.asarray(L), jnp.asarray(r)), **TOL)
+    np.testing.assert_allclose(
+        out, jtrsv(jnp.asarray(L), jnp.asarray(r), algorithm="rowsweep", interpret=True),
+        **TOL)
+
+
+@pytest.mark.parametrize("B,k,R", [(8, 1, 2), (16, 3, 4), (32, 5, 8)])
+def test_trsm_plain_matches_reference_and_pallas(B, k, R):
+    L, _ = _tri(k, B, seed=B + R)
+    r = np.random.default_rng(R).uniform(-1, 1, (k, B, R)).astype(np.float32)
+    out = block_trsm(_t(L), _t(r)).numpy()
+    np.testing.assert_allclose(out, jref.block_trsv_ref(jnp.asarray(L), jnp.asarray(r)), **TOL)
+    np.testing.assert_allclose(out, jtrsm(jnp.asarray(L), jnp.asarray(r), interpret=True),
+                               **TOL)
+
+
+def test_trsm_columns_equal_independent_trsv():
+    """A panel solve is exactly R stacked single-RHS solves."""
+    k, B, R = 4, 16, 3
+    L, _ = _tri(k, B, seed=9)
+    r = np.random.default_rng(9).uniform(-1, 1, (k, B, R)).astype(np.float32)
+    panel = block_trsm(_t(L), _t(r))
+    for j in range(R):
+        single = block_trsv(_t(L), _t(r[..., j]))
+        torch.testing.assert_close(panel[..., j], single, **TOL)
+
+
+@pytest.mark.parametrize("B", [8, 32, 128])
+@pytest.mark.parametrize("m", [1, 5, 13])
+def test_gemv_plain_matches_reference_and_pallas(B, m):
+    rng = np.random.default_rng(B + m)
+    T = rng.uniform(-1, 1, (m, B, B)).astype(np.float32)
+    x = rng.uniform(-1, 1, (m, B)).astype(np.float32)
+    out = block_gemv(_t(T), _t(x)).numpy()
+    np.testing.assert_allclose(out, jref.block_gemv_ref(jnp.asarray(T), jnp.asarray(x)), **TOL)
+    np.testing.assert_allclose(out, jgemv(jnp.asarray(T), jnp.asarray(x), interpret=True),
+                               **TOL)
+
+
+@pytest.mark.parametrize("B,m,R", [(8, 1, 2), (16, 7, 4), (32, 4, 5)])
+def test_gemm_plain_matches_reference_and_pallas(B, m, R):
+    rng = np.random.default_rng(B + m + R)
+    T = rng.uniform(-1, 1, (m, B, B)).astype(np.float32)
+    x = rng.uniform(-1, 1, (m, B, R)).astype(np.float32)
+    out = block_gemm(_t(T), _t(x)).numpy()
+    np.testing.assert_allclose(out, jref.block_gemv_ref(jnp.asarray(T), jnp.asarray(x)), **TOL)
+    np.testing.assert_allclose(out, jgemm(jnp.asarray(T), jnp.asarray(x), interpret=True),
+                               **TOL)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda", None])
+def test_ops_dispatch_by_rhs_rank(backend):
+    """(k,B) and (k,B,R) route to the right op; on CPU tensors the "cuda"
+    backend runs the wrappers' plain versions."""
+    L, r = _tri(3, 16, seed=2)
+    rp = np.random.default_rng(2).uniform(-1, 1, (3, 16, 4)).astype(np.float32)
+    L, r, rp = _t(L), _t(r), _t(rp)
+    out1 = ops.batched_block_trsv(L, r, backend=backend)
+    out2 = ops.batched_block_trsv(L, rp, backend=backend)
+    assert out1.shape == (3, 16) and out2.shape == (3, 16, 4)
+    torch.testing.assert_close(out1, ref.block_trsv_ref(L, r), **TOL)
+    torch.testing.assert_close(out2, ref.block_trsv_ref(L, rp), **TOL)
+    torch.testing.assert_close(ops.batched_block_gemv(L, r, backend=backend),
+                               ref.block_gemv_ref(L, r), **TOL)
+    torch.testing.assert_close(ops.batched_block_gemv(L, rp, backend=backend),
+                               ref.block_gemv_ref(L, rp), **TOL)
+
+
+def test_backend_resolution():
+    assert ops.executor_backend(None, torch.device("cpu")) == "reference"
+    assert ops.executor_backend(None, torch.device("cuda")) == "cuda"
+    assert ops.executor_backend("cuda", torch.device("cpu")) == "cuda"
+    with pytest.raises(ValueError, match="cuda"):
+        ops.executor_backend("pallas", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("call", [
+    lambda L, r: ops.batched_block_trsv(L, r, backend="cuda", algorithm="panel"),
+    lambda L, r: ops.batched_block_gemv(L, r, backend="cuda", group=4),
+    lambda L, r: ops.batched_block_trsv(L, r, backend="fused"),
+    lambda L, r: ops.batched_block_gemv(L, r, backend="fused_streamed"),
+])
+def test_unported_variants_raise(call):
+    L, r = _tri(2, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(_t(L), _t(r))
+
+
+def test_reference_backend_ignores_group_like_the_reference():
+    L, r = _tri(3, 8, seed=4)
+    torch.testing.assert_close(
+        ops.batched_block_gemv(_t(L), _t(r), backend="reference", group=4),
+        ref.block_gemv_ref(_t(L), _t(r)))
+
+
+@pytest.mark.parametrize("fn,mat,vec,err", [
+    (block_trsv, (2, 8, 8), (2, 8), None),
+    (block_trsv, (2, 8, 8), (2, 8, 3), ValueError),  # rank
+    (block_trsm, (2, 8, 8), (2, 8), ValueError),
+    (block_gemv, (2, 8, 8), (3, 8), ValueError),  # batch mismatch
+    (block_gemm, (2, 8, 4), (2, 8, 2), ValueError),  # non-square tiles
+])
+def test_wrapper_shape_contract(fn, mat, vec, err):
+    m, v = torch.ones(mat), torch.ones(vec)
+    if err is None:
+        assert fn(m, v).shape == v.shape
+    else:
+        with pytest.raises(err):
+            fn(m, v)
+
+
+def test_wrapper_dtype_and_layout_contract():
+    L, r = _t(_tri(2, 8)[0]), _t(_tri(2, 8)[1])
+    with pytest.raises(TypeError, match="float32"):
+        block_trsv(L.double(), r.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        block_gemv(L.transpose(1, 2), r)
+
+
+def test_cpu_and_empty_calls_launch_nothing():
+    ops.reset_launch_counts()
+    L, r = _tri(3, 8)
+    block_trsv(_t(L), _t(r))
+    block_gemm(torch.zeros(0, 8, 8), torch.zeros(0, 8, 2))
+    assert block_trsv(torch.zeros(0, 8, 8), torch.zeros(0, 8)).shape == (0, 8)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
