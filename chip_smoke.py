@@ -17,11 +17,18 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    launched by this phase, exactly once per level that has work;
 4. IC(0)-PCG (``solve_ic0_pcg``) on the SPD matrix of ``grid2d_factor(512)``
    to ``tol = 1e-6``: the true residual must be within 10 * tol and each
-   triangular sweep must run once per iteration.
+   triangular sweep must run once per iteration;
+5. the superstep megakernel (``PlanOptions(kernel="fused")``) on the same
+   factor: forward, transpose and (n, 8) panel solves each within 2e-4 of
+   scipy, each exactly one megakernel launch and no per-level kernel
+   launch, two forward solves bit-equal; the kernel against its plain
+   version (bit-identical on a dyadic problem, within 2e-4 on
+   ``grid2d_factor(256)`` and on the full factor); fused IC(0)-PCG with
+   phase 4's iterations and residual bound.
 
-Then it times each kernel at the main path's widest level (CUDA events),
-beside its plain version, the one-call PyTorch equivalent and its bound,
-prints them as one ``{"kernels": [...]}`` line, and ends with the line
+Then it times each kernel at the main path's shapes (CUDA events), beside
+its plain version, the one-call PyTorch equivalent and its bound, prints
+them as one ``{"kernels": [...]}`` line, and ends with the line
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/`` next to
 it and a CUDA device; without either it exits non-zero.
 """
@@ -50,7 +57,9 @@ KERNELS = {
     "block_trsm": ("src/repro/kernels/block_trsv.py:77", "block_trsv.cu"),
     "block_gemv": ("src/repro/kernels/block_spmv.py:23", "block_spmv.cu"),
     "block_gemm": ("src/repro/kernels/block_spmv.py:54", "block_spmv.cu"),
+    "superstep": ("src/repro/kernels/superstep.py:146", "superstep.cu"),
 }
+PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 
 
 def fail(msg: str) -> None:
@@ -80,12 +89,12 @@ def rel_err(x, ref) -> float:
     return float(np.abs(x - ref).max() / np.abs(x).max())
 
 
-def time_ms(fn, iters: int = 200) -> float:
+def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Mean time of one call over ``iters`` back-to-back calls, by CUDA
     events on the current stream (the gaps the host leaves count too)."""
     import torch
 
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -126,7 +135,7 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
         L[:, idx, idx] = 2.0 + (uniform(k, B) + 1) / 2
         return L
 
-    err = {name: 0.0 for name in KERNELS}
+    err = {name: 0.0 for name in PER_OP}
 
     def compare(name, got, want):
         torch.cuda.synchronize()
@@ -164,6 +173,71 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
     return err
 
 
+def solve_times(ctx, h, b, panel) -> dict:
+    """ms per ``ctx.solve`` (numpy in and out, so the device is synchronised
+    at the end) for the three forms, 5 runs each, sorted."""
+    timing = {}
+    for form, fn in (("forward", lambda: ctx.solve(h, b)),
+                     ("transpose", lambda: ctx.solve(h, b, transpose=True)),
+                     ("panel_r8", lambda: ctx.solve(h, panel))):
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        timing[form] = sorted(reps)
+    return timing
+
+
+def fused_inputs(torch, plan, b_pad):
+    """The megakernel's operands for a one-device plan on the card: the
+    reference's tables, the stores, ``b_pad`` and zero carries."""
+    import numpy as np
+
+    from repro_torch.core.solver import level_widths, step_offsets
+
+    def dev(t):
+        return torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).cuda()
+
+    tables = [dev(t) for t in ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan),
+                               plan.solve_rows[0], plan.upd_tiles[0], plan.tile_row[0],
+                               plan.tile_col[0])]
+    zeros = torch.zeros(b_pad.shape, device="cuda")
+    stores = [torch.from_numpy(plan.diag).cuda(),
+              torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).cuda(),
+              torch.from_numpy(np.ascontiguousarray(b_pad, dtype=np.float32)).cuda()]
+    return tables, stores + [zeros, zeros], dev(step_offsets(plan))
+
+
+def superstep_bound(plan, table, R: int) -> tuple[float, str]:
+    """Least time (ms) of one megakernel solve with these inputs: each
+    solved row's lower triangle, each pulled tile, b and the incoming acc
+    read once, acc and x written once, the int32 tables it reads; float32
+    operations B^2 per solved row and 2 B^2 per pulled tile, per column."""
+    B = plan.bs.B
+    rows = int((plan.solve_rows[0] >= 0).sum())
+    tiles = int(table.pull_ptr[-1])  # pulled tiles (the device copy may hold a pad entry)
+    index_ints = plan.solve_rows[0].size + table.n_solve_slots + 1 + 2 * tiles
+    nbytes = 4 * (rows * B * (B + 1) // 2 + tiles * B * B + 4 * rows * B * R + index_ints)
+    flops = R * (rows * B * B + tiles * 2 * B * B)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dyadic(a, seed: int = 0):
+    """Same sparsity, unit diagonal, +-2^-k off-diagonals: every intermediate
+    of a shallow forward substitution is exact in float32."""
+    import numpy as np
+
+    from repro_torch.sparse.matrix import CSR
+
+    rows = np.repeat(np.arange(a.n), np.diff(a.row_ptr))
+    signs = np.random.default_rng(seed).choice(
+        np.array([-0.5, -0.25, 0.25, 0.5], np.float32), size=a.val.shape)
+    return CSR(n=a.n, row_ptr=a.row_ptr, col_idx=a.col_idx,
+               val=np.where(a.col_idx == rows, 1.0, signs).astype(np.float32))
+
+
 def widths(plan, col: int):
     """Per-level bucket widths of schedule ``col`` (0 = solve rows, 1 =
     update tiles): the batch each level hands the kernels."""
@@ -190,8 +264,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA device")
     try:
-        from repro_torch.api import SpTRSVContext
-        from repro_torch.kernels import extension, ref
+        from repro_torch.api import PlanOptions, SpTRSVContext
+        from repro_torch.core.blocking import pad_rhs
+        from repro_torch.core.solver import SolverConfig, build_plan
+        from repro_torch.kernels import extension, ref, superstep
         from repro_torch.kernels import ops as kops
         from repro_torch.krylov import matvec_lower, solve_ic0_pcg, spd_lower_from_triangular
         from repro_torch.sparse import suite
@@ -247,26 +323,19 @@ def main() -> None:
 
     expect = {"block_trsv": with_work(plan, 0) + with_work(tplan, 0),
               "block_gemv": with_work(plan, 1) + with_work(tplan, 1),
-              "block_trsm": with_work(plan, 0), "block_gemm": with_work(plan, 1)}
+              "block_trsm": with_work(plan, 0), "block_gemm": with_work(plan, 1),
+              "superstep": 0}
     check(launches == expect, f"main-path launches {launches} != one per level with work "
                               f"{expect}")
     log(f"phase 3 launches (forward + transpose + panel): {json.dumps(launches)}")
-    errs = {"forward": rel_err(x, reference_solve(a, b)),
-            "transpose": rel_err(xt, spla.spsolve_triangular(
-                to_scipy(a).T.tocsr(), b, lower=False)),
-            "panel_r8": rel_err(xp, reference_solve(a, panel))}
+    want = {"forward": reference_solve(a, b),
+            "transpose": spla.spsolve_triangular(to_scipy(a).T.tocsr(), b, lower=False),
+            "panel_r8": reference_solve(a, panel)}
+    errs = {"forward": rel_err(x, want["forward"]), "transpose": rel_err(xt, want["transpose"]),
+            "panel_r8": rel_err(xp, want["panel_r8"])}
     for form, e in errs.items():
         check(np.isfinite(e) and e <= TOL_SOLVE, f"{form} solve rel err {e:.3e} > {TOL_SOLVE}")
-    timing = {}
-    for form, fn in (("forward", lambda: ctx.solve(h, b)),
-                     ("transpose", lambda: ctx.solve(h, b, transpose=True)),
-                     ("panel_r8", lambda: ctx.solve(h, panel))):
-        reps = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()  # returns host numpy: ends with the device synchronised
-            reps.append(1e3 * (time.perf_counter() - t0))
-        timing[form] = sorted(reps)
+    timing = solve_times(ctx, h, b, panel)
     log("phase 3 rel err vs scipy: " + ", ".join(f"{k}={v:.2e}" for k, v in errs.items()))
     log("phase 3 ms/solve (median of 5; min, max): " + ", ".join(
         f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})" for k, v in timing.items()))
@@ -290,6 +359,127 @@ def main() -> None:
     log(f"phase 4 IC(0)-PCG n={a_spd.n}: {res.n_iters} iterations, {pcg_s:.1f} s "
         f"(analysis + ic0 + iterations), true rel residual {true_res:.2e}, "
         f"launches {json.dumps(pcg_launches)}")
+
+    # 5. the superstep megakernel: each solve is one launch
+    t0 = time.perf_counter()
+    fctx = SpTRSVContext(options=PlanOptions(kernel="fused"))
+    fh = fctx.analyse(a)
+    fctx.executor(fh), fctx.executor(fh, transpose=True)  # plans, tables, upload
+    torch.cuda.synchronize()
+    log(f"phase 5 fused analyse+plan+tables+upload (forward and transpose) "
+        f"{time.perf_counter() - t0:.1f} s")
+    one_launch = {**dict.fromkeys(PER_OP, 0), "superstep": 1}
+    kops.reset_launch_counts()
+    fx = {}
+    for form, fn in (("forward", lambda: fctx.solve(fh, b)),
+                     ("transpose", lambda: fctx.solve(fh, b, transpose=True)),
+                     ("panel_r8", lambda: fctx.solve(fh, panel))):
+        before = kops.launch_counts()
+        fx[form] = fn()
+        after = kops.launch_counts()
+        made = {k: after[k] - before[k] for k in after}
+        check(made == one_launch, f"fused {form} solve launched {made}, not {one_launch}")
+    fused_launches = kops.launch_counts()
+    ferrs = {form: rel_err(fx[form], want[form]) for form in fx}
+    for form, e in ferrs.items():
+        check(np.isfinite(e) and e <= TOL_SOLVE, f"fused {form} rel err {e:.3e} > {TOL_SOLVE}")
+    check(np.array_equal(fctx.solve(fh, b), fx["forward"]),
+          "two fused forward solves of the same b differ")
+    ftiming = solve_times(fctx, fh, b, panel)
+    log("phase 5 fused rel err vs scipy: " + ", ".join(f"{k}={v:.2e}" for k, v in ferrs.items())
+        + "; two forward solves bit-equal")
+    log("phase 5 fused ms/solve (median of 5; min, max), beside phase 3's median: " + ", ".join(
+        f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f}) vs {timing[k][2]:.2f}"
+        for k, v in ftiming.items()))
+
+    # the megakernel against its plain version: bit-identical on a dyadic
+    # problem, within TOL_SOLVE on real values
+    def pad_b(p, rhs):
+        blocks = pad_rhs(np.asarray(rhs, np.float32), p.bs)
+        return np.concatenate([blocks, np.zeros((1,) + blocks.shape[1:], np.float32)])
+
+    dy = dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+    dplan = build_plan(dy, 1, SolverConfig(block_size=16, kernel_backend="fused"))
+    for R in (1, 3):
+        rhs = rng.integers(-4, 5, dy.n if R == 1 else (dy.n, R)).astype(np.float32)
+        tables, vecs, stp = fused_inputs(torch, dplan, pad_b(dplan, rhs))
+        got = superstep.superstep_call(*tables, *vecs, stp=stp)
+        plain_out = ref.superstep_ref(*tables, *vecs, stp=stp)
+        check(all(torch.equal(g, w) for g, w in zip(got, plain_out)),
+              f"megakernel != its plain version on the dyadic problem, R={R}")
+
+    def against_plain(p, rhs):
+        """Max abs and relative error of x, kernel vs plain, and the inputs."""
+        tables, vecs, stp = fused_inputs(torch, p, pad_b(p, rhs))
+        table = superstep.superstep_table(
+            *[t.cpu().numpy() for t in tables], n_rows=p.bs.nb + 1,
+            stp=stp.cpu().numpy()).to("cuda")
+        got = superstep.superstep_call(*tables, *vecs, stp=stp, table=table)[1]
+        plain_x = ref.superstep_ref(*tables, *vecs, stp=stp)[1]
+        torch.cuda.synchronize()
+        e = float((got - plain_x).abs().max())
+        return e, e / float(plain_x.abs().max()), (tables, vecs, stp, table)
+
+    a256 = suite.grid2d_factor(256, seed=6)
+    p256 = build_plan(a256, 1, SolverConfig(kernel_backend="fused"))
+    e256, r256, _ = against_plain(p256, rng.uniform(-1, 1, a256.n))
+    check(r256 <= TOL_SOLVE, f"megakernel vs plain at side 256: rel err {r256:.3e}")
+    fplan = fctx.plan(fh)
+    e_full, r_full, (ftab, fvec, fstp, ftable) = against_plain(fplan, b)
+    check(r_full <= TOL_SOLVE, f"megakernel vs plain at full size: rel err {r_full:.3e}")
+    log(f"phase 5 megakernel vs plain: dyadic bit-identical (R = 1, 3); side 256 max abs "
+        f"{e256:.2e} (rel {r256:.2e}); full size max abs {e_full:.2e} (rel {r_full:.2e})")
+
+    # fused IC(0)-PCG: two megakernel solves per iteration, SpMV on the GEMV kernel
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fres = solve_ic0_pcg(a_spd, b_spd, tol=tol, maxiter=400, config=PlanOptions(kernel="fused"))
+    fpcg_s = time.perf_counter() - t0
+    fpcg_launches = kops.launch_counts()
+    check(fres.converged and fres.n_iters == res.n_iters,
+          f"fused IC(0)-PCG: converged={fres.converged} in {fres.n_iters} iterations, "
+          f"phase 4 took {res.n_iters}")
+    ftrue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, fres.x)) / np.linalg.norm(b_spd))
+    check(ftrue <= 10 * tol, f"fused PCG true residual {ftrue:.3e} > {10 * tol}")
+    check(fpcg_launches["superstep"] == 2 * fres.n_iters and fpcg_launches["block_trsv"] == 0
+          and fpcg_launches["block_gemv"] > 0,
+          f"fused PCG launches {fpcg_launches} for {fres.n_iters} iterations")
+    log(f"phase 5 fused IC(0)-PCG: {fres.n_iters} iterations, {fpcg_s:.1f} s, true rel "
+        f"residual {ftrue:.2e} (phase 4: {true_res:.2e}), launches {json.dumps(fpcg_launches)}")
+
+    # the megakernel's own times at full size, beside its plain version and cuSPARSE
+    fms = time_ms(lambda: superstep.superstep_call(*ftab, *fvec, stp=fstp, table=ftable), 20)
+    b8 = torch.from_numpy(pad_b(fplan, panel)).cuda()
+    z8 = torch.zeros_like(b8)
+    fms8 = time_ms(lambda: superstep.superstep_call(*ftab, *fvec[:2], b8, z8, z8, stp=fstp,
+                                                    table=ftable), 10)
+    fplain_ms = time_ms(lambda: ref.superstep_ref(*ftab, *fvec, stp=fstp), 3, warmup=1)
+    bvec = torch.from_numpy(np.asarray(b, np.float32)).cuda().reshape(-1, 1)
+    sp = to_scipy(a)
+    L_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(sp.indptr.astype(np.int64)), torch.from_numpy(sp.indices.astype(np.int64)),
+        torch.from_numpy(sp.data.astype(np.float32)), size=sp.shape).cuda()
+    try:
+        lib_x = torch.triangular_solve(bvec, L_csr, upper=False).solution
+        lib_err = rel_err(lib_x.cpu().numpy().ravel(), want["forward"])
+        library_ms = (time_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), 5,
+                              warmup=1) if lib_err <= TOL_SOLVE else None)
+        lib_note = f"rel err {lib_err:.2e} vs scipy"
+    except (RuntimeError, NotImplementedError) as e:  # a yardstick only, never on the path
+        library_ms, lib_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+    log(f"phase 5 megakernel {fms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) panel "
+        f"{fms8:.3f} ms, 10 solves), plain version "
+        f"{fplain_ms:.1f} ms, torch.triangular_solve(CSR L) "
+        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'} ({lib_note})")
+    fbound = superstep_bound(fplan, ftable, 1)
+    superstep_row = {
+        "name": "superstep", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{KERNELS['superstep'][1]}",
+        "replaces": KERNELS["superstep"][0], "launches": fused_launches["superstep"],
+        "max_abs_err": e_full, "ms": fms, "plain_ms": fplain_ms,
+        "bound_ms": fbound[0], "bound_by": fbound[1], "library_ms": library_ms,
+        "shape": [a.n, fplan.bs.B, 1],
+    }
 
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     s0, ws = widest(plan, 0)
@@ -346,6 +536,7 @@ def main() -> None:
                     f"library_ms={time_ms(lambda: library[name](mat, vec), 50):.4f} "
                     f"bound_ms={bound(name, k, B, R)[0]:.4f}")
     log("kernel times at k=4096 tiles: " + "; ".join(wide))
+    rows_out.append(superstep_row)
     torch.cuda.synchronize()
 
     print(card)

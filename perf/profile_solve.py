@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Where one triangular solve's time goes on the card.
 
-    python3 perf/profile_solve.py [--side 1024] [--rhs 1]
+    python3 perf/profile_solve.py [--side 1024] [--rhs 1] [--backend cuda|fused]
 
 Builds the ``chip_smoke.py`` main-path problem (``grid2d_factor(side,
-seed=6)``, B = 32, levelset), warms the executor, then traces one forward
-solve with ``torch.profiler`` and prints: the solve's wall time, the summed
-device time of its kernels, the device's idle share of the wall time, and
-the operations ranked by host and by device time. Needs a CUDA device.
+seed=6)``, B = 32, levelset) for the switch executor (``cuda``, the
+default) or the superstep megakernel (``fused``), warms the executor, then
+traces one forward solve with ``torch.profiler`` and prints: the solve's
+wall time, the summed device time of its kernels, the device's idle share
+of the wall time, and the operations ranked by host and by device time.
+For ``fused`` it then splits the megakernel's time with CUDA events: the
+whole launch, a launch with the same levels and barriers but no work (every
+solve slot a pad, no tile updates; it copies every row's carry through
+instead), and one with the row solves but no tile products. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,20 +29,21 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--side", type=int, default=1024)
     parser.add_argument("--rhs", type=int, default=1, help="RHS panel width (1 = vector)")
+    parser.add_argument("--backend", choices=("cuda", "fused"), default="cuda")
     args = parser.parse_args()
 
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api import SpTRSVContext
+    from repro_torch.api import PlanOptions, SpTRSVContext
     from repro_torch.core.blocking import pad_rhs
     from repro_torch.sparse import suite
 
     if not torch.cuda.is_available():
         sys.exit("profile_solve.py needs a CUDA device")
     a = suite.grid2d_factor(args.side, seed=6)
-    ctx = SpTRSVContext()
+    ctx = SpTRSVContext(options=PlanOptions(kernel=args.backend))
     solver = ctx.executor(ctx.analyse(a))
     shape = (a.n,) if args.rhs == 1 else (a.n, args.rhs)
     b = np.random.default_rng(0).uniform(-1, 1, shape)
@@ -60,7 +67,7 @@ def main() -> None:
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"[profile] {torch.cuda.get_device_name(0)}; n={a.n} levels={solver.plan.n_levels} "
-          f"R={args.rhs}")
+          f"R={args.rhs} backend={args.backend}")
     print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms, traced {traced_ms:.2f} ms; "
           f"device kernel time {device_us / 1e3:.3f} ms; device idle share "
           f"{1 - device_us / 1e3 / traced_ms:.4f} of the traced wall")
@@ -68,6 +75,54 @@ def main() -> None:
                                     max_name_column_width=48))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=48))
+    if args.backend == "fused":
+        megakernel_split(solver, b_blocks)
+
+
+def megakernel_split(solver, b_blocks) -> None:
+    """ms of the whole megakernel launch and of two stripped launches over
+    the same levels (CUDA events, mean of 10 after a warm call)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solver import level_widths
+    from repro_torch.kernels import superstep
+
+    plan, fused = solver.plan, solver._fused
+    b_pad = torch.cat([b_blocks, b_blocks.new_zeros((1,) + b_blocks.shape[1:])])
+    zeros = torch.zeros_like(b_pad)
+
+    def dev(t):
+        return torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).cuda()
+
+    def timed(tables, stp):
+        table = superstep.superstep_table(*[t.cpu().numpy() for t in tables],
+                                          n_rows=plan.bs.nb + 1,
+                                          stp=stp.cpu().numpy()).to("cuda")
+
+        def run():
+            superstep.superstep_call(*tables, solver._diag, solver._tiles, b_pad, zeros,
+                                     zeros, stp=stp, table=table)
+
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 10
+
+    seg, off, wid, sr, ut, trow, tcol = fused.tables
+    no_updates = level_widths(plan).copy()
+    no_updates[:, 1] = 0
+    pads = np.full_like(plan.solve_rows[0], -1)
+    whole = timed(fused.tables, fused.stp)
+    barriers = timed([seg, off, dev(no_updates), dev(pads), ut, trow, tcol], fused.stp)
+    solves = timed([seg, off, dev(no_updates), sr, ut, trow, tcol], fused.stp)
+    print(f"[profile] megakernel split (ms per launch): whole {whole:.3f}; barriers only "
+          f"{barriers:.3f}; row solves without tile products {solves:.3f}")
 
 
 if __name__ == "__main__":

@@ -7,16 +7,20 @@ tiles live on the owner of their *column*, and every schedule is stored
 ``ex_rows``) plus per-level offsets (``lvl_off``), each level's slice padded
 only up to a *bucket width* from a small ladder (``Plan.buckets``).
 
-Execution (:class:`Solver`) is the per-level switch executor on one device:
-for each block level, gather the level's rows, solve their diagonal tiles
-(block TRSV/TRSM), then apply the tile updates they source (block
-GEMV/GEMM) with an ``index_add_`` into the accumulator. Level offsets and
-widths are host Python ints, so the loop never waits on the device.
+Execution (:class:`Solver`) runs on one device, by one of two executors:
+
+* the per-level switch executor: for each block level, gather the level's
+  rows, solve their diagonal tiles (block TRSV/TRSM), then apply the tile
+  updates they source (block GEMV/GEMM) with an ``index_add_`` into the
+  accumulator. Level offsets and widths are host Python ints, so the loop
+  never waits on the device;
+* ``kernel_backend="fused"``: the whole solve is one launch of the resident
+  superstep megakernel (:mod:`repro_torch.kernels.superstep`).
 
 Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
-exchange), ``sched="syncfree"``, and the fused superstep megakernel
-(``kernel_backend="fused"``/``"fused_streamed"``). Plans for all of them
-build; executing one raises ``NotImplementedError``.
+exchange), ``sched="syncfree"`` and the streamed megakernel
+(``kernel_backend="fused_streamed"``). Plans for all of them build;
+executing one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.core.partition import (
     STRATEGIES, Partition, make_partition, merge_levels,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, superstep
 from repro_torch.sparse.matrix import CSR, reverse_transpose
 
 MAX_BUCKETS = 12  # cap on distinct (solve, update, exchange) width combos
@@ -430,40 +434,35 @@ def fused_segments(plan: Plan) -> np.ndarray:
     return np.stack([starts, his], axis=1)
 
 
-# The fused megakernel's on-chip budget. The value is the reference's TPU
-# VMEM threshold (8 MiB), kept only so dispatch_stats reports the same keys;
-# it is a placeholder until the megakernel slice derives the budget from
-# Hopper's shared memory (227 KB per block).
-DEFAULT_STREAM_VMEM_LIMIT = 8 * 2**20
+# The fused executor on Hopper. The reference's resident megakernel holds
+# the diag/tile stores in the TPU core's VMEM, so above a VMEM budget
+# (8 MiB by default) "fused" upgrades itself to streaming them. The port's
+# resident kernel reads the stores from HBM and keeps only per-warp columns
+# in shared memory, so its on-chip footprint does not grow with the plan:
+# "fused" never streams, and only kernel_backend="fused_streamed" selects
+# the streamed form (not ported yet; ROADMAP.md, Queue 2 #8).
 
 
-def stream_vmem_limit() -> int:
-    """Resident-store budget (bytes) above which a fused plan would stream
-    its tile store. Placeholder: see ``DEFAULT_STREAM_VMEM_LIMIT``."""
-    return DEFAULT_STREAM_VMEM_LIMIT
+def fused_vmem_bytes(plan: Plan, *, streamed: bool = False) -> int:
+    """On-chip bytes of one fused launch, by the port's Hopper rule.
 
-
-def fused_vmem_bytes(plan: Plan, R: int = 1, *, streamed: bool = False) -> int:
-    """Estimated on-chip footprint (bytes) of one fused superstep launch, by
-    the reference's TPU formula (resident: whole diag + tile stores; streamed:
-    two buffers of the widest superstep slice; carries and rhs in both).
-    Placeholder numbers until the megakernel slice re-derives them for Hopper."""
+    Resident: the megakernel's dynamic shared memory per CTA
+    (:func:`repro_torch.kernels.superstep.shared_bytes`: a staging buffer
+    and two columns of B floats per warp), whatever the plan's size or the
+    panel width (a panel column is a work item of its own). Streamed: the
+    two buffers of the widest superstep slice that a streamed form stages
+    on chip, ``2 (ws + wu) B^2`` floats, as in the reference; the carries
+    stay in HBM and are not counted.
+    """
     B = plan.bs.B
-    itemsize = 4
-    vec = (plan.bs.nb + 1) * B * max(1, R) * itemsize
-    n_carry = 3 if (plan.config.comm == "unified" and plan.n_devices > 1
-                    and plan.n_boundary_rows > 0) else 2
-    vecs = (2 * n_carry + 1) * vec  # carry in + carry out windows + b_pad
-    if streamed:
-        if plan.n_levels:
-            wid = step_widths(plan)
-            ws, wu = int(wid[:, 0].max()), int(wid[:, 1].max())
-        else:
-            ws = wu = 0
-        store = 2 * (max(1, ws) + max(1, wu)) * B * B * itemsize
+    if not streamed:
+        return superstep.shared_bytes(B)
+    if plan.n_levels:
+        wid = step_widths(plan)
+        ws, wu = int(wid[:, 0].max()), int(wid[:, 1].max())
     else:
-        store = (plan.diag.shape[0] + plan.tiles.shape[1]) * B * B * itemsize
-    return store + vecs
+        ws = wu = 0
+    return 2 * (max(1, ws) + max(1, wu)) * B * B * 4
 
 
 def stream_dma_bytes_per_solve(plan: Plan) -> int:
@@ -475,19 +474,12 @@ def stream_dma_bytes_per_solve(plan: Plan) -> int:
     return int(wid[:, 0].sum() + wid[:, 1].sum()) * plan.bs.B * plan.bs.B * 4
 
 
-def fused_streaming(plan: Plan, R: int | None = None) -> bool:
-    """Whether ``plan``'s fused levelset executor would use the streaming
-    store: explicitly (``kernel_backend="fused_streamed"``) or because the
-    resident footprint exceeds :func:`stream_vmem_limit`."""
-    if plan.config.sched not in LEVELSET_SCHEDS:
-        return False
-    backend = plan.config.kernel_backend
-    if backend == "fused_streamed":
-        return True
-    if backend != "fused":
-        return False
-    R = plan.config.rhs_hint if R is None else R
-    return fused_vmem_bytes(plan, R, streamed=False) > stream_vmem_limit()
+def fused_streaming(plan: Plan) -> bool:
+    """Whether ``plan``'s fused levelset executor uses the streamed store:
+    only when asked for by ``kernel_backend="fused_streamed"`` (see the rule
+    above)."""
+    return (plan.config.sched in LEVELSET_SCHEDS
+            and plan.config.kernel_backend == "fused_streamed")
 
 
 def schedule_table_bytes(plan: Plan) -> int:
@@ -505,9 +497,10 @@ def dispatch_stats(plan: Plan) -> dict:
 
     ``switch_dispatches`` counts the switch executor's kernel dispatches
     (gather+TRSV and GEMV+scatter per level with work, plus exchanges);
-    ``fused_launches`` the megakernel launches a fused plan would make;
-    ``fused_vmem_bytes``/``stream_dma_bytes`` are the placeholder TPU-formula
-    numbers described at :func:`fused_vmem_bytes`. ``supersteps`` is the
+    ``fused_launches`` the megakernel launches a fused plan makes;
+    ``streamed``, ``fused_vmem_bytes`` and ``stream_dma_bytes`` follow the
+    port's Hopper rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`),
+    not the reference's VMEM budget. ``supersteps`` is the
     bulk-synchronous step count, ``supersteps_levelset`` the unmerged block
     level count, ``superstep_reduction`` their ratio.
     """
@@ -524,8 +517,7 @@ def dispatch_stats(plan: Plan) -> dict:
     n_steps = plan.n_supersteps
     return {"switch_dispatches": switch, "fused_launches": int(len(fused_segments(plan))),
             "exchanges": n_ex, "streamed": streamed,
-            "fused_vmem_bytes": fused_vmem_bytes(
-                plan, plan.config.rhs_hint, streamed=streamed),
+            "fused_vmem_bytes": fused_vmem_bytes(plan, streamed=streamed),
             "stream_dma_bytes": stream_dma_bytes_per_solve(plan) if streamed else 0,
             "supersteps": n_steps,
             "supersteps_levelset": plan.n_levels,
@@ -590,6 +582,33 @@ def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
     return x
 
 
+class _FusedSchedule:
+    """A plan's megakernel launch, built once per executor: the reference's
+    tables for the whole solve (``seg = [0, n_supersteps]``) as int32 device
+    tensors and, on a card, the kernel's pull table
+    (:func:`repro_torch.kernels.superstep.superstep_table`)."""
+
+    def __init__(self, plan: Plan, device: torch.device):
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+
+        host = ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan),
+                plan.solve_rows[0], plan.upd_tiles[0], plan.tile_row[0], plan.tile_col[0])
+        self.tables = tuple(dev(t) for t in host)
+        self.stp = dev(step_offsets(plan))
+        self.table = None
+        if device.type == "cuda":
+            self.table = superstep.superstep_table(
+                *host, n_rows=plan.bs.nb + 1, stp=step_offsets(plan)).to(device)
+
+    def run(self, diag: torch.Tensor, tiles: torch.Tensor, b_pad: torch.Tensor) -> torch.Tensor:
+        """One megakernel launch over the whole schedule; returns ``x``."""
+        zeros = torch.zeros_like(b_pad)
+        _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
+                                        stp=self.stp, table=self.table)
+        return x
+
+
 def _check_executable(plan: Plan, backend: str) -> None:
     """Raise for plans whose executor is not ported yet."""
     if plan.n_devices != 1:
@@ -597,7 +616,7 @@ def _check_executable(plan: Plan, backend: str) -> None:
             f"multi-device execution (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
     if plan.config.sched not in LEVELSET_SCHEDS:
         raise NotImplementedError(f"sched {plan.config.sched!r} execution is {ops.NOT_PORTED}")
-    if backend in ops.FUSED_BACKENDS:
+    if backend == "fused_streamed":
         raise NotImplementedError(f"kernel backend {backend!r} is {ops.NOT_PORTED}")
 
 
@@ -612,7 +631,10 @@ class Solver:
     ``DistributedSolver`` with one device).
 
     Plan values and schedule live on ``device`` (``None`` means the card).
-    ``n_solves`` counts invocations; a multi-RHS panel counts once.
+    ``kernel_backend="fused"`` runs each solve as one superstep megakernel
+    launch (the reference's ``solve_local`` fused branch); the other
+    backends run the per-level switch executor. ``n_solves`` counts
+    invocations; a multi-RHS panel counts once.
     """
 
     def __init__(self, plan: Plan, device: str | torch.device | None = None):
@@ -621,7 +643,10 @@ class Solver:
         _check_executable(plan, self.backend)
         self.plan = plan
         self.n_solves = 0
-        self._sched = _Schedule(plan, self.device)
+        if self.backend == "fused":
+            self._fused, self._sched = _FusedSchedule(plan, self.device), None
+        else:
+            self._fused, self._sched = None, _Schedule(plan, self.device)
         self._load_values(plan)
 
     def _load_values(self, plan: Plan) -> None:
@@ -653,8 +678,11 @@ class Solver:
         self.n_solves += 1
         b_blocks = b_blocks.to(self.device, torch.float32)
         b_pad = torch.cat([b_blocks, b_blocks.new_zeros((1,) + b_blocks.shape[1:])])
-        x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
-                        self.backend, self.plan.config.gemv_group)
+        if self._fused is not None:
+            x = self._fused.run(self._diag, self._tiles, b_pad)
+        else:
+            x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
+                            self.backend, self.plan.config.gemv_group)
         return x[: self.plan.bs.nb]
 
     def solve(self, b: np.ndarray) -> np.ndarray:

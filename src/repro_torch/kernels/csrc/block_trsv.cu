@@ -8,7 +8,8 @@
 //
 // Arithmetic, kept op for op from the reference: row i takes the dot of
 // L[i, :i] with the solved prefix x[:i] (reduced across the 32 lanes of a
-// warp), then x[i] = (r[i] - s) / L[i, i] with an IEEE division.
+// warp), then x[i] = (r[i] - s) / L[i, i] with an IEEE division. The sweep
+// lives in rowsweep.cuh, shared with the superstep megakernel.
 //
 // Bound: the least time for the work is set by bytes (each lower triangle
 // read once, at about one flop per byte). The kernel does not approach it:
@@ -24,31 +25,13 @@
 
 #include <cuda_runtime.h>
 
+#include "rowsweep.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using repro::kWarp;
+using repro::sweep_column;
 constexpr int kMaxTrsmWarps = 16;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Forward substitution of one column held in shared memory: xc holds the
-// right-hand side on entry and the solution on exit. Only lane 0 writes
-// xc[i]; __syncwarp orders that write before the next row's reads.
-__device__ __forceinline__ void sweep_column(const float* __restrict__ Lt, float* xc,
-                                             int B, int lane) {
-  for (int i = 0; i < B; ++i) {
-    const float* li = Lt + static_cast<size_t>(i) * B;
-    float p = 0.f;
-    for (int j = lane; j < i; j += kWarp) p += __ldg(li + j) * xc[j];
-    const float s = warp_sum(p);
-    if (lane == 0) xc[i] = __fdiv_rn(xc[i] - s, __ldg(li + i));
-    __syncwarp();
-  }
-}
 
 // One warp per tile; x staged in shared memory (B floats).
 __global__ void trsv_rowsweep_kernel(const float* __restrict__ L, const float* __restrict__ r,

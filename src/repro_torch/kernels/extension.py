@@ -2,11 +2,12 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared library
 with a plain C interface, loaded with :mod:`ctypes`; no source includes
-PyTorch's headers, so a build takes seconds rather than minutes. Builds
-happen at first use (or through :func:`build`, which compiles every source
-in parallel) into ``build/torch_ext/`` at the repository root, a directory
-``.gitignore`` lists. A library is named by a digest of its source and the
-compiler flags, so an edited source never loads a stale build.
+PyTorch's headers, so a build takes seconds rather than minutes. Device code
+that several sources share lives in ``csrc/*.cuh``. Builds happen at first
+use (or through :func:`build`, which compiles every source in parallel) into
+``build/torch_ext/`` at the repository root, a directory ``.gitignore``
+lists. A library is named by a digest of its source, the shared headers and
+the compiler flags, so an edited source never loads a stale build.
 
 Flags: ``-O3`` and no ``--use_fast_math``: the row sweep's division
 ``(r_i - s) / L[i, i]`` must stay an IEEE division. ``-cudart shared`` links
@@ -38,7 +39,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("block_trsv", "block_spmv")
+SOURCES = ("block_trsv", "block_spmv", "superstep")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-cudart", "shared", "-Xcompiler", "-fPIC")
 
@@ -50,6 +51,9 @@ SIGNATURES = {
                    "repro_trsm_f32": (_P, _P, _P, _I, _I, _I, _P)},
     "block_spmv": {"repro_gemv_f32": (_P, _P, _P, _I, _I, _P),
                    "repro_gemm_f32": (_P, _P, _P, _I, _I, _I, _P)},
+    # eight table pointers, seven tensor pointers, then the sizes
+    "superstep": {"repro_superstep_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
+                  "repro_superstep_panel_f32": (_P,) * 15 + (_I,) * 9 + (_P,)},
 }
 
 
@@ -66,6 +70,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources' shared device code
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 

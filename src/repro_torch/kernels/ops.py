@@ -8,9 +8,18 @@ Backends (the reference package's names on the left):
   (:mod:`~repro_torch.kernels.block_trsv`, :mod:`~repro_torch.kernels.block_spmv`),
   the default on a CUDA device. Given CPU tensors, their wrappers run the
   plain versions, so the same code path is testable without a card.
-* ``fused`` / ``fused_streamed``: the superstep megakernel executors. Not
-  ported yet (ROADMAP.md, Queue 2): plans may name them, executing one raises
+* ``fused``     -> ``fused``: an *executor-level* backend. A single-device
+  levelset or dagpart solve is one launch of the resident superstep
+  megakernel (:mod:`~repro_torch.kernels.superstep`), which makes no per-op
+  call; on CPU tensors its wrapper runs the plain version.
+* ``fused_streamed``: the megakernel with the streamed tile store. Not
+  ported yet (ROADMAP.md, Queue 2): plans may name it, executing one raises
   ``NotImplementedError``.
+
+Per-op calls (:func:`batched_block_trsv`, :func:`batched_block_gemv`) under
+either fused backend raise: the fused executor makes none, and a caller that
+wants the per-op kernels beside a fused solve (the Krylov SpMV) resolves its
+own backend with :func:`per_op_backend`.
 
 Every op accepts either a single right-hand side per tile (``(k, B)``) or a
 multi-RHS panel (``(k, B, R)``) and dispatches on that rank.
@@ -22,11 +31,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_spmv import block_gemm, block_gemv
 from repro_torch.kernels.block_trsv import block_trsm, block_trsv
+from repro_torch.kernels.superstep import superstep_call
 
 BACKENDS = ("reference", "cuda", "fused", "fused_streamed")
 FUSED_BACKENDS = ("fused", "fused_streamed")
 KERNELS = {"block_trsv": block_trsv, "block_trsm": block_trsm,
-           "block_gemv": block_gemv, "block_gemm": block_gemm}
+           "block_gemv": block_gemv, "block_gemm": block_gemm,
+           "superstep": superstep_call}
 
 NOT_PORTED = "not ported to the PyTorch/CUDA package yet (see ROADMAP.md, Queues 1 and 2)"
 
@@ -46,6 +57,14 @@ def op_backend(backend: str | None, device: torch.device) -> str:
     if b in FUSED_BACKENDS:
         raise NotImplementedError(f"kernel backend {b!r} is {NOT_PORTED}")
     return b
+
+
+def per_op_backend(backend: str | None, device: torch.device) -> str:
+    """The per-op backend for a caller that runs block ops beside a solve:
+    a fused backend maps to the device's default (``"cuda"`` on a card,
+    ``"reference"`` on the CPU)."""
+    b = executor_backend(backend, device)
+    return executor_backend(None, device) if b in FUSED_BACKENDS else b
 
 
 def bcast_trailing(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

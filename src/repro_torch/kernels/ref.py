@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the four block kernels.
+"""Plain PyTorch versions of the block kernels and of the superstep
+megakernel.
 
 They are the CPU path of every kernel wrapper, the ``"reference"`` backend,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card. They
-call library routines (``torch.linalg.solve_triangular``, ``einsum``), so
-nothing on the ``"cuda"`` backend's path calls them with a CUDA tensor.
+call library routines (``torch.linalg.solve_triangular``, ``einsum``,
+``index_add_``), so nothing on the ``"cuda"`` or ``"fused"`` backend's path
+calls them with a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -24,3 +26,34 @@ def block_gemv_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     if xs.ndim == 3:
         return torch.einsum("mij,mjr->mir", tiles, xs)
     return torch.einsum("mij,mj->mi", tiles, xs)
+
+
+def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x, stp=None):
+    """The resident superstep megakernel's function, level by level: for
+    each superstep ``seg[0] <= s < seg[0] + seg[1]`` and each of its levels
+    ``stp[s] <= t < stp[s+1]`` in order, solve the level's rows
+    ``sr[off[t,0]:][:wid[t,0]]`` (pad ``-1`` skipped) with
+    ``rhs = b - acc``, then apply its tile updates
+    ``acc[trow[j]] += tiles[j] @ x[tcol[j]]`` for ``j`` in
+    ``ut[off[t,1]:][:wid[t,1]]``, in schedule order. ``stp=None`` means one
+    level per superstep. Returns new ``(acc, x)``; the carries passed in are
+    not modified. ``b_pad``/``acc``/``x`` are ``(nb+1, B)`` or ``(nb+1, B, R)``.
+    """
+    acc, x = acc.clone(), x.clone()
+    if off.shape[0] == 0:
+        return acc, x
+    off_h, wid_h = off.tolist(), wid.tolist()
+    s0, n_steps = (int(v) for v in seg.tolist())
+    stp_h = list(range(off.shape[0] + 1)) if stp is None else stp.tolist()
+    sr, ut, trow, tcol = (v.long() for v in (sr, ut, trow, tcol))
+    for t in range(stp_h[s0], stp_h[s0 + n_steps]):
+        o, w = off_h[t][0], wid_h[t][0]
+        rows = sr[o:o + w]
+        rows = rows[rows >= 0]
+        if rows.numel():
+            x[rows] = block_trsv_ref(diag[rows], b_pad[rows] - acc[rows])
+        o, w = off_h[t][1], wid_h[t][1]
+        if w:
+            tids = ut[o:o + w]
+            acc.index_add_(0, trow[tids], block_gemv_ref(tiles[tids], x[tcol[tids]]))
+    return acc, x

@@ -42,7 +42,9 @@ class SpMV:
                 f"multi-device SpMV (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
         self.plan = plan
         self.device = resolve_device(device)
-        self.backend = ops.op_backend(plan.config.kernel_backend, self.device)
+        # a fused plan's solves are megakernel launches; its matvec keeps the
+        # per-tile GEMV kernels
+        self.backend = ops.per_op_backend(plan.config.kernel_backend, self.device)
         self.n_matvecs = 0
         nb = plan.bs.nb
 

@@ -20,6 +20,7 @@ from repro_torch.sparse.matrix import CSR
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # float32, different summation orders
+PER_OP_KERNELS = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 
 
 @pytest.fixture
@@ -103,7 +104,7 @@ def test_dyadic_solves_bit_identical_to_cpu(cuda_device, B, sched):
         np.testing.assert_array_equal(card.solve(hc, rhs, transpose=transpose),
                                       cpu.solve(hp, rhs, transpose=transpose))
     counts = ops.launch_counts()
-    assert all(counts[k] > 0 for k in ops.KERNELS), counts
+    assert all(counts[k] > 0 for k in PER_OP_KERNELS) and counts["superstep"] == 0, counts
 
 
 def test_ic0_pcg_on_the_card_matches_cpu(cuda_device):
@@ -115,3 +116,81 @@ def test_ic0_pcg_on_the_card_matches_cpu(cuda_device):
     assert on_card.converged and on_card.n_iters == on_cpu.n_iters
     np.testing.assert_allclose(on_card.history, on_cpu.history, rtol=1e-4, atol=1e-12)
     assert on_card.info["context"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the superstep megakernel (kernel_backend="fused")
+# ---------------------------------------------------------------------------
+
+
+def _fused_tables(plan, device):
+    """The reference's tables of a one-device plan as int32 tensors."""
+    from repro_torch.core.solver import level_widths, step_offsets
+
+    host = ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan), plan.solve_rows[0],
+            plan.upd_tiles[0], plan.tile_row[0], plan.tile_col[0])
+    dev = [torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(device) for t in host]
+    stp = torch.from_numpy(np.ascontiguousarray(step_offsets(plan), dtype=np.int32))
+    return dev, stp.to(device)
+
+
+@pytest.mark.parametrize("B,sched,R", [(8, "levelset", 1), (16, "dagpart", 3),
+                                       (32, "levelset", 2)])
+def test_megakernel_bit_identical_to_plain_version_on_dyadic(cuda_device, B, sched, R):
+    from repro_torch.core.solver import SolverConfig, build_plan
+    from repro_torch.kernels import superstep
+
+    a = _dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+    plan = build_plan(a, 1, SolverConfig(block_size=B, sched=sched, kernel_backend="fused"))
+    rng = np.random.default_rng(B)
+    shape = (plan.bs.nb + 1, B) if R == 1 else (plan.bs.nb + 1, B, R)
+    b_pad = rng.integers(-4, 5, shape).astype(np.float32)
+    b_pad[-1] = 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        tables, stp = _fused_tables(plan, dev)
+        zeros = torch.zeros(shape, device=dev)
+        acc, x = superstep.superstep_call(
+            *tables, torch.from_numpy(plan.diag).to(dev),
+            torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(dev),
+            torch.from_numpy(b_pad).to(dev), zeros, zeros, stp=stp)
+        outs[str(dev)] = (acc.cpu().numpy(), x.cpu().numpy())
+    np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
+
+
+def test_fused_solves_are_deterministic_and_one_launch_each(cuda_device):
+    a = suite.grid2d_factor(64, seed=6)
+    b = np.random.default_rng(4).uniform(-1, 1, a.n)
+    panel = np.random.default_rng(5).uniform(-1, 1, (a.n, 4))
+    ctx = SpTRSVContext(options=PlanOptions(block_size=32, kernel="fused"))
+    h = ctx.analyse(a)
+    for rhs, transpose in ((b, False), (b, True), (panel, False)):
+        ops.reset_launch_counts()
+        x1 = ctx.solve(h, rhs, transpose=transpose)
+        assert ops.launch_counts() == {**dict.fromkeys(PER_OP_KERNELS, 0), "superstep": 1}
+        x2 = ctx.solve(h, rhs, transpose=transpose)
+        np.testing.assert_array_equal(x1, x2)  # no atomics: the same bits every run
+    cpu = SpTRSVContext(device="cpu", options=PlanOptions(block_size=32))
+    np.testing.assert_allclose(x1, cpu.solve(cpu.analyse(a), panel), rtol=2e-4, atol=2e-4)
+
+
+def test_refused_cooperative_launch_raises_and_next_launch_is_clean(cuda_device):
+    from repro_torch.kernels import superstep
+
+    a = suite.grid2d_factor(32, seed=6)
+    ctx = SpTRSVContext(options=PlanOptions(block_size=32, kernel="fused"))
+    h = ctx.analyse(a)
+    b = np.random.default_rng(6).uniform(-1, 1, a.n)
+    x = ctx.solve(h, b)
+    solver = ctx.executor(h)
+    fused = solver._fused
+    b_pad = torch.zeros(solver.plan.bs.nb + 1, 32, device=cuda_device)
+    too_many = 10**6  # CTAs: more than any card holds at once
+    before = superstep.superstep_call.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        superstep.superstep_call(*fused.tables, solver._diag, solver._tiles, b_pad, b_pad,
+                                 b_pad, stp=fused.stp, table=fused.table, grid=too_many)
+    assert superstep.superstep_call.launches == before
+    np.testing.assert_array_equal(ctx.solve(h, b), x)
+    torch.cuda.synchronize()

@@ -1,14 +1,15 @@
 """Port host side: sparse containers, suite generators, blocking, analysis,
 partitions and plans are byte-identical to the reference package's."""
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
 
 import strategies
 from torch_parity import (
-    assert_arrays_identical, assert_plans_identical, flatten_plan, port_config,
-    to_torch_csr,
+    assert_arrays_identical, assert_dispatch_stats_match, assert_plans_identical,
+    flatten_plan, port_config, to_torch_csr,
 )
 from repro.core import analysis as janalysis, blocking as jblocking, partition as jpartition
 from repro.core.solver import SolverConfig, build_plan, dispatch_stats, refresh_plan
@@ -106,20 +107,24 @@ def test_plans_identical(matrix, sched, partition, D, transpose):
         port = tsolver.build_plan(to_torch_csr(a), D, port_config(cfg), transpose=transpose)
         assert_plans_identical(ref, port)
         assert ref.comm_bytes_per_solve == port.comm_bytes_per_solve
-        assert dispatch_stats(ref) == tsolver.dispatch_stats(port)
+        assert_dispatch_stats_match(dispatch_stats(ref), ref, tsolver.dispatch_stats(port))
 
 
 def test_syncfree_and_fused_plans_identical():
-    """Plans the port cannot execute yet still build byte-identically, and
-    report the reference's dispatch statistics."""
+    """Syncfree and fused plans build byte-identically and report the
+    reference's dispatch statistics, but for the fused executor's on-chip
+    plan, which follows the port's rule."""
     a = strategies.SOLVER_MATRICES["levelled"]()
-    for kw in ({"sched": "syncfree"}, {"kernel_backend": "fused"},
-               {"kernel_backend": "fused_streamed"}):
+    for D, kw in itertools.product((1, 2), ({"sched": "syncfree"}, {"kernel_backend": "fused"},
+                                            {"kernel_backend": "fused_streamed"})):
         cfg = SolverConfig(block_size=16, **kw)
-        ref = build_plan(a, 2, cfg)
-        port = tsolver.build_plan(to_torch_csr(a), 2, port_config(cfg))
+        ref = build_plan(a, D, cfg)
+        port = tsolver.build_plan(to_torch_csr(a), D, port_config(cfg))
         assert_plans_identical(ref, port)
-        assert dispatch_stats(ref) == tsolver.dispatch_stats(port)
+        assert_dispatch_stats_match(dispatch_stats(ref), ref, tsolver.dispatch_stats(port))
+    # this plan is small: the reference keeps it resident too
+    assert not dispatch_stats(build_plan(a, 1, SolverConfig(block_size=16,
+                                                            kernel_backend="fused")))["streamed"]
 
 
 def test_partition_reuse_and_refresh_identical():
@@ -158,4 +163,4 @@ def test_degenerate_plans_identical():
         ref = build_plan(a, 1, cfg)
         port = tsolver.build_plan(to_torch_csr(a), 1, port_config(cfg))
         assert_plans_identical(ref, port)
-        assert dispatch_stats(ref) == tsolver.dispatch_stats(port)
+        assert_dispatch_stats_match(dispatch_stats(ref), ref, tsolver.dispatch_stats(port))

@@ -72,3 +72,42 @@ def assert_plans_identical(ref_plan, port_plan) -> None:
     for name in PART_FIELDS:
         assert_arrays_identical(getattr(ref_plan.part, name),
                                 getattr(port_plan.part, name), f"part.{name}")
+
+
+# dispatch_stats keys that follow the port's Hopper rule for the fused
+# executor's on-chip plan (core/solver.py) instead of the reference's TPU
+# VMEM budget: the resident kernel reads the stores from HBM, so only
+# kernel_backend="fused_streamed" streams, and "fused_vmem_bytes" is the
+# resident megakernel's shared memory per CTA
+HOPPER_FUSED_KEYS = ("streamed", "fused_vmem_bytes", "stream_dma_bytes")
+
+
+def hopper_fused_stats(ref_plan) -> dict:
+    """The three keys by the port's rule, computed from the reference's plan."""
+    from repro.core.solver import level_widths, step_widths
+
+    B = ref_plan.bs.B
+    streamed = (ref_plan.config.sched in ("levelset", "dagpart")
+                and ref_plan.config.kernel_backend == "fused_streamed")
+    if not streamed:
+        # 8 warps, each with a 1056-float staging buffer and two B-float columns
+        return {"streamed": False, "stream_dma_bytes": 0,
+                "fused_vmem_bytes": 4 * 8 * (33 * 32 + 2 * B)}
+    ws = wu = 0
+    if ref_plan.n_levels:
+        ws, wu = (int(w) for w in step_widths(ref_plan)[:, :2].max(axis=0))
+    dma = 0
+    if ref_plan.n_levels:
+        dma = int(level_widths(ref_plan)[:, :2].sum()) * B * B * 4
+    return {"streamed": True, "stream_dma_bytes": dma,
+            "fused_vmem_bytes": 2 * (max(1, ws) + max(1, wu)) * B * B * 4}
+
+
+def assert_dispatch_stats_match(ref_stats: dict, ref_plan, port_stats: dict) -> None:
+    """Every key equals the reference's but the three of
+    :data:`HOPPER_FUSED_KEYS`, which equal :func:`hopper_fused_stats`."""
+    assert set(port_stats) == set(ref_stats)
+    for key, want in ref_stats.items():
+        if key not in HOPPER_FUSED_KEYS:
+            assert port_stats[key] == want, key
+    assert {k: port_stats[k] for k in HOPPER_FUSED_KEYS} == hopper_fused_stats(ref_plan)
