@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~1 minute; no options
+    python3 chip_smoke.py            # full size, one card, ~3 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
-2. hold each kernel (TRSV, TRSM, GEMV, GEMM) against its plain PyTorch
-   version on the card, rtol = atol = 2e-5 (float32; the kernels and the
-   plain versions sum in different orders);
+2. hold each per-op kernel (TRSV, TRSM, GEMV, GEMM, panel TRSV, grouped
+   GEMV) against its plain PyTorch version on the card, rtol = atol = 2e-5
+   (float32; the kernels and the plain versions sum in different orders),
+   bit-identical on dyadic batches; grouped GEMV bit-equal to GEMV, also
+   for a batch that is no multiple of the group;
 3. the main path at full size: the suite's ``delaunay_n20`` generator at its
    Table-I size (``grid2d_factor(1024, seed=6)``, n = 1,048,576, B = 32,
    levelset, taskpool) through ``SpTRSVContext().analyse`` -> ``solve`` for
    ``L x = b``, ``L^T x = b`` and an (n, 8) panel, each within 2e-4
    (``max|x - x_ref| / max|x|``) of scipy; every kernel must have been
-   launched by this phase, exactly once per level that has work;
+   launched by this phase, exactly once per level that has work; then a
+   forward solve with ``PlanOptions(gemv_group=8)`` (one grouped GEMV per
+   level with updates) and the panel TRSV's entry point
+   (``ops.batched_block_trsv(algorithm="panel")``) on every level's tiles;
 4. IC(0)-PCG (``solve_ic0_pcg``) on the SPD matrix of ``grid2d_factor(512)``
    to ``tol = 1e-6``: the true residual must be within 10 * tol and each
    triangular sweep must run once per iteration;
@@ -24,7 +29,14 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    launch, two forward solves bit-equal; the kernel against its plain
    version (bit-identical on a dyadic problem, within 2e-4 on
    ``grid2d_factor(256)`` and on the full factor); fused IC(0)-PCG with
-   phase 4's iterations and residual bound.
+   phase 4's iterations and residual bound;
+6. the streamed megakernel (``PlanOptions(kernel="fused_streamed")``) on the
+   same factor: the same three solves, each one streamed launch and
+   bit-equal to phase 5's result; the kernel against its plain version
+   (bit-identical on the dyadic problem at B = 16 and B = 7, within 2e-4 at
+   side 256 and full size); a refresh solving with the new values;
+   streamed IC(0)-PCG; its times, and the streamed-vs-resident time per
+   solve at sides 256, 512 and 1024.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound, prints
@@ -57,7 +69,10 @@ KERNELS = {
     "block_trsm": ("src/repro/kernels/block_trsv.py:77", "block_trsv.cu"),
     "block_gemv": ("src/repro/kernels/block_spmv.py:23", "block_spmv.cu"),
     "block_gemm": ("src/repro/kernels/block_spmv.py:54", "block_spmv.cu"),
+    "block_trsv_panel": ("src/repro/kernels/block_trsv.py:41", "block_trsv.cu"),
+    "block_gemv_grouped": ("src/repro/kernels/block_spmv.py:30", "block_spmv.cu"),
     "superstep": ("src/repro/kernels/superstep.py:146", "superstep.cu"),
+    "superstep_streamed": ("src/repro/kernels/superstep.py:182", "superstep.cu"),
 }
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 
@@ -109,7 +124,7 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 def bound(name: str, k: int, B: int, R: int) -> tuple[float, str]:
     """Least time (ms) for the work: each input read once, each output
     written once, at peak bandwidth; its float32 operations at peak rate."""
-    if name in ("block_trsv", "block_trsm"):
+    if name.startswith("block_tr"):
         nbytes = 4 * k * (B * (B + 1) // 2 + 2 * B * R)  # lower triangle + rhs + x
         flops = k * B * B * R  # B(B-1)/2 multiply-adds and B divides per column
     else:
@@ -135,7 +150,7 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
         L[:, idx, idx] = 2.0 + (uniform(k, B) + 1) / 2
         return L
 
-    err = {name: 0.0 for name in PER_OP}
+    err = {name: 0.0 for name in PER_OP + ("block_trsv_panel", "block_gemv_grouped")}
 
     def compare(name, got, want):
         torch.cuda.synchronize()
@@ -164,6 +179,29 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
             for R in (2, 8):
                 X = uniform(m, B, R)
                 compare("block_gemm", gemm(T, X), ref.block_gemv_ref(T, X))
+    panel, grouped = ops.KERNELS["block_trsv_panel"], ops.KERNELS["block_gemv_grouped"]
+    for B in (8, 16, 32, 64):
+        for k in (1, 17, 1000):
+            L, r = tri(k, B), uniform(k, B)
+            compare("block_trsv_panel", panel(L, r), ref.block_trsv_panel_ref(L, r))
+    for B in (8, 32, 128):
+        for m in (1, 17, 1000, 1003):
+            T, xv = uniform(m, B, B), uniform(m, B)
+            for G in (4, 8):  # 17 and 1003 are no multiple of either
+                y = grouped(T, xv, G)
+                compare("block_gemv_grouped", y, ref.block_gemv_ref(T, xv))
+                check(torch.equal(y, gemv(T, xv)),
+                      f"grouped GEMV (G={G}) != block_gemv bit for bit at m={m} B={B}")
+    # dyadic batches: integer tiles and vectors, every partial sum exact
+    for B, k in ((16, 33), (32, 1000)):
+        Li = torch.tril(torch.randint(-1, 2, (k, B, B), device="cuda", generator=gen).float(), -1)
+        Li += torch.eye(B, device="cuda")
+        xi = torch.randint(-3, 4, (k, B), device="cuda", generator=gen).float()
+        ri = torch.einsum("kij,kj->ki", Li, xi)
+        check(torch.equal(panel(Li, ri), ref.block_trsv_panel_ref(Li, ri)),
+              f"panel TRSV != its plain version on a dyadic batch at B={B}")
+        check(torch.equal(grouped(Li, xi, 8), ref.block_gemv_ref(Li, xi)),
+              f"grouped GEMV != its plain version on a dyadic batch at B={B}")
     # an empty batch launches nothing
     before = ops.launch_counts()
     check(trsv(tri(0, 8), uniform(0, 8)).shape == (0, 8), "k=0 TRSV shape")
@@ -207,6 +245,17 @@ def fused_inputs(torch, plan, b_pad):
               torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).cuda(),
               torch.from_numpy(np.ascontiguousarray(b_pad, dtype=np.float32)).cuda()]
     return tables, stores + [zeros, zeros], dev(step_offsets(plan))
+
+
+def streamed_from(plan, tables, vecs):
+    """The streamed megakernel's operands from :func:`fused_inputs`' output:
+    ``[values, b_pad, acc, x]`` (the streamed store built from the
+    uploaded stores) and the plan's layout on the card."""
+    from repro_torch.core.solver import fused_layouts
+    from repro_torch.kernels import superstep
+
+    layout = fused_layouts(plan)[0].to("cuda")
+    return [superstep.streamed_values(layout, vecs[0], vecs[1])] + vecs[2:], layout
 
 
 def superstep_bound(plan, table, R: int) -> tuple[float, str]:
@@ -266,12 +315,14 @@ def main() -> None:
     try:
         from repro_torch.api import PlanOptions, SpTRSVContext
         from repro_torch.core.blocking import pad_rhs
-        from repro_torch.core.solver import SolverConfig, build_plan
+        from repro_torch.core.solver import (
+            SolverConfig, build_plan, refresh_plan, stream_dma_bytes_per_solve,
+        )
         from repro_torch.kernels import extension, ref, superstep
         from repro_torch.kernels import ops as kops
         from repro_torch.krylov import matvec_lower, solve_ic0_pcg, spd_lower_from_triangular
         from repro_torch.sparse import suite
-        from repro_torch.sparse.matrix import reference_solve, to_scipy
+        from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
     except ImportError as e:
         fail(f"the repro_torch package is not next to chip_smoke.py ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
@@ -321,10 +372,10 @@ def main() -> None:
     def with_work(p, col):
         return int((widths(p, col) > 0).sum())
 
-    expect = {"block_trsv": with_work(plan, 0) + with_work(tplan, 0),
+    expect = {**dict.fromkeys(launches, 0),
+              "block_trsv": with_work(plan, 0) + with_work(tplan, 0),
               "block_gemv": with_work(plan, 1) + with_work(tplan, 1),
-              "block_trsm": with_work(plan, 0), "block_gemm": with_work(plan, 1),
-              "superstep": 0}
+              "block_trsm": with_work(plan, 0), "block_gemm": with_work(plan, 1)}
     check(launches == expect, f"main-path launches {launches} != one per level with work "
                               f"{expect}")
     log(f"phase 3 launches (forward + transpose + panel): {json.dumps(launches)}")
@@ -339,6 +390,43 @@ def main() -> None:
     log("phase 3 rel err vs scipy: " + ", ".join(f"{k}={v:.2e}" for k, v in errs.items()))
     log("phase 3 ms/solve (median of 5; min, max): " + ", ".join(
         f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})" for k, v in timing.items()))
+
+    # the switch executor with grouped GEMVs (gemv_group = 8): one grouped
+    # launch per level with tile updates, in place of the GEMV
+    gctx = SpTRSVContext(options=PlanOptions(gemv_group=8))
+    gh = gctx.analyse(a)
+    gctx.executor(gh)
+    kops.reset_launch_counts()
+    xg = gctx.solve(gh, b)
+    grouped_launches = kops.launch_counts()
+    expect_g = {**dict.fromkeys(grouped_launches, 0), "block_trsv": with_work(plan, 0),
+                "block_gemv_grouped": with_work(plan, 1)}
+    check(grouped_launches == expect_g,
+          f"gemv_group=8 launches {grouped_launches} != one per level with work {expect_g}")
+    eg = rel_err(xg, want["forward"])
+    check(np.isfinite(eg) and eg <= TOL_SOLVE, f"gemv_group=8 solve rel err {eg:.3e}")
+    # the panel TRSV's entry point, ops.batched_block_trsv(algorithm="panel"),
+    # on every level's diagonal tiles of the factor
+    diag_dev = torch.from_numpy(plan.diag).cuda()
+    sr_all = plan.solve_rows[0]
+    level_rows = [sr_all[o:o + w] for o, w in zip(plan.lvl_off[:, 0], widths(plan, 0)) if w]
+    batches = [torch.from_numpy(np.where(sr < 0, plan.bs.nb, sr).astype(np.int64)).cuda()
+               for sr in level_rows]
+    rhs_lv = [torch.rand(len(i), plan.bs.B, device="cuda") * 2 - 1 for i in batches]
+    kops.reset_launch_counts()
+    xs_panel = [kops.batched_block_trsv(diag_dev[i], r, algorithm="panel")
+                for i, r in zip(batches, rhs_lv)]
+    panel_launches = kops.launch_counts()
+    check(panel_launches == {**dict.fromkeys(panel_launches, 0),
+                             "block_trsv_panel": len(batches)},
+          f"panel TRSV path launches {panel_launches} for {len(batches)} levels")
+    e_panel = max(float((xp_ - ref.block_trsv_panel_ref(diag_dev[i], r)).abs().max())
+                  for xp_, i, r in zip(xs_panel, batches, rhs_lv))
+    check(e_panel <= TOL_KERNEL, f"panel TRSV path vs plain: max abs err {e_panel:.3e}")
+    err["block_trsv_panel"] = max(err["block_trsv_panel"], e_panel)
+    log(f"phase 3 gemv_group=8 forward solve rel err {eg:.2e}, launches "
+        f"{json.dumps(grouped_launches)}; panel TRSV path (one call per level) launches "
+        f"{json.dumps(panel_launches)}, max abs err vs plain {e_panel:.2e}")
 
     # 4. IC(0)-PCG
     a_spd = spd_lower_from_triangular(suite.grid2d_factor(PCG_SIDE, seed=6))
@@ -368,7 +456,7 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"phase 5 fused analyse+plan+tables+upload (forward and transpose) "
         f"{time.perf_counter() - t0:.1f} s")
-    one_launch = {**dict.fromkeys(PER_OP, 0), "superstep": 1}
+    one_launch = {**dict.fromkeys(kops.KERNELS, 0), "superstep": 1}
     kops.reset_launch_counts()
     fx = {}
     for form, fn in (("forward", lambda: fctx.solve(fh, b)),
@@ -481,6 +569,168 @@ def main() -> None:
         "shape": [a.n, fplan.bs.B, 1],
     }
 
+    # 6. the streamed megakernel (kernel="fused_streamed") on the same factor
+    t0 = time.perf_counter()
+    sctx = SpTRSVContext(options=PlanOptions(kernel="fused_streamed"))
+    sh = sctx.analyse(a)
+    ssolver = sctx.executor(sh)
+    sctx.executor(sh, transpose=True)  # plans, tables, layouts, stores, upload
+    torch.cuda.synchronize()
+    splan, slayout = ssolver.plan, ssolver._fused.layout
+    S = slayout.table.n_solve_slots
+    pulls = np.diff(slayout.table.pull_ptr[:S + 1].cpu().numpy())[splan.solve_rows[0] >= 0]
+    warps, cap = superstep.streamed_shape(splan.bs.B, slayout.max_item_tiles)
+    sstats = sctx.dispatch_stats(sh)
+    log(f"phase 6 streamed analyse+plan+layout+store+upload (forward and transpose) "
+        f"{time.perf_counter() - t0:.1f} s; incoming tiles per solved row: most "
+        f"{int(pulls.max())}, rows by count {np.bincount(pulls).tolist()}; widest work item "
+        f"{slayout.max_item_tiles} tiles -> {warps} warps/CTA, 2 stages x {cap} tiles each, "
+        f"{sstats['fused_vmem_bytes']} B shared memory/CTA; bulk-copied per solve "
+        f"{sstats['stream_dma_bytes']} B (vector), "
+        f"{stream_dma_bytes_per_solve(splan, 8)} B ((n, 8) panel); store "
+        f"{ssolver._fused.values.numel() * 4} B")
+    stream_launch = {**dict.fromkeys(kops.KERNELS, 0), "superstep_streamed": 1}
+    kops.reset_launch_counts()
+    sx = {}
+    for form, fn in (("forward", lambda: sctx.solve(sh, b)),
+                     ("transpose", lambda: sctx.solve(sh, b, transpose=True)),
+                     ("panel_r8", lambda: sctx.solve(sh, panel))):
+        before = kops.launch_counts()
+        sx[form] = fn()
+        after = kops.launch_counts()
+        made = {k: after[k] - before[k] for k in after}
+        check(made == stream_launch, f"streamed {form} solve launched {made}")
+    streamed_launches = kops.launch_counts()
+    serrs = {form: rel_err(sx[form], want[form]) for form in sx}
+    for form, e in serrs.items():
+        check(np.isfinite(e) and e <= TOL_SOLVE, f"streamed {form} rel err {e:.3e} > {TOL_SOLVE}")
+        check(np.array_equal(sx[form], fx[form]),
+              f"streamed {form} solve != the resident megakernel's (phase 5) bit for bit")
+    check(np.array_equal(sctx.solve(sh, b), sx["forward"]),
+          "two streamed forward solves of the same b differ")
+    stiming = solve_times(sctx, sh, b, panel)
+    log("phase 6 streamed rel err vs scipy: "
+        + ", ".join(f"{k}={v:.2e}" for k, v in serrs.items())
+        + "; each bit-equal to phase 5's resident result; two forward solves bit-equal")
+    log("phase 6 streamed ms/solve (median of 5; min, max), beside phase 5's median: "
+        + ", ".join(f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f}) vs {ftiming[k][2]:.2f}"
+                    for k, v in stiming.items()))
+
+    # the streamed kernel against its plain version: bit-identical on a dyadic
+    # problem at an even and an odd B, within TOL_SOLVE on real values
+    def streamed_against_plain(p, rhs, inputs=None):
+        tables, vecs, stp = inputs or fused_inputs(torch, p, pad_b(p, rhs))
+        svecs, layout = streamed_from(p, tables, vecs)
+        got = superstep.superstep_streamed_call(*tables, *svecs, stp=stp, layout=layout)
+        plain_out = ref.superstep_streamed_ref(*tables, svecs[0], layout.diag_entry,
+                                               layout.tile_entry, *svecs[1:], stp=stp)
+        torch.cuda.synchronize()
+        return got, plain_out, (tables, svecs, stp, layout)
+
+    for B_dy in (16, 7):
+        splan_dy = build_plan(dy, 1, SolverConfig(block_size=B_dy,
+                                                  kernel_backend="fused_streamed"))
+        for R in (1, 3):
+            rhs = rng.integers(-4, 5, dy.n if R == 1 else (dy.n, R)).astype(np.float32)
+            got, plain_out, _ = streamed_against_plain(splan_dy, rhs)
+            check(all(torch.equal(g, w) for g, w in zip(got, plain_out)),
+                  f"streamed kernel != its plain version on the dyadic problem, B={B_dy}, R={R}")
+    got, plain_out, _ = streamed_against_plain(p256, rng.uniform(-1, 1, a256.n))
+    se256 = float((got[1] - plain_out[1]).abs().max())
+    sr256 = se256 / float(plain_out[1].abs().max())
+    check(sr256 <= TOL_SOLVE, f"streamed kernel vs plain at side 256: rel err {sr256:.3e}")
+    got, plain_out, (stab, svec, sstp, slay) = streamed_against_plain(
+        fplan, b, (ftab, fvec, fstp))
+    se_full = float((got[1] - plain_out[1]).abs().max())
+    sr_full = se_full / float(plain_out[1].abs().max())
+    check(sr_full <= TOL_SOLVE, f"streamed kernel vs plain at full size: rel err {sr_full:.3e}")
+    del got, plain_out
+    log(f"phase 6 streamed kernel vs plain: dyadic bit-identical (B = 16 and 7; R = 1, 3); "
+        f"side 256 max abs {se256:.2e} (rel {sr256:.2e}); full size max abs {se_full:.2e} "
+        f"(rel {sr_full:.2e})")
+
+    # a refresh re-arms the streamed store: new values solve with the new values
+    a2 = CSR(n=a.n, row_ptr=a.row_ptr, col_idx=a.col_idx,
+             val=(a.val * (1.0 + 0.25 * np.sin(np.arange(a.nnz)))).astype(a.val.dtype))
+    ssolver.refresh(refresh_plan(splan, a2))
+    x2 = ssolver.solve(b)
+    e2 = rel_err(x2, reference_solve(a2, b))
+    check(np.isfinite(e2) and e2 <= TOL_SOLVE and not np.array_equal(x2, sx["forward"]),
+          f"streamed solve after a refresh: rel err {e2:.3e} against the new values")
+    ssolver.refresh(splan)
+    check(np.array_equal(ssolver.solve(b), sx["forward"]),
+          "refreshing back to the old values did not give the old solve")
+    log(f"phase 6 refresh: new values rel err {e2:.2e} vs scipy on them; back to the old "
+        f"values bit-equal to the first solve")
+
+    # streamed IC(0)-PCG: two streamed launches per iteration
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sres = solve_ic0_pcg(a_spd, b_spd, tol=tol, maxiter=400,
+                         config=PlanOptions(kernel="fused_streamed"))
+    spcg_s = time.perf_counter() - t0
+    spcg_launches = kops.launch_counts()
+    check(sres.converged and sres.n_iters == res.n_iters,
+          f"streamed IC(0)-PCG: converged={sres.converged} in {sres.n_iters} iterations, "
+          f"phase 4 took {res.n_iters}")
+    strue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, sres.x)) / np.linalg.norm(b_spd))
+    check(strue <= 10 * tol, f"streamed PCG true residual {strue:.3e} > {10 * tol}")
+    check(spcg_launches["superstep_streamed"] == 2 * sres.n_iters
+          and spcg_launches["superstep"] == 0 and spcg_launches["block_trsv"] == 0,
+          f"streamed PCG launches {spcg_launches} for {sres.n_iters} iterations")
+    log(f"phase 6 streamed IC(0)-PCG: {sres.n_iters} iterations, {spcg_s:.1f} s, true rel "
+        f"residual {strue:.2e} (phase 4: {true_res:.2e}), launches {json.dumps(spcg_launches)}")
+
+    # the streamed kernel's own times at full size, and the crossover against
+    # the resident kernel at three sizes (in turns: resident, streamed,
+    # streamed, resident; 10 solves each)
+    sms = time_ms(lambda: superstep.superstep_streamed_call(*stab, *svec, stp=sstp,
+                                                            layout=slay), 20)
+    sms8 = time_ms(lambda: superstep.superstep_streamed_call(*stab, svec[0], b8, z8, z8,
+                                                             stp=sstp, layout=slay), 10)
+    splain_ms = time_ms(lambda: ref.superstep_streamed_ref(
+        *stab, svec[0], slay.diag_entry, slay.tile_entry, *svec[1:], stp=sstp), 3, warmup=1)
+    log(f"phase 6 streamed megakernel {sms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) "
+        f"panel {sms8:.3f} ms, 10 solves), plain version {splain_ms:.1f} ms; resident "
+        f"(phase 5) {fms:.3f} / {fms8:.3f} ms")
+    cross = []
+    for side in (256, 512, SIDE):
+        if side == SIDE:
+            p_, tables, vecs, stp, table = fplan, ftab, fvec, fstp, ftable
+            svecs, layout = svec, slay
+        else:
+            a_ = suite.grid2d_factor(side, seed=6)
+            p_ = build_plan(a_, 1, SolverConfig(kernel_backend="fused"))
+            tables, vecs, stp = fused_inputs(torch, p_, pad_b(p_, rng.uniform(-1, 1, a_.n)))
+            table = superstep.superstep_table(
+                *[t.cpu().numpy() for t in tables], n_rows=p_.bs.nb + 1,
+                stp=stp.cpu().numpy()).to("cuda")
+            svecs, layout = streamed_from(p_, tables, vecs)
+
+        def resident_fn():
+            superstep.superstep_call(*tables, *vecs, stp=stp, table=table)
+
+        def streamed_fn():
+            superstep.superstep_streamed_call(*tables, *svecs, stp=stp, layout=layout)
+
+        turns = [time_ms(fn, 10, warmup=2)
+                 for fn in (resident_fn, streamed_fn, streamed_fn, resident_fn)]
+        r_ms, s_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        cross.append(f"side {side} (n={side * side}, {p_.n_levels} levels, diag+tiles "
+                     f"{(p_.diag.nbytes + p_.tiles.nbytes) / 1e6:.1f} MB): resident "
+                     f"{r_ms:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}), streamed {s_ms:.3f} ms "
+                     f"({turns[1]:.3f}, {turns[2]:.3f}), streamed/resident {s_ms / r_ms:.4f}")
+    log("phase 6 crossover, ms per vector solve (CUDA events): " + "; ".join(cross))
+    sbound = superstep_bound(splan, slay.table, 1)  # the same function as row 7
+    streamed_row = {
+        "name": "superstep_streamed", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{KERNELS['superstep_streamed'][1]}",
+        "replaces": KERNELS["superstep_streamed"][0],
+        "launches": streamed_launches["superstep_streamed"], "max_abs_err": se_full,
+        "ms": sms, "plain_ms": splain_ms, "bound_ms": sbound[0], "bound_by": sbound[1],
+        "library_ms": library_ms, "shape": [a.n, splan.bs.B, 1],
+    }
+
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     s0, ws = widest(plan, 0)
     u0, wu = widest(plan, 1)
@@ -490,14 +740,22 @@ def main() -> None:
     Bsz = plan.bs.B
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shapes = {"block_trsv": (L, (ws, Bsz, 1)), "block_trsm": (L, (ws, Bsz, 8)),
-              "block_gemv": (T, (wu, Bsz, 1)), "block_gemm": (T, (wu, Bsz, 8))}
+              "block_gemv": (T, (wu, Bsz, 1)), "block_gemm": (T, (wu, Bsz, 8)),
+              "block_trsv_panel": (L, (ws, Bsz, 1)), "block_gemv_grouped": (T, (wu, Bsz, 1))}
+    path_launches = {**launches, "block_trsv_panel": panel_launches["block_trsv_panel"],
+                     "block_gemv_grouped": grouped_launches["block_gemv_grouped"]}
     library = {"block_trsv": lambda m, v: torch.linalg.solve_triangular(
                    m, v.unsqueeze(-1), upper=False),
                "block_trsm": lambda m, v: torch.linalg.solve_triangular(m, v, upper=False),
                "block_gemv": lambda m, v: torch.bmm(m, v.unsqueeze(-1)),
-               "block_gemm": lambda m, v: torch.bmm(m, v)}
+               "block_gemm": lambda m, v: torch.bmm(m, v),
+               "block_trsv_panel": lambda m, v: torch.linalg.solve_triangular(
+                   m, v.unsqueeze(-1), upper=False),
+               "block_gemv_grouped": lambda m, v: torch.bmm(m, v.unsqueeze(-1))}
     plain = {"block_trsv": ref.block_trsv_ref, "block_trsm": ref.block_trsv_ref,
-             "block_gemv": ref.block_gemv_ref, "block_gemm": ref.block_gemv_ref}
+             "block_gemv": ref.block_gemv_ref, "block_gemm": ref.block_gemv_ref,
+             "block_trsv_panel": ref.block_trsv_panel_ref,
+             "block_gemv_grouped": ref.block_gemv_ref}
     rows_out = []
     for name, (mat, (k, B, R)) in shapes.items():
         vec = torch.rand((k, B) if R == 1 else (k, B, R), device="cuda", generator=gen) * 2 - 1
@@ -514,7 +772,7 @@ def main() -> None:
         rows_out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name][1]}",
-            "replaces": KERNELS[name][0], "launches": launches[name],
+            "replaces": KERNELS[name][0], "launches": path_launches[name],
             "max_abs_err": max(e, err[name]),
             "ms": time_ms(lambda: fn(mat, vec)),
             "plain_ms": time_ms(lambda: plain[name](mat, vec)),
@@ -525,7 +783,9 @@ def main() -> None:
     # the same kernels on a wide batch, where the device, not the host, sets the pace
     wide = []
     for name, (k, B, R) in (("block_trsv", (4096, 32, 1)), ("block_gemv", (4096, 32, 1)),
-                            ("block_trsm", (4096, 32, 8)), ("block_gemm", (4096, 32, 8))):
+                            ("block_trsm", (4096, 32, 8)), ("block_gemm", (4096, 32, 8)),
+                            ("block_trsv_panel", (4096, 32, 1)),
+                            ("block_gemv_grouped", (4096, 32, 1))):
         mat = torch.rand(k, B, B, device="cuda", generator=gen) * 2 - 1
         if name.startswith("block_tr"):  # well-conditioned lower-triangular tiles
             mat = torch.tril(mat, -1) / B + 2 * torch.eye(B, device="cuda")
@@ -536,7 +796,7 @@ def main() -> None:
                     f"library_ms={time_ms(lambda: library[name](mat, vec), 50):.4f} "
                     f"bound_ms={bound(name, k, B, R)[0]:.4f}")
     log("kernel times at k=4096 tiles: " + "; ".join(wide))
-    rows_out.append(superstep_row)
+    rows_out += [superstep_row, streamed_row]
     torch.cuda.synchronize()
 
     print(card)

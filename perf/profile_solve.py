@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where one triangular solve's time goes on the card.
 
-    python3 perf/profile_solve.py [--side 1024] [--rhs 1] [--backend cuda|fused]
+    python3 perf/profile_solve.py [--side 1024] [--rhs 1] [--backend cuda|fused|fused_streamed]
 
 Builds the ``chip_smoke.py`` main-path problem (``grid2d_factor(side,
 seed=6)``, B = 32, levelset) for the switch executor (``cuda``, the
-default) or the superstep megakernel (``fused``), warms the executor, then
+default) or the superstep megakernel (``fused``, or its streamed form
+``fused_streamed``), warms the executor, then
 traces one forward solve with ``torch.profiler`` and prints: the solve's
 wall time, the summed device time of its kernels, the device's idle share
 of the wall time, and the operations ranked by host and by device time.
-For ``fused`` it then splits the megakernel's time with CUDA events: the
-whole launch, a launch with the same levels and barriers but no work (every
-solve slot a pad, no tile updates; it copies every row's carry through
-instead), and one with the row solves but no tile products. Needs
-a CUDA device.
+For the megakernel it then splits its time with CUDA events: the whole
+launch, a launch with the same levels and barriers but no work (every solve
+slot a pad, no tile updates; it copies every row's carry through instead,
+and the streamed form copies no tile), and one with the row solves but no
+tile products (the streamed form then copies only the diagonal tiles).
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--side", type=int, default=1024)
     parser.add_argument("--rhs", type=int, default=1, help="RHS panel width (1 = vector)")
-    parser.add_argument("--backend", choices=("cuda", "fused"), default="cuda")
+    parser.add_argument("--backend", choices=("cuda", "fused", "fused_streamed"),
+                        default="cuda")
     args = parser.parse_args()
 
     import numpy as np
@@ -75,7 +78,7 @@ def main() -> None:
                                     max_name_column_width=48))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=48))
-    if args.backend == "fused":
+    if args.backend != "cuda":
         megakernel_split(solver, b_blocks)
 
 
@@ -96,13 +99,24 @@ def megakernel_split(solver, b_blocks) -> None:
         return torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).cuda()
 
     def timed(tables, stp):
-        table = superstep.superstep_table(*[t.cpu().numpy() for t in tables],
-                                          n_rows=plan.bs.nb + 1,
-                                          stp=stp.cpu().numpy()).to("cuda")
+        host = [t.cpu().numpy() for t in tables]
+        if fused.layout is not None:  # the streamed form: its own store for these tables
+            layout = superstep.streamed_layout(*host, n_rows=plan.bs.nb + 1,
+                                               stp=stp.cpu().numpy()).to("cuda")
+            values = superstep.streamed_values(  # the solver keeps only its own store
+                layout, torch.from_numpy(plan.diag).cuda(),
+                torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).cuda())
 
-        def run():
-            superstep.superstep_call(*tables, solver._diag, solver._tiles, b_pad, zeros,
-                                     zeros, stp=stp, table=table)
+            def run():
+                superstep.superstep_streamed_call(*tables, values, b_pad, zeros, zeros,
+                                                  stp=stp, layout=layout)
+        else:
+            table = superstep.superstep_table(*host, n_rows=plan.bs.nb + 1,
+                                              stp=stp.cpu().numpy()).to("cuda")
+
+            def run():
+                superstep.superstep_call(*tables, solver._diag, solver._tiles, b_pad, zeros,
+                                         zeros, stp=stp, table=table)
 
         run()
         torch.cuda.synchronize()

@@ -15,12 +15,12 @@ Execution (:class:`Solver`) runs on one device, by one of two executors:
   accumulator. Level offsets and widths are host Python ints, so the loop
   never waits on the device;
 * ``kernel_backend="fused"``: the whole solve is one launch of the resident
-  superstep megakernel (:mod:`repro_torch.kernels.superstep`).
+  superstep megakernel (:mod:`repro_torch.kernels.superstep`);
+  ``"fused_streamed"``: one launch of its streamed form.
 
 Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
-exchange), ``sched="syncfree"`` and the streamed megakernel
-(``kernel_backend="fused_streamed"``). Plans for all of them build;
-executing one raises ``NotImplementedError``.
+exchange) and ``sched="syncfree"``. Plans for both build; executing one
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -439,39 +439,81 @@ def fused_segments(plan: Plan) -> np.ndarray:
 # (8 MiB by default) "fused" upgrades itself to streaming them. The port's
 # resident kernel reads the stores from HBM and keeps only per-warp columns
 # in shared memory, so its on-chip footprint does not grow with the plan:
-# "fused" never streams, and only kernel_backend="fused_streamed" selects
-# the streamed form (not ported yet; ROADMAP.md, Queue 2 #8).
+# "fused" does not upgrade itself, and only kernel_backend="fused_streamed"
+# selects the streamed form. An automatic upgrade waits for the calibration
+# port and the crossover measured on the card (PERF.md).
 
 
-def fused_vmem_bytes(plan: Plan, *, streamed: bool = False) -> int:
-    """On-chip bytes of one fused launch, by the port's Hopper rule.
+def stream_widths(plan: Plan) -> tuple[tuple, tuple]:
+    """The reference's static DMA ladders: the distinct per-superstep
+    (solve, update) schedule widths (:func:`step_widths`). The Hopper kernel
+    needs no ladder (a bulk copy's size is a runtime value); kept for
+    parity with the reference and its verifier."""
+    if plan.n_levels == 0:
+        return (0,), (0,)
+    wid = step_widths(plan)
+    return (tuple(sorted({int(w) for w in wid[:, 0]})),
+            tuple(sorted({int(w) for w in wid[:, 1]})))
 
-    Resident: the megakernel's dynamic shared memory per CTA
-    (:func:`repro_torch.kernels.superstep.shared_bytes`: a staging buffer
-    and two columns of B floats per warp), whatever the plan's size or the
-    panel width (a panel column is a work item of its own). Streamed: the
-    two buffers of the widest superstep slice that a streamed form stages
-    on chip, ``2 (ws + wu) B^2`` floats, as in the reference; the carries
-    stay in HBM and are not counted.
+
+def streamed_stores(plan: Plan) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's schedule-ordered ``(diag_sched, tiles_sched)`` stores:
+    ``diag_sched[d, k]`` is the diagonal tile of ``solve_rows[d, k]`` (the
+    identity for a pad slot) and ``tiles_sched[d, k]`` the tile of slot
+    ``upd_tiles[d, k]``. The Hopper kernel streams its own store instead
+    (:func:`repro_torch.kernels.superstep.streamed_layout`: each row's
+    incoming tiles beside its diagonal tile, in the order a warp uses them);
+    kept for parity with the reference and its verifier."""
+    nb = plan.bs.nb
+    safe = np.where(plan.solve_rows < 0, nb, plan.solve_rows)  # (D, S)
+    diag_sched = np.ascontiguousarray(plan.diag[safe])
+    tiles_sched = np.ascontiguousarray(
+        np.stack([plan.tiles[d][plan.upd_tiles[d]]
+                  for d in range(plan.n_devices)]))
+    return diag_sched, tiles_sched
+
+
+def fused_layouts(plan: Plan) -> list:
+    """Per device, the streamed layout of the whole schedule as one launch
+    (:func:`repro_torch.kernels.superstep.streamed_layout`)."""
+    host = ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan))
+    return [superstep.streamed_layout(*host, plan.solve_rows[d], plan.upd_tiles[d],
+                                      plan.tile_row[d], plan.tile_col[d],
+                                      n_rows=plan.bs.nb + 1, stp=step_offsets(plan))
+            for d in range(plan.n_devices)]
+
+
+def fused_vmem_bytes(plan: Plan, *, streamed: bool = False,
+                     layouts: list | None = None) -> int:
+    """On-chip bytes of one fused launch, by the port's Hopper rule: the
+    megakernel's dynamic shared memory per CTA.
+
+    Resident: :func:`repro_torch.kernels.superstep.shared_bytes` (a staging
+    buffer and two columns of B floats per warp), whatever the plan's size
+    or the panel width (a panel column is a work item of its own).
+    Streamed: :func:`repro_torch.kernels.superstep.streamed_shared_bytes`,
+    two stages of the widest work item (a row's incoming tiles and its
+    diagonal tile) per warp, on the busiest device. ``layouts`` is
+    :func:`fused_layouts` of ``plan`` where the caller has it already.
     """
     B = plan.bs.B
     if not streamed:
         return superstep.shared_bytes(B)
-    if plan.n_levels:
-        wid = step_widths(plan)
-        ws, wu = int(wid[:, 0].max()), int(wid[:, 1].max())
-    else:
-        ws = wu = 0
-    return 2 * (max(1, ws) + max(1, wu)) * B * B * 4
+    most = max(layout.max_item_tiles for layout in (layouts or fused_layouts(plan)))
+    return superstep.streamed_shared_bytes(B, most)
 
 
-def stream_dma_bytes_per_solve(plan: Plan) -> int:
-    """Bytes a streamed megakernel would copy per solve (one device): every
-    level's diag + tile slice exactly once, at its bucket width."""
+def stream_dma_bytes_per_solve(plan: Plan, R: int = 1, *,
+                               layouts: list | None = None) -> int:
+    """Bytes the streamed megakernel copies into shared memory per solve of
+    an ``R``-column right-hand side, on the busiest device: every live work
+    item's store entries (its incoming tiles and its diagonal tile, rows
+    padded to B + 1 floats), once per column, since each column's warp
+    copies its own. ``layouts`` as for :func:`fused_vmem_bytes`."""
     if plan.n_levels == 0:
         return 0
-    wid = level_widths(plan)
-    return int(wid[:, 0].sum() + wid[:, 1].sum()) * plan.bs.B * plan.bs.B * 4
+    entries = max(layout.copied_entries for layout in (layouts or fused_layouts(plan)))
+    return R * entries * 4 * superstep.stream_tile_floats(plan.bs.B)
 
 
 def fused_streaming(plan: Plan) -> bool:
@@ -499,8 +541,9 @@ def dispatch_stats(plan: Plan) -> dict:
     (gather+TRSV and GEMV+scatter per level with work, plus exchanges);
     ``fused_launches`` the megakernel launches a fused plan makes;
     ``streamed``, ``fused_vmem_bytes`` and ``stream_dma_bytes`` follow the
-    port's Hopper rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`),
-    not the reference's VMEM budget. ``supersteps`` is the
+    port's Hopper rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`,
+    :func:`stream_dma_bytes_per_solve` for a vector solve), not the
+    reference's VMEM budget. ``supersteps`` is the
     bulk-synchronous step count, ``supersteps_levelset`` the unmerged block
     level count, ``superstep_reduction`` their ratio.
     """
@@ -514,11 +557,13 @@ def dispatch_stats(plan: Plan) -> dict:
             else (plan.n_supersteps if unified else 0))
     switch = int(2 * (wid[:, 0] > 0).sum() + 2 * (wid[:, 1] > 0).sum()) + n_ex
     streamed = fused_streaming(plan)
+    layouts = fused_layouts(plan) if streamed else None  # built once for both stats
     n_steps = plan.n_supersteps
     return {"switch_dispatches": switch, "fused_launches": int(len(fused_segments(plan))),
             "exchanges": n_ex, "streamed": streamed,
-            "fused_vmem_bytes": fused_vmem_bytes(plan, streamed=streamed),
-            "stream_dma_bytes": stream_dma_bytes_per_solve(plan) if streamed else 0,
+            "fused_vmem_bytes": fused_vmem_bytes(plan, streamed=streamed, layouts=layouts),
+            "stream_dma_bytes": (stream_dma_bytes_per_solve(plan, layouts=layouts)
+                                 if streamed else 0),
             "supersteps": n_steps,
             "supersteps_levelset": plan.n_levels,
             "superstep_reduction": (plan.n_levels / n_steps) if n_steps else 1.0,
@@ -585,10 +630,12 @@ def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
 class _FusedSchedule:
     """A plan's megakernel launch, built once per executor: the reference's
     tables for the whole solve (``seg = [0, n_supersteps]``) as int32 device
-    tensors and, on a card, the kernel's pull table
-    (:func:`repro_torch.kernels.superstep.superstep_table`)."""
+    tensors and, on a card, the resident kernel's pull table
+    (:func:`repro_torch.kernels.superstep.superstep_table`), or, for the
+    streamed form, its layout (:func:`~repro_torch.kernels.superstep.streamed_layout`)
+    and, once values are loaded, the streamed store."""
 
-    def __init__(self, plan: Plan, device: torch.device):
+    def __init__(self, plan: Plan, device: torch.device, streamed: bool):
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
@@ -596,28 +643,41 @@ class _FusedSchedule:
                 plan.solve_rows[0], plan.upd_tiles[0], plan.tile_row[0], plan.tile_col[0])
         self.tables = tuple(dev(t) for t in host)
         self.stp = dev(step_offsets(plan))
-        self.table = None
-        if device.type == "cuda":
+        self.table = self.layout = self.values = None
+        if streamed:
+            layout = fused_layouts(plan)[0]
+            superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
+            self.layout = layout.to(device)
+        elif device.type == "cuda":
             self.table = superstep.superstep_table(
                 *host, n_rows=plan.bs.nb + 1, stp=step_offsets(plan)).to(device)
 
-    def run(self, diag: torch.Tensor, tiles: torch.Tensor, b_pad: torch.Tensor) -> torch.Tensor:
-        """One megakernel launch over the whole schedule; returns ``x``."""
+    def load(self, diag: torch.Tensor, tiles: torch.Tensor) -> None:
+        """(Re)build the streamed store from new values."""
+        if self.layout is not None:
+            self.values = superstep.streamed_values(self.layout, diag, tiles)
+
+    def run(self, diag: torch.Tensor | None, tiles: torch.Tensor | None,
+            b_pad: torch.Tensor) -> torch.Tensor:
+        """One megakernel launch over the whole schedule; returns ``x``
+        (the streamed form reads only its store: ``diag``/``tiles`` unused)."""
         zeros = torch.zeros_like(b_pad)
-        _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
-                                        stp=self.stp, table=self.table)
+        if self.layout is not None:
+            _, x = superstep.superstep_streamed_call(*self.tables, self.values, b_pad, zeros,
+                                                     zeros, stp=self.stp, layout=self.layout)
+        else:
+            _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
+                                            stp=self.stp, table=self.table)
         return x
 
 
-def _check_executable(plan: Plan, backend: str) -> None:
+def _check_executable(plan: Plan) -> None:
     """Raise for plans whose executor is not ported yet."""
     if plan.n_devices != 1:
         raise NotImplementedError(
             f"multi-device execution (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
     if plan.config.sched not in LEVELSET_SCHEDS:
         raise NotImplementedError(f"sched {plan.config.sched!r} execution is {ops.NOT_PORTED}")
-    if backend == "fused_streamed":
-        raise NotImplementedError(f"kernel backend {backend!r} is {ops.NOT_PORTED}")
 
 
 def solve_local(plan: Plan, b_blocks: torch.Tensor) -> torch.Tensor:
@@ -631,31 +691,40 @@ class Solver:
     ``DistributedSolver`` with one device).
 
     Plan values and schedule live on ``device`` (``None`` means the card).
-    ``kernel_backend="fused"`` runs each solve as one superstep megakernel
-    launch (the reference's ``solve_local`` fused branch); the other
-    backends run the per-level switch executor. ``n_solves`` counts
+    ``kernel_backend="fused"`` and ``"fused_streamed"`` run each solve as
+    one superstep megakernel launch, resident or streamed (the reference's
+    ``solve_local`` fused branch); the other backends run the per-level
+    switch executor. ``n_solves`` counts
     invocations; a multi-RHS panel counts once.
     """
 
     def __init__(self, plan: Plan, device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.backend = ops.executor_backend(plan.config.kernel_backend, self.device)
-        _check_executable(plan, self.backend)
+        _check_executable(plan)
         self.plan = plan
         self.n_solves = 0
-        if self.backend == "fused":
-            self._fused, self._sched = _FusedSchedule(plan, self.device), None
+        if self.backend in ops.FUSED_BACKENDS:
+            self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan))
+            self._sched = None
         else:
             self._fused, self._sched = None, _Schedule(plan, self.device)
         self._load_values(plan)
 
     def _load_values(self, plan: Plan) -> None:
-        self._diag = torch.from_numpy(plan.diag).to(self.device)
-        self._tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(self.device)
+        diag = torch.from_numpy(plan.diag).to(self.device)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(self.device)
+        if self._fused is not None and self._fused.layout is not None:
+            # the streamed kernel reads only its store: keep no second copy
+            self._fused.load(diag, tiles)
+            self._diag = self._tiles = None
+        else:
+            self._diag, self._tiles = diag, tiles
 
     def refresh(self, plan: Plan) -> None:
         """Swap in a numerically refreshed plan (:func:`refresh_plan`): the
-        schedule tensors stay, only ``diag``/``tiles`` are replaced."""
+        schedule tensors stay, only ``diag``/``tiles`` (or the streamed
+        store built from them) are replaced."""
         old = self.plan
         # a structurally different plan would pair new values with the old
         # schedule — reject it (never an assert: -O must not disable this)

@@ -48,5 +48,27 @@ def block_gemm(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def block_gemv_grouped(tiles: torch.Tensor, xs: torch.Tensor, group: int = 8) -> torch.Tensor:
+    """:func:`block_gemv` with ``group`` tiles per CTA (the reference's
+    ``block_gemv_grouped``): the same (m,B,B) @ (m,B) -> (m,B), bit for bit;
+    the last group may be short (no padded copies)."""
+    extension.check_operands("block_gemv_grouped", tiles, xs)
+    if xs.ndim != 2:
+        raise ValueError(f"block_gemv_grouped: xs must be (m,B), got {tuple(xs.shape)}")
+    if group < 1:
+        raise ValueError(f"block_gemv_grouped: group must be >= 1, got {group}")
+    if tiles.device.type == "cpu":
+        return ref.block_gemv_ref(tiles, xs)
+    out = torch.empty_like(xs)
+    m, B = xs.shape
+    if m == 0 or B == 0:  # CUDA refuses an empty grid
+        return out
+    extension.launch("block_spmv", "repro_gemv_grouped_f32", tiles.device,
+                     tiles.data_ptr(), xs.data_ptr(), out.data_ptr(), m, B, group)
+    block_gemv_grouped.launches += 1
+    return out
+
+
 block_gemv.launches = 0
 block_gemm.launches = 0
+block_gemv_grouped.launches = 0

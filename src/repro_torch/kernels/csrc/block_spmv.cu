@@ -1,9 +1,10 @@
 // Batched per-tile products (block GEMV / GEMM) for Hopper.
 //
 // Replaces the Pallas kernels of src/repro/kernels/block_spmv.py:
-// _gemv_kernel (tiles (m,B,B) @ xs (m,B)) and _gemm_kernel (tiles (m,B,B) @
-// xs (m,B,R)). The scatter-add of the products into destination rows stays
-// outside the kernel, as in the reference.
+// _gemv_kernel (tiles (m,B,B) @ xs (m,B)), _gemv_grouped_kernel (the same
+// product, G tiles per program; see gemv_grouped_kernel) and _gemm_kernel
+// (tiles (m,B,B) @ xs (m,B,R)). The scatter-add of the products into
+// destination rows stays outside the kernel, as in the reference.
 //
 // One CTA per tile, four warps; each warp takes rows i = warp, warp + 4, ...
 // and its lanes stride over the row, so the tile is read with coalesced
@@ -28,6 +29,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerTile = 4;
+constexpr int kMaxGroupWarps = 32;  // 1024 threads: the most a CTA may have
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -47,6 +49,31 @@ __global__ void gemv_kernel(const float* __restrict__ T, const float* __restrict
     for (int j = lane; j < B; j += kWarp) p += __ldg(ti + j) * __ldg(xt + j);
     p = warp_sum(p);
     if (lane == 0) y[t * B + i] = p;
+  }
+}
+
+// G tiles per CTA, one warp per tile (tiles strided over the CTA's warps
+// when G > 32); each warp computes its tile's rows in order with
+// gemv_kernel's per-row arithmetic (lanes stride the row, then a warp
+// reduction), so every output is bit-equal to gemv_kernel's. The last CTA
+// checks its tiles against m instead of reading padded copies.
+__global__ void gemv_grouped_kernel(const float* __restrict__ T, const float* __restrict__ xv,
+                                    float* __restrict__ y, int m, int B, int G) {
+  const int lane = threadIdx.x % kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const size_t first = static_cast<size_t>(blockIdx.x) * G;
+  for (int g = threadIdx.x / kWarp; g < G; g += n_warps) {
+    const size_t t = first + g;
+    if (t >= static_cast<size_t>(m)) break;
+    const float* Tt = T + t * B * B;
+    const float* xt = xv + t * B;
+    for (int i = 0; i < B; ++i) {
+      const float* ti = Tt + static_cast<size_t>(i) * B;
+      float p = 0.f;
+      for (int j = lane; j < B; j += kWarp) p += __ldg(ti + j) * __ldg(xt + j);
+      p = warp_sum(p);
+      if (lane == 0) y[t * B + i] = p;
+    }
   }
 }
 
@@ -83,6 +110,15 @@ extern "C" {
 // the launch (0 on success); it never synchronises.
 int repro_gemv_f32(const float* T, const float* x, float* y, int m, int B, void* stream) {
   gemv_kernel<<<m, kWarpsPerTile * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(T, x, y, B);
+  return cudaGetLastError();
+}
+
+int repro_gemv_grouped_f32(const float* T, const float* x, float* y, int m, int B, int G,
+                           void* stream) {
+  if (G < 1) return cudaErrorInvalidValue;
+  const int warps = G < kMaxGroupWarps ? G : kMaxGroupWarps;
+  gemv_grouped_kernel<<<(m + G - 1) / G, warps * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      T, x, y, m, B, G);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
 // Batched dense lower-triangular block solves (block TRSV / TRSM) for Hopper.
 //
-// Replaces the Pallas row-sweep kernels of src/repro/kernels/block_trsv.py:
-// _trsv_rowsweep_kernel (one (B,) right-hand side per tile) and
-// _trsm_rowsweep_kernel (an (B,R) panel per tile). The TPU kernels run one
-// grid program per tile in order; here one CTA takes one tile and the k CTAs
-// run in parallel, which is legal because the tiles are independent.
+// Replaces the Pallas kernels of src/repro/kernels/block_trsv.py:
+// _trsv_rowsweep_kernel (one (B,) right-hand side per tile),
+// _trsm_rowsweep_kernel (an (B,R) panel per tile) and _trsv_panel_kernel
+// (block_trsv(algorithm="panel"): P rows per step, see trsv_panel_kernel).
+// The TPU kernels run one grid program per tile in order; here one CTA
+// takes one tile and the k CTAs run in parallel, which is legal because the
+// tiles are independent.
 //
 // Arithmetic, kept op for op from the reference: row i takes the dot of
 // L[i, :i] with the solved prefix x[:i] (reduced across the 32 lanes of a
@@ -65,6 +67,45 @@ __global__ void trsm_rowsweep_kernel(const float* __restrict__ L, const float* _
   for (int e = threadIdx.x; e < B * R; e += blockDim.x) xt[e] = xs[(e % R) * B + e / R];
 }
 
+// The panel forward substitution of _trsv_panel_kernel, one warp per tile:
+// for each panel of P rows, rows i in [base, base + P) take the dot of
+// L[i, base:i] with the panel's solved prefix (reduced across the warp) and
+// x[i] = (r[i] - s) / L[i, i] with an IEEE division; then every row below
+// the panel subtracts its rank-P update, one lane per row, a float32 FMA
+// chain over the panel's P columns: r[i] -= L[i, base:base+P] . x[base:base+P].
+// The running right-hand side r and x live in shared memory (2B floats).
+// The summation order is the reference's panel order, not the row sweep's,
+// so the result is not bit-equal to trsv_rowsweep_kernel's on real values.
+__global__ void trsv_panel_kernel(const float* __restrict__ L, const float* __restrict__ r_in,
+                                  float* __restrict__ x_out, int B, int P) {
+  extern __shared__ float sm[];
+  float* r = sm;
+  float* x = sm + B;
+  const size_t t = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float* Lt = L + t * B * B;
+  for (int i = lane; i < B; i += kWarp) r[i] = r_in[t * B + i];
+  __syncwarp();
+  for (int base = 0; base < B; base += P) {
+    for (int i = base; i < base + P; ++i) {
+      const float* li = Lt + static_cast<size_t>(i) * B;
+      float p = 0.f;
+      for (int j = base + lane; j < i; j += kWarp) p += li[j] * x[j];
+      const float s = repro::warp_sum(p);
+      if (lane == 0) x[i] = __fdiv_rn(r[i] - s, li[i]);
+      __syncwarp();
+    }
+    for (int i = base + P + lane; i < B; i += kWarp) {
+      const float* li = Lt + static_cast<size_t>(i) * B + base;
+      float u = 0.f;
+      for (int j = 0; j < P; ++j) u += li[j] * x[base + j];
+      r[i] = r[i] - u;
+    }
+    __syncwarp();
+  }
+  for (int i = lane; i < B; i += kWarp) x_out[t * B + i] = x[i];
+}
+
 // Opts the kernel in to `bytes` of dynamic shared memory. A refusal is
 // returned and cleared, so the next launch does not report it.
 template <typename Kernel>
@@ -87,6 +128,16 @@ int repro_trsv_f32(const float* L, const float* r, float* x, int k, int B, void*
   cudaError_t err = allow_shared(trsv_rowsweep_kernel, smem);
   if (err != cudaSuccess) return err;
   trsv_rowsweep_kernel<<<k, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(L, r, x, B);
+  return cudaGetLastError();
+}
+
+int repro_trsv_panel_f32(const float* L, const float* r, float* x, int k, int B, int P,
+                         void* stream) {
+  if (P < 1 || B % P != 0) return cudaErrorInvalidValue;
+  const size_t smem = 2 * static_cast<size_t>(B) * sizeof(float);
+  cudaError_t err = allow_shared(trsv_panel_kernel, smem);
+  if (err != cudaSuccess) return err;
+  trsv_panel_kernel<<<k, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(L, r, x, B, P);
   return cudaGetLastError();
 }
 

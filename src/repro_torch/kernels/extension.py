@@ -48,12 +48,16 @@ _I = ctypes.c_int
 # C signature of every entry point: pointers and the stream as void*, sizes as int
 SIGNATURES = {
     "block_trsv": {"repro_trsv_f32": (_P, _P, _P, _I, _I, _P),
+                   "repro_trsv_panel_f32": (_P, _P, _P, _I, _I, _I, _P),
                    "repro_trsm_f32": (_P, _P, _P, _I, _I, _I, _P)},
     "block_spmv": {"repro_gemv_f32": (_P, _P, _P, _I, _I, _P),
+                   "repro_gemv_grouped_f32": (_P, _P, _P, _I, _I, _I, _P),
                    "repro_gemm_f32": (_P, _P, _P, _I, _I, _I, _P)},
     # eight table pointers, seven tensor pointers, then the sizes
     "superstep": {"repro_superstep_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
-                  "repro_superstep_panel_f32": (_P,) * 15 + (_I,) * 9 + (_P,)},
+                  "repro_superstep_panel_f32": (_P,) * 15 + (_I,) * 9 + (_P,),
+                  # seven table pointers, six tensor pointers, then the sizes
+                  "repro_superstep_streamed_f32": (_P,) * 13 + (_I,) * 11 + (_P,)},
 }
 
 

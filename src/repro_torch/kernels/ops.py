@@ -12,9 +12,9 @@ Backends (the reference package's names on the left):
   levelset or dagpart solve is one launch of the resident superstep
   megakernel (:mod:`~repro_torch.kernels.superstep`), which makes no per-op
   call; on CPU tensors its wrapper runs the plain version.
-* ``fused_streamed``: the megakernel with the streamed tile store. Not
-  ported yet (ROADMAP.md, Queue 2): plans may name it, executing one raises
-  ``NotImplementedError``.
+* ``fused_streamed`` -> ``fused_streamed``: the same, one launch of the
+  streamed form, which copies each row's tiles from its own streamed store
+  into shared memory by asynchronous bulk copies issued ahead of use.
 
 Per-op calls (:func:`batched_block_trsv`, :func:`batched_block_gemv`) under
 either fused backend raise: the fused executor makes none, and a caller that
@@ -29,15 +29,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.block_spmv import block_gemm, block_gemv
-from repro_torch.kernels.block_trsv import block_trsm, block_trsv
-from repro_torch.kernels.superstep import superstep_call
+from repro_torch.kernels.block_spmv import block_gemm, block_gemv, block_gemv_grouped
+from repro_torch.kernels.block_trsv import block_trsm, block_trsv, block_trsv_panel
+from repro_torch.kernels.superstep import superstep_call, superstep_streamed_call
 
 BACKENDS = ("reference", "cuda", "fused", "fused_streamed")
 FUSED_BACKENDS = ("fused", "fused_streamed")
+TRSV_ALGORITHMS = ("rowsweep", "panel")
 KERNELS = {"block_trsv": block_trsv, "block_trsm": block_trsm,
            "block_gemv": block_gemv, "block_gemm": block_gemm,
-           "superstep": superstep_call}
+           "block_trsv_panel": block_trsv_panel, "block_gemv_grouped": block_gemv_grouped,
+           "superstep": superstep_call, "superstep_streamed": superstep_streamed_call}
 
 NOT_PORTED = "not ported to the PyTorch/CUDA package yet (see ROADMAP.md, Queues 1 and 2)"
 
@@ -55,7 +57,7 @@ def op_backend(backend: str | None, device: torch.device) -> str:
     """Resolve the per-op backend; the megakernel backends raise."""
     b = executor_backend(backend, device)
     if b in FUSED_BACKENDS:
-        raise NotImplementedError(f"kernel backend {b!r} is {NOT_PORTED}")
+        raise NotImplementedError(f"per-op calls under kernel backend {b!r} are {NOT_PORTED}")
     return b
 
 
@@ -76,13 +78,16 @@ def bcast_trailing(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def batched_block_trsv(diag: torch.Tensor, rhs: torch.Tensor, *,
                        backend: str | None = None,
                        algorithm: str = "rowsweep") -> torch.Tensor:
+    if algorithm not in TRSV_ALGORITHMS:
+        raise ValueError(f"unknown block_trsv algorithm: {algorithm!r} "
+                         f"(expected {TRSV_ALGORITHMS})")
     backend = op_backend(backend, diag.device)
     if backend == "reference":
         return ref.block_trsv_ref(diag, rhs)
-    if algorithm != "rowsweep":
-        raise NotImplementedError(f"block_trsv algorithm {algorithm!r} is {NOT_PORTED}")
-    if rhs.ndim == 3:
+    if rhs.ndim == 3:  # panels take the TRSM whatever the algorithm, as in the reference
         return block_trsm(diag, rhs)
+    if algorithm == "panel":
+        return block_trsv_panel(diag, rhs)
     return block_trsv(diag, rhs)
 
 
@@ -94,7 +99,7 @@ def batched_block_gemv(tiles: torch.Tensor, xs: torch.Tensor, *,
     if xs.ndim == 3:
         return block_gemm(tiles, xs)
     if group > 1:
-        raise NotImplementedError(f"grouped block_gemv (gemv_group={group}) is {NOT_PORTED}")
+        return block_gemv_grouped(tiles, xs, group)
     return block_gemv(tiles, xs)
 
 

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the block kernels and of the superstep
-megakernel.
+megakernel (resident and streamed).
 
 They are the CPU path of every kernel wrapper, the ``"reference"`` backend,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card. They
@@ -19,6 +19,25 @@ def block_trsv_ref(diag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     r = rhs if multi else rhs.unsqueeze(-1)
     sol = torch.linalg.solve_triangular(diag, r, upper=False)
     return sol if multi else sol.squeeze(-1)
+
+
+def block_trsv_panel_ref(diag: torch.Tensor, rhs: torch.Tensor, panel: int = 8) -> torch.Tensor:
+    """The panel forward substitution of ``diag`` (k,B,B) with ``rhs`` (k,B),
+    in the reference's order (``_trsv_panel_kernel``): for each panel of
+    ``panel`` rows, a row sweep over the panel's own prefix, then the rank-P
+    update ``r -= L[:, base:base+P] @ x[base:base+P]`` of the rows below the
+    panel. ``B % panel == 0``."""
+    k, B = rhs.shape
+    x = torch.zeros_like(rhs)
+    r = rhs.clone()
+    for base in range(0, B, panel):
+        for i in range(base, base + panel):
+            s = (diag[:, i, base:i] * x[:, base:i]).sum(-1)
+            x[:, i] = (r[:, i] - s) / diag[:, i, i]
+        upd = torch.einsum("kij,kj->ki", diag[:, base + panel:, base:base + panel],
+                           x[:, base:base + panel])
+        r[:, base + panel:] = r[:, base + panel:] - upd
+    return x
 
 
 def block_gemv_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -56,4 +75,45 @@ def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x,
         if w:
             tids = ut[o:o + w]
             acc.index_add_(0, trow[tids], block_gemv_ref(tiles[tids], x[tcol[tids]]))
+    return acc, x
+
+
+def stream_tiles(values: torch.Tensor, entries: torch.Tensor, B: int) -> torch.Tensor:
+    """The (len(entries), B, B) tiles held at ``entries`` of a streamed store:
+    each entry is a tile with rows padded to ``B + 1`` floats, then to a
+    multiple of four (:func:`repro_torch.kernels.superstep.stream_tile_floats`)."""
+    rows = values[entries.long(), :B * (B + 1)].reshape(-1, B, B + 1)
+    return rows[:, :, :B].contiguous()
+
+
+def superstep_streamed_ref(seg, off, wid, sr, ut, trow, tcol, values, diag_entry, tile_entry,
+                           b_pad, acc, x, stp=None):
+    """:func:`superstep_ref` reading every tile from the streamed store
+    ``values`` that the streamed kernel reads: slot ``k``'s diagonal tile at
+    entry ``diag_entry[k]``, the tile of flat update position ``j`` at
+    ``tile_entry[j]`` (``-1``: an update into the pad row, left out of the
+    store, whose tile is the zero pad tile). It hands the same tensors to the
+    same operations as :func:`superstep_ref`, so it gives its bits."""
+    acc, x = acc.clone(), x.clone()
+    if off.shape[0] == 0:
+        return acc, x
+    B = b_pad.shape[1]
+    off_h, wid_h = off.tolist(), wid.tolist()
+    s0, n_steps = (int(v) for v in seg.tolist())
+    stp_h = list(range(off.shape[0] + 1)) if stp is None else stp.tolist()
+    sr, trow, tcol = (v.long() for v in (sr, trow, tcol))
+    ut, diag_entry, tile_entry = ut.long(), diag_entry.long(), tile_entry.long()
+    for t in range(stp_h[s0], stp_h[s0 + n_steps]):
+        o, w = off_h[t][0], wid_h[t][0]
+        live = sr[o:o + w] >= 0
+        rows = sr[o:o + w][live]
+        if rows.numel():
+            L = stream_tiles(values, diag_entry[o:o + w][live], B)
+            x[rows] = block_trsv_ref(L, b_pad[rows] - acc[rows])
+        o, w = off_h[t][1], wid_h[t][1]
+        if w:
+            tids, ent = ut[o:o + w], tile_entry[o:o + w]
+            tiles = stream_tiles(values, ent.clamp(min=0), B)
+            tiles[ent < 0] = 0.0
+            acc.index_add_(0, trow[tids], block_gemv_ref(tiles, x[tcol[tids]]))
     return acc, x

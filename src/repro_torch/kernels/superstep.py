@@ -1,11 +1,16 @@
-"""The resident superstep megakernel: a whole single-device solve in one launch.
+"""The superstep megakernel: a whole single-device solve in one launch,
+resident or streamed.
 
 Wrapper over ``csrc/superstep.cu`` (which says what it replaces, how levels
 are separated on Hopper and what bounds it). :func:`superstep_call` takes the
 reference's eight schedule tables and returns ``(acc, x)``; given CPU
 tensors it returns the plain version (:func:`repro_torch.kernels.ref.superstep_ref`),
 given CUDA tensors it makes one cooperative launch on the current stream or
-raises. ``superstep_call.launches`` counts kernel launches, and nothing else.
+raises. :func:`superstep_streamed_call` is the same function with every tile
+read from the streamed store (:func:`streamed_layout`,
+:func:`streamed_values`), which the kernel copies into shared memory with
+asynchronous bulk copies issued ahead of use. ``launches`` on each wrapper
+counts kernel launches, and nothing else.
 
 The kernel pulls each row's tile updates right before it solves the row, so
 it needs, besides the reference's tables, the host-built
@@ -24,6 +29,7 @@ from repro_torch.kernels import extension, ref
 
 WARPS_PER_CTA = 8  # kWarpsPerCta in csrc/superstep.cu
 STAGE_FLOATS = 33 * 32  # kStage: a warp's buffer for tile rows, B + 1 floats apart
+SHARED_LIMIT = 232_448  # dynamic shared memory one Hopper block may use (227 KB)
 
 
 def shared_bytes(B: int) -> int:
@@ -83,15 +89,9 @@ def _ranges(starts: np.ndarray, widths: np.ndarray) -> tuple[np.ndarray, np.ndar
     return np.repeat(starts, widths) + np.arange(owner.shape[0]) - first[owner], owner
 
 
-def superstep_table(seg, off, wid, sr, ut, trow, tcol, n_rows: int,
-                    stp=None) -> SuperstepTable:
-    """Build the pull table of one launch from host copies of the tables.
-
-    Raises ``ValueError`` for tables the pull order cannot reproduce: a row
-    solved twice, an update into a row at or after the row's own level, or
-    an update that reads a row solved at a later level. Plans from
-    ``core.solver.build_plan`` have none of them.
-    """
+def _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows: int, stp=None) -> dict:
+    """The pull order of one launch, from host copies of the tables (see
+    :func:`superstep_table`, which raises what this raises)."""
     seg, off, wid, sr, ut, trow, tcol = (np.asarray(v, np.int64)
                                          for v in (seg, off, wid, sr, ut, trow, tcol))
     T = off.shape[0]
@@ -122,7 +122,7 @@ def superstep_table(seg, off, wid, sr, ut, trow, tcol, n_rows: int,
     u_lvl = levels[u_lvl]
     dest = trow[tid]
     live = dest != pad
-    tid, dest, u_lvl = tid[live], dest[live], u_lvl[live]
+    pos, tid, dest, u_lvl = pos[live], tid[live], dest[live], u_lvl[live]
     if np.any(solve_level[tcol[tid]] > u_lvl):
         raise ValueError("a tile update reads a row that is solved at a later level")
     d_lvl = solve_level[dest]
@@ -135,15 +135,159 @@ def superstep_table(seg, off, wid, sr, ut, trow, tcol, n_rows: int,
     order = np.argsort(target, kind="stable")  # keeps the reference's order per target
     pull_ptr = np.zeros(S + orphan_row.shape[0] + 1, np.int64)
     np.cumsum(np.bincount(target, minlength=S + orphan_row.shape[0]), out=pull_ptr[1:])
-    copy_row = np.nonzero(solve_level < 0)[0]
-    widest = int(wid[levels, 0].max()) if levels.size else 0
+    return dict(levels=(t_lo, t_hi), S=S, live_slot=slot, pull_ptr=pull_ptr,
+                pull_tile=tid[order], pull_col=tcol[tid[order]], pull_pos=pos[order],
+                pull_target=target[order], orphan_row=orphan_row,
+                copy_row=np.nonzero(solve_level < 0)[0],
+                widest=int(wid[levels, 0].max()) if levels.size else 0)
+
+
+def superstep_table(seg, off, wid, sr, ut, trow, tcol, n_rows: int,
+                    stp=None) -> SuperstepTable:
+    """Build the pull table of one launch from host copies of the tables.
+
+    Raises ``ValueError`` for tables the pull order cannot reproduce: a row
+    solved twice, an update into a row at or after the row's own level, or
+    an update that reads a row solved at a later level. Plans from
+    ``core.solver.build_plan`` have none of them.
+    """
+    return _table(_pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows, stp))
+
+
+def _table(o: dict) -> SuperstepTable:
+    n_orphans = int(o["orphan_row"].shape[0])
     return SuperstepTable(
-        levels=(t_lo, t_hi), pull_ptr=pull_ptr.astype(np.int32),
-        pull_tile=tid[order].astype(np.int32), pull_col=tcol[tid[order]].astype(np.int32),
-        orphan_row=orphan_row.astype(np.int32),
-        copy_row=copy_row.astype(np.int32), n_solve_slots=S,
-        n_orphans=int(orphan_row.shape[0]), n_copy=int(copy_row.shape[0]),
-        max_items=max(widest, int(orphan_row.shape[0])))
+        levels=o["levels"], pull_ptr=o["pull_ptr"].astype(np.int32),
+        pull_tile=o["pull_tile"].astype(np.int32), pull_col=o["pull_col"].astype(np.int32),
+        orphan_row=o["orphan_row"].astype(np.int32),
+        copy_row=o["copy_row"].astype(np.int32), n_solve_slots=o["S"],
+        n_orphans=n_orphans, n_copy=int(o["copy_row"].shape[0]),
+        max_items=max(o["widest"], n_orphans))
+
+
+# ---------------------------------------------------------------------------
+# the streamed form: the launch's tiles in the order the kernel uses them
+# ---------------------------------------------------------------------------
+
+
+def stream_tile_floats(B: int) -> int:
+    """Floats one tile takes in the streamed store: ``B`` rows of ``B + 1``
+    floats (the padding keeps a lane per row off one shared-memory bank),
+    rounded up to a multiple of four, so every tile starts 16-byte aligned
+    and every bulk copy moves a multiple of 16 bytes, odd ``B`` included."""
+    return -(-B * (B + 1) // 4) * 4
+
+
+def _streamed_bytes(warps: int, cap: int, B: int) -> int:
+    # per warp: two 8-byte mbarriers, two stages of `cap` tiles, the row's
+    # sum and the tile's source column (B floats each); csrc/superstep.cu
+    # lays the CTA out in this order
+    return warps * (16 + 2 * cap * 4 * stream_tile_floats(B) + 8 * B)
+
+
+def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int]:
+    """``(warps per CTA, tiles per stage)`` of the streamed kernel: each warp
+    double-buffers whole work items (a solve slot's incoming tiles and its
+    diagonal tile) when eight, four, two or one warps of them fit
+    ``SHARED_LIMIT``; else one warp streams its items in chunks of as many
+    tiles as fit (at least one)."""
+    need = max(1, int(max_item_tiles))
+    for warps in (8, 4, 2, 1):
+        if _streamed_bytes(warps, need, B) <= SHARED_LIMIT:
+            return warps, need
+    cap = (SHARED_LIMIT - _streamed_bytes(1, 0, B)) // (8 * stream_tile_floats(B))
+    return 1, max(1, min(cap, need))
+
+
+def streamed_shared_bytes(B: int, max_item_tiles: int) -> int:
+    """Dynamic shared memory of one streamed-kernel CTA: the single source
+    of ``core.solver.fused_vmem_bytes(streamed=True)``. Above
+    ``SHARED_LIMIT`` (a tile too wide for two stages) the launch is
+    refused."""
+    return _streamed_bytes(*streamed_shape(B, max_item_tiles), B)
+
+
+def check_streamed_fits(B: int, max_item_tiles: int) -> None:
+    """Raise unless two stages of one tile fit a CTA's shared memory: the
+    streamed form takes ``B <= 169`` (the resident form any ``B < 1056``)."""
+    if streamed_shared_bytes(B, max_item_tiles) > SHARED_LIMIT:
+        raise ValueError(f"streamed superstep: two stages of one B={B} tile need "
+                         f"{streamed_shared_bytes(B, 1)} bytes of shared memory, over "
+                         f"{SHARED_LIMIT}")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedLayout:
+    """Where the streamed store keeps each tile of one launch.
+
+    Entries are whole tiles in the order the kernel uses them: for each
+    target (solve slot ``k``, then orphan ``q``) its incoming tiles in pull
+    order, then, for a slot, its diagonal tile (the identity for a pad
+    slot). Target ``k`` so holds entries ``[pull_ptr[k] + min(k, S),
+    pull_ptr[k+1] + min(k+1, S))``, and a level's slots are one contiguous
+    run. ``source[e]`` is the row of ``cat(diag, tiles)`` entry ``e`` holds;
+    ``diag_entry[k]`` the entry of slot ``k``'s diagonal tile;
+    ``tile_entry[j]`` the entry of the tile at flat update position ``j``
+    (``-1``: outside the launch, or an update into the pad row).
+    ``max_item_tiles`` is the most entries of one work item and
+    ``copied_entries`` the entries the kernel copies for one right-hand-side
+    column (pad slots are never copied).
+    """
+
+    table: SuperstepTable
+    source: np.ndarray | torch.Tensor
+    diag_entry: np.ndarray | torch.Tensor
+    tile_entry: np.ndarray | torch.Tensor
+    max_item_tiles: int
+    copied_entries: int
+
+    def to(self, device) -> "StreamedLayout":
+        def dev(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+        return dataclasses.replace(self, table=self.table.to(device), source=dev(self.source),
+                                   diag_entry=dev(self.diag_entry),
+                                   tile_entry=dev(self.tile_entry))
+
+
+def streamed_layout(seg, off, wid, sr, ut, trow, tcol, n_rows: int,
+                    stp=None) -> StreamedLayout:
+    """The pull table and the streamed store's layout of one launch, from
+    host copies of the tables; built once per plan."""
+    o = _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows, stp)
+    n_orphans = int(o["orphan_row"].shape[0])
+    table = _table(o)
+    S, pull_ptr = o["S"], o["pull_ptr"]
+    sr = np.asarray(sr, np.int64)
+    n_targets = S + n_orphans
+    per_target = np.diff(pull_ptr) + (np.arange(n_targets) < S)
+    diag_entry = pull_ptr[1:S + 1] + np.arange(S)
+    pull_entry = np.arange(pull_ptr[-1]) + np.minimum(o["pull_target"], S)
+    # a store with no entry holds one identity tile, so every pointer is valid
+    source = np.full(max(1, int(per_target.sum())), n_rows - 1, np.int64)
+    source[diag_entry] = np.where(sr < 0, n_rows - 1, sr)
+    source[pull_entry] = n_rows + o["pull_tile"]
+    tile_entry = np.full(np.asarray(ut).shape[0], -1, np.int64)
+    tile_entry[o["pull_pos"]] = pull_entry
+    live = np.concatenate([np.isin(np.arange(S), o["live_slot"]), np.ones(n_orphans, bool)])
+    return StreamedLayout(
+        table=table, source=source, diag_entry=diag_entry, tile_entry=tile_entry,
+        max_item_tiles=int(per_target[live].max()) if live.any() else 0,
+        copied_entries=int(per_target[live].sum()))
+
+
+def streamed_values(layout: StreamedLayout, diag: torch.Tensor,
+                    tiles: torch.Tensor) -> torch.Tensor:
+    """The streamed store: ``(entries, stream_tile_floats(B))`` float32 on
+    the stores' device, entry ``e`` holding tile ``source[e]`` of
+    ``cat(diag, tiles)`` with rows padded to ``B + 1`` floats (the padding
+    is zero). Rebuilt whenever the values change."""
+    B = diag.shape[1]
+    src = torch.cat([diag, tiles])[torch.as_tensor(layout.source, device=diag.device)]
+    values = torch.zeros(src.shape[0], stream_tile_floats(B), dtype=diag.dtype,
+                         device=diag.device)
+    values[:, :B * (B + 1)].view(-1, B, B + 1)[:, :, :B] = src
+    return values
 
 
 def _check(diag, tiles, b_pad, acc, x, tables) -> None:
@@ -215,3 +359,74 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
 
 superstep_call.launches = 0
 
+
+
+def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> None:
+    vecs = (values, b_pad, acc, x)
+    if any(v.dtype != torch.float32 for v in vecs):
+        raise TypeError("superstep_streamed_call: float32 values, b_pad, acc and x required")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError("superstep_streamed_call: int32 schedule tables required")
+    devices = {v.device for v in vecs + tables}
+    if len(devices) != 1:
+        raise ValueError(f"superstep_streamed_call: operands on several devices "
+                         f"{sorted(map(str, devices))}")
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"superstep_streamed_call: unsupported device {values.device}")
+    if b_pad.ndim not in (2, 3) or acc.shape != b_pad.shape or x.shape != b_pad.shape:
+        raise ValueError(f"superstep_streamed_call: b_pad, acc, x must be (nb+1,B[,R]), got "
+                         f"{tuple(b_pad.shape)}, {tuple(acc.shape)}, {tuple(x.shape)}")
+    B = b_pad.shape[1]
+    n_entries = layout.source.shape[0]
+    if values.shape != (n_entries, stream_tile_floats(B)):
+        raise ValueError(f"superstep_streamed_call: values must be ({n_entries}, "
+                         f"{stream_tile_floats(B)}) for this layout at B={B}, got "
+                         f"{tuple(values.shape)}")
+    if not all(v.is_contiguous() for v in vecs + tables):
+        raise ValueError("superstep_streamed_call: operands must be contiguous")
+    if values.device.type == "cuda" and any(
+            not isinstance(t, torch.Tensor) or t.device != values.device
+            for t in (layout.table.pull_ptr, layout.table.pull_col, layout.table.orphan_row,
+                      layout.table.copy_row)):
+        raise ValueError("superstep_streamed_call: layout must be on the operands' device "
+                         "(StreamedLayout.to)")
+    check_streamed_fits(B, layout.max_item_tiles)
+
+
+def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, acc, x,
+                            stp=None, *, layout: StreamedLayout, grid: int = 0):
+    """:func:`superstep_call` with the streamed store: the same function of
+    the same tables, with every tile read from ``values``
+    (:func:`streamed_values` of ``layout``, the launch's
+    :func:`streamed_layout`) instead of ``diag``/``tiles``. On a card, one
+    cooperative launch of the streamed kernel, which copies each work
+    item's tiles into shared memory with asynchronous bulk copies issued
+    one item ahead; given CPU tensors, the plain version
+    (:func:`repro_torch.kernels.ref.superstep_streamed_ref`). ``layout`` must
+    be on the operands' device for a launch. Raises for a block size whose
+    tile does not fit two stages of shared memory."""
+    tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
+    _check_streamed(values, b_pad, acc, x, tables, layout)
+    if values.device.type == "cpu":
+        return ref.superstep_streamed_ref(
+            seg, off, wid, sr, ut, trow, tcol, values, torch.as_tensor(layout.diag_entry),
+            torch.as_tensor(layout.tile_entry), b_pad, acc, x, stp)
+    table = layout.table
+    t_lo, t_hi = table.levels
+    if t_hi == t_lo:
+        return acc.clone(), x.clone()
+    acc_out, x_out = torch.empty_like(acc), torch.empty_like(x)
+    B = b_pad.shape[1]
+    R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
+    warps, cap = streamed_shape(B, layout.max_item_tiles)
+    ptrs = [t.data_ptr() for t in (off, wid, sr, table.pull_ptr, table.pull_col,
+                                   table.orphan_row, table.copy_row, values, b_pad, acc, x,
+                                   acc_out, x_out)]
+    sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.n_copy,
+             table.max_items, grid, warps, cap]
+    extension.launch("superstep", "repro_superstep_streamed_f32", values.device, *ptrs, *sizes)
+    superstep_streamed_call.launches += 1
+    return acc_out, x_out
+
+
+superstep_streamed_call.launches = 0

@@ -21,6 +21,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # float32, different summation orders
 PER_OP_KERNELS = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
+MEGAKERNELS = ("superstep", "superstep_streamed")
 
 
 @pytest.fixture
@@ -45,6 +46,7 @@ def _dyadic(a: CSR, seed: int = 0) -> CSR:
 @pytest.mark.parametrize("name,B,k,R", [
     ("block_trsv", 32, 17, 1), ("block_trsm", 16, 17, 8),
     ("block_gemv", 128, 17, 1), ("block_gemm", 32, 17, 8),
+    ("block_trsv_panel", 32, 17, 1), ("block_gemv_grouped", 32, 17, 1),
 ])
 def test_kernel_matches_plain_version(cuda_device, name, B, k, R):
     rng = np.random.default_rng(k)
@@ -57,9 +59,22 @@ def test_kernel_matches_plain_version(cuda_device, name, B, k, R):
     v = torch.from_numpy(vec.astype(np.float32)).to(cuda_device)
     fn = ops.KERNELS[name]
     before = fn.launches
-    plain = ref.block_trsv_ref if solve else ref.block_gemv_ref
+    plain = {"block_trsv_panel": ref.block_trsv_panel_ref,
+             "block_gemv_grouped": ref.block_gemv_ref}.get(
+                 name, ref.block_trsv_ref if solve else ref.block_gemv_ref)
     torch.testing.assert_close(fn(m, v), plain(m, v), **TOL)
     assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("m,group", [(16, 8), (13, 4), (70, 40)])
+def test_grouped_gemv_bit_equal_to_gemv(cuda_device, m, group):
+    """Grouped or not, each tile's product has the same bits; a short last
+    group reads nothing past m."""
+    rng = np.random.default_rng(m)
+    T = torch.from_numpy(rng.uniform(-1, 1, (m, 32, 32)).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.uniform(-1, 1, (m, 32)).astype(np.float32)).to(cuda_device)
+    grouped = ops.KERNELS["block_gemv_grouped"](T, x, group)
+    assert torch.equal(grouped, ops.KERNELS["block_gemv"](T, x))
 
 
 def test_kernels_share_pytorch_cuda_runtime(cuda_device):
@@ -104,7 +119,8 @@ def test_dyadic_solves_bit_identical_to_cpu(cuda_device, B, sched):
         np.testing.assert_array_equal(card.solve(hc, rhs, transpose=transpose),
                                       cpu.solve(hp, rhs, transpose=transpose))
     counts = ops.launch_counts()
-    assert all(counts[k] > 0 for k in PER_OP_KERNELS) and counts["superstep"] == 0, counts
+    assert all(counts[k] > 0 for k in PER_OP_KERNELS), counts
+    assert all(counts[k] == 0 for k in MEGAKERNELS), counts
 
 
 def test_ic0_pcg_on_the_card_matches_cpu(cuda_device):
@@ -168,7 +184,8 @@ def test_fused_solves_are_deterministic_and_one_launch_each(cuda_device):
     for rhs, transpose in ((b, False), (b, True), (panel, False)):
         ops.reset_launch_counts()
         x1 = ctx.solve(h, rhs, transpose=transpose)
-        assert ops.launch_counts() == {**dict.fromkeys(PER_OP_KERNELS, 0), "superstep": 1}
+        counts = ops.launch_counts()
+        assert counts["superstep"] == 1 and sum(counts.values()) == 1, counts
         x2 = ctx.solve(h, rhs, transpose=transpose)
         np.testing.assert_array_equal(x1, x2)  # no atomics: the same bits every run
     cpu = SpTRSVContext(device="cpu", options=PlanOptions(block_size=32))
@@ -192,5 +209,94 @@ def test_refused_cooperative_launch_raises_and_next_launch_is_clean(cuda_device)
         superstep.superstep_call(*fused.tables, solver._diag, solver._tiles, b_pad, b_pad,
                                  b_pad, stp=fused.stp, table=fused.table, grid=too_many)
     assert superstep.superstep_call.launches == before
+    np.testing.assert_array_equal(ctx.solve(h, b), x)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the streamed megakernel (kernel_backend="fused_streamed")
+# ---------------------------------------------------------------------------
+
+
+def test_streamed_bit_identical_to_resident_one_launch_each(cuda_device):
+    """Same arithmetic in the same order: the streamed kernel gives the
+    resident kernel's bits on real values, one streamed launch per solve."""
+    a = suite.grid2d_factor(64, seed=6)
+    rng = np.random.default_rng(4)
+    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 4))
+    ctx = {k: SpTRSVContext(options=PlanOptions(block_size=32, kernel=k))
+           for k in ("fused", "fused_streamed")}
+    h = {k: c.analyse(a) for k, c in ctx.items()}
+    for rhs, transpose in ((b, False), (b, True), (panel, False)):
+        ops.reset_launch_counts()
+        x = ctx["fused_streamed"].solve(h["fused_streamed"], rhs, transpose=transpose)
+        counts = ops.launch_counts()
+        assert counts["superstep_streamed"] == 1 and sum(counts.values()) == 1, counts
+        np.testing.assert_array_equal(
+            x, ctx["fused"].solve(h["fused"], rhs, transpose=transpose))
+        np.testing.assert_array_equal(
+            x, ctx["fused_streamed"].solve(h["fused_streamed"], rhs, transpose=transpose))
+
+
+@pytest.mark.parametrize("B,R", [(5, 1), (7, 3), (15, 2), (16, 3)])
+def test_streamed_kernel_bit_identical_to_plain_version_odd_and_even_B(cuda_device, B, R):
+    from repro_torch.core.solver import SolverConfig, build_plan, fused_layouts
+    from repro_torch.kernels import superstep
+
+    a = _dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+    plan = build_plan(a, 1, SolverConfig(block_size=B, kernel_backend="fused_streamed"))
+    rng = np.random.default_rng(B)
+    shape = (plan.bs.nb + 1, B) if R == 1 else (plan.bs.nb + 1, B, R)
+    b_pad = rng.integers(-4, 5, shape).astype(np.float32)
+    b_pad[-1] = 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        tables, stp = _fused_tables(plan, dev)
+        layout = fused_layouts(plan)[0].to(dev)
+        values = superstep.streamed_values(
+            layout, torch.from_numpy(plan.diag).to(dev),
+            torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(dev))
+        zeros = torch.zeros(shape, device=dev)
+        acc, x = superstep.superstep_streamed_call(
+            *tables, values, torch.from_numpy(b_pad).to(dev), zeros, zeros, stp=stp,
+            layout=layout)
+        outs[str(dev)] = (acc.cpu().numpy(), x.cpu().numpy())
+    np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
+
+
+def test_streamed_refresh_on_the_card(cuda_device):
+    from repro_torch.core import solver as tsolver
+
+    a = suite.grid2d_factor(48, seed=6)
+    a2 = CSR(n=a.n, row_ptr=a.row_ptr, col_idx=a.col_idx,
+             val=(a.val * (1.0 + 0.25 * np.sin(np.arange(a.nnz)))).astype(np.float32))
+    cfg = tsolver.SolverConfig(block_size=32, kernel_backend="fused_streamed")
+    solver = tsolver.Solver(tsolver.build_plan(a, 1, cfg))
+    b = np.random.default_rng(7).uniform(-1, 1, a.n)
+    before = solver.solve(b)
+    solver.refresh(tsolver.refresh_plan(solver.plan, a2))
+    fresh = tsolver.Solver(tsolver.build_plan(a2, 1, cfg))
+    after = solver.solve(b)
+    np.testing.assert_array_equal(after, fresh.solve(b))
+    assert not np.array_equal(after, before)
+
+
+def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device):
+    from repro_torch.kernels import superstep
+
+    a = suite.grid2d_factor(32, seed=6)
+    ctx = SpTRSVContext(options=PlanOptions(block_size=32, kernel="fused_streamed"))
+    h = ctx.analyse(a)
+    b = np.random.default_rng(6).uniform(-1, 1, a.n)
+    x = ctx.solve(h, b)
+    solver = ctx.executor(h)
+    fused = solver._fused
+    b_pad = torch.zeros(solver.plan.bs.nb + 1, 32, device=cuda_device)
+    before = superstep.superstep_streamed_call.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        superstep.superstep_streamed_call(*fused.tables, fused.values, b_pad, b_pad, b_pad,
+                                          stp=fused.stp, layout=fused.layout, grid=10**6)
+    assert superstep.superstep_streamed_call.launches == before
     np.testing.assert_array_equal(ctx.solve(h, b), x)
     torch.cuda.synchronize()

@@ -8,11 +8,13 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro.kernels.block_spmv import block_gemm as jgemm, block_gemv as jgemv
+from repro.kernels.block_spmv import (
+    block_gemm as jgemm, block_gemv as jgemv, block_gemv_grouped as jgemv_grouped,
+)
 from repro.kernels.block_trsv import block_trsm as jtrsm, block_trsv as jtrsv
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.block_spmv import block_gemm, block_gemv
-from repro_torch.kernels.block_trsv import block_trsm, block_trsv
+from repro_torch.kernels.block_spmv import block_gemm, block_gemv, block_gemv_grouped
+from repro_torch.kernels.block_trsv import block_trsm, block_trsv, block_trsv_panel
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # float32, different summation orders
 
@@ -111,15 +113,87 @@ def test_backend_resolution():
 
 
 @pytest.mark.parametrize("call", [
-    lambda L, r: ops.batched_block_trsv(L, r, backend="cuda", algorithm="panel"),
-    lambda L, r: ops.batched_block_gemv(L, r, backend="cuda", group=4),
+    lambda L, r: ops.batched_block_trsv(L, r, backend="fused_streamed"),
+    lambda L, r: ops.batched_block_gemv(L, r, backend="fused"),
     lambda L, r: ops.batched_block_trsv(L, r, backend="fused"),
     lambda L, r: ops.batched_block_gemv(L, r, backend="fused_streamed"),
 ])
 def test_unported_variants_raise(call):
+    """Per-op calls under a fused backend: the fused executor makes none."""
     L, r = _tri(2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_t(L), _t(r))
+
+
+@pytest.mark.parametrize("variant", ["panel", "group"])
+def test_panel_and_grouped_variants_run_and_match_reference(variant):
+    """``algorithm="panel"`` and ``group > 1`` on the ``cuda`` backend (CPU
+    tensors: the wrappers' plain versions) match the reference's Pallas
+    kernels in interpret mode."""
+    L, r = _tri(5, 16, seed=7)
+    if variant == "panel":
+        got = ops.batched_block_trsv(_t(L), _t(r), backend="cuda", algorithm="panel")
+        want = jtrsv(jnp.asarray(L), jnp.asarray(r), algorithm="panel", interpret=True)
+    else:
+        got = ops.batched_block_gemv(_t(L), _t(r), backend="cuda", group=4)
+        want = jgemv_grouped(jnp.asarray(L), jnp.asarray(r), group=4, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _exact_tri(k, B, seed=0):
+    """Unit lower-triangular integer tiles with a sparse {-1, 1} lower part
+    and r = L @ x for small integer x: every partial sum of a forward
+    substitution, in any order, is a small integer, so exact in float32."""
+    rng = np.random.default_rng(seed)
+    L = np.tril(rng.choice([-1.0, 0.0, 0.0, 0.0, 1.0], (k, B, B)), -1) + np.eye(B)
+    x = rng.integers(-3, 4, (k, B)).astype(np.float64)
+    return L.astype(np.float32), np.einsum("kij,kj->ki", L, x).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,panel", [(8, 8), (16, 8), (32, 8), (64, 16)])
+@pytest.mark.parametrize("k", [1, 7])
+def test_trsv_panel_plain_matches_reference_and_pallas(B, panel, k):
+    L, r = _tri(k, B, seed=B + k)
+    out = block_trsv_panel(_t(L), _t(r), panel).numpy()
+    want = jtrsv(jnp.asarray(L), jnp.asarray(r), algorithm="panel", panel=panel, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(want), **TOL)
+    np.testing.assert_allclose(out, jref.block_trsv_ref(jnp.asarray(L), jnp.asarray(r)), **TOL)
+    Le, re = _exact_tri(k, B, seed=B * k)
+    exact = jtrsv(jnp.asarray(Le), jnp.asarray(re), algorithm="panel", panel=panel,
+                  interpret=True)
+    np.testing.assert_array_equal(block_trsv_panel(_t(Le), _t(re), panel).numpy(),
+                                  np.asarray(exact))
+
+
+@pytest.mark.parametrize("m,group", [(8, 4), (13, 4), (5, 8), (3, 1)])
+def test_gemv_grouped_plain_matches_reference_and_pallas(m, group):
+    """A multiple of ``group`` tiles and a short last group alike; the result
+    is ``block_gemv``'s, bit for bit."""
+    rng = np.random.default_rng(m * group)
+    T = rng.uniform(-1, 1, (m, 32, 32)).astype(np.float32)
+    x = rng.uniform(-1, 1, (m, 32)).astype(np.float32)
+    out = block_gemv_grouped(_t(T), _t(x), group)
+    want = jgemv_grouped(jnp.asarray(T), jnp.asarray(x), group=group, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    torch.testing.assert_close(out, block_gemv(_t(T), _t(x)), rtol=0, atol=0)
+    Ti = rng.integers(-2, 3, (m, 32, 32)).astype(np.float32)
+    xi = rng.integers(-2, 3, (m, 32)).astype(np.float32)
+    exact = jgemv_grouped(jnp.asarray(Ti), jnp.asarray(xi), group=group, interpret=True)
+    np.testing.assert_array_equal(block_gemv_grouped(_t(Ti), _t(xi), group).numpy(),
+                                  np.asarray(exact))
+
+
+def test_trsv_panel_on_panels_takes_the_trsm_and_unknown_algorithms_raise():
+    """As in the reference, a (k,B,R) right-hand side goes to the TRSM
+    whatever the algorithm."""
+    L, _ = _tri(3, 16, seed=5)
+    rp = np.random.default_rng(5).uniform(-1, 1, (3, 16, 2)).astype(np.float32)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(
+        ops.batched_block_trsv(_t(L), _t(rp), backend="cuda", algorithm="panel"),
+        block_trsm(_t(L), _t(rp)), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="algorithm"):
+        ops.batched_block_trsv(_t(L), _t(rp[..., 0]), backend="cuda", algorithm="blocked")
 
 
 def test_reference_backend_ignores_group_like_the_reference():
@@ -135,6 +209,10 @@ def test_reference_backend_ignores_group_like_the_reference():
     (block_trsm, (2, 8, 8), (2, 8), ValueError),
     (block_gemv, (2, 8, 8), (3, 8), ValueError),  # batch mismatch
     (block_gemm, (2, 8, 4), (2, 8, 2), ValueError),  # non-square tiles
+    (block_trsv_panel, (2, 16, 16), (2, 16), None),
+    (block_trsv_panel, (2, 12, 12), (2, 12), ValueError),  # B not a multiple of 8
+    (block_gemv_grouped, (5, 8, 8), (5, 8), None),
+    (block_gemv_grouped, (5, 8, 8), (5, 8, 2), ValueError),  # vectors only
 ])
 def test_wrapper_shape_contract(fn, mat, vec, err):
     m, v = torch.ones(mat), torch.ones(vec)
@@ -158,5 +236,7 @@ def test_cpu_and_empty_calls_launch_nothing():
     L, r = _tri(3, 8)
     block_trsv(_t(L), _t(r))
     block_gemm(torch.zeros(0, 8, 8), torch.zeros(0, 8, 2))
+    block_trsv_panel(_t(L), _t(r))
+    block_gemv_grouped(torch.zeros(0, 8, 8), torch.zeros(0, 8), 4)
     assert block_trsv(torch.zeros(0, 8, 8), torch.zeros(0, 8)).shape == (0, 8)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)

@@ -110,13 +110,24 @@ def test_single_row_block():
 
 
 @pytest.mark.parametrize("kw,n_devices", [({"sched": "syncfree"}, 1),
-                                          ({"kernel_backend": "fused_streamed"}, 1),
+                                          ({"kernel_backend": "fused_streamed"}, 2),
                                           ({}, 2)])
 def test_unported_executors_raise(kw, n_devices):
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, n_devices, tsolver.SolverConfig(block_size=8, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolver.Solver(plan, "cpu")
+
+
+@pytest.mark.parametrize("form", ["forward", "panel"])
+def test_fused_streamed_executor_runs_and_matches_reference(form):
+    """The streamed megakernel executor (plain version on the CPU) gives the
+    reference switch executor's bits on a dyadic problem."""
+    a = strategies.EXACT_MATRICES["skewed"]()
+    solver = _port_solver(a, 8, kernel="fused_streamed")
+    assert solver.backend == "fused_streamed"
+    np.testing.assert_array_equal(solver.solve(_rhs(a.n, form)),
+                                  _reference_solve("skewed", 8, form))
 
 
 def test_solver_refresh_and_structural_check():

@@ -312,14 +312,30 @@ def test_fused_single_row_block():
     np.testing.assert_allclose(solver.solve(b), reference_solve(a, b), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("kw,n_devices", [({"kernel_backend": "fused_streamed"}, 1),
-                                          ({"kernel_backend": "fused", "sched": "syncfree"}, 1),
-                                          ({"kernel_backend": "fused"}, 2)])
+@pytest.mark.parametrize("kw,n_devices", [
+    ({"kernel_backend": "fused_streamed", "sched": "syncfree"}, 1),
+    ({"kernel_backend": "fused", "sched": "syncfree"}, 1),
+    ({"kernel_backend": "fused"}, 2),
+    ({"kernel_backend": "fused_streamed"}, 2),
+])
 def test_unported_fused_forms_raise(kw, n_devices):
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, n_devices, tsolver.SolverConfig(block_size=8, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolver.Solver(plan, "cpu")
+
+
+def test_fused_streamed_form_runs_and_matches_the_reference():
+    """``kernel_backend="fused_streamed"`` executes (one streamed launch per
+    solve) and gives the reference's fused solve bit for bit."""
+    plan = _ref_plan("skewed", 8, "levelset", False)
+    b_blocks = pad_rhs(strategies.dyadic_rhs(plan.bs.n), plan.bs)
+    want = np.asarray(solve_local(plan, jnp.asarray(b_blocks)))
+    fields = flatten_plan(plan)
+    fields["config.kernel_backend"] = "fused_streamed"
+    solver = tsolver.Solver(tsolver.plan_from_arrays(fields), "cpu")
+    assert solver.backend == "fused_streamed" and solver._fused.layout is not None
+    np.testing.assert_array_equal(solver.solve_blocks(torch.from_numpy(b_blocks)).numpy(), want)
 
 
 def test_per_op_calls_under_fused_raise_and_spmv_keeps_the_gemv():

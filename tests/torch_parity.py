@@ -77,15 +77,24 @@ def assert_plans_identical(ref_plan, port_plan) -> None:
 # dispatch_stats keys that follow the port's Hopper rule for the fused
 # executor's on-chip plan (core/solver.py) instead of the reference's TPU
 # VMEM budget: the resident kernel reads the stores from HBM, so only
-# kernel_backend="fused_streamed" streams, and "fused_vmem_bytes" is the
-# resident megakernel's shared memory per CTA
+# kernel_backend="fused_streamed" streams; "fused_vmem_bytes" is the
+# megakernel's dynamic shared memory per CTA and "stream_dma_bytes" the
+# bytes the streamed kernel copies per vector solve
 HOPPER_FUSED_KEYS = ("streamed", "fused_vmem_bytes", "stream_dma_bytes")
+SHARED_LIMIT = 232_448  # bytes of dynamic shared memory one Hopper block may use
 
 
 def hopper_fused_stats(ref_plan) -> dict:
-    """The three keys by the port's rule, computed from the reference's plan."""
-    from repro.core.solver import level_widths, step_widths
+    """The three keys by the port's rule, derived here from the reference's
+    plan (not through the port's layout builder).
 
+    Streamed, each device's work items are its solved rows (incoming tiles
+    stored on the device, then the diagonal tile) and the rows it updates
+    but does not solve (incoming tiles only). Store entries are tiles with
+    rows padded to B + 1 floats, then to a multiple of four; each warp
+    double-buffers its widest item when 8, 4, 2 or 1 warps of them fit the
+    shared memory, besides two mbarriers and two B-float columns.
+    """
     B = ref_plan.bs.B
     streamed = (ref_plan.config.sched in ("levelset", "dagpart")
                 and ref_plan.config.kernel_backend == "fused_streamed")
@@ -93,14 +102,26 @@ def hopper_fused_stats(ref_plan) -> dict:
         # 8 warps, each with a 1056-float staging buffer and two B-float columns
         return {"streamed": False, "stream_dma_bytes": 0,
                 "fused_vmem_bytes": 4 * 8 * (33 * 32 + 2 * B)}
-    ws = wu = 0
-    if ref_plan.n_levels:
-        ws, wu = (int(w) for w in step_widths(ref_plan)[:, :2].max(axis=0))
-    dma = 0
-    if ref_plan.n_levels:
-        dma = int(level_widths(ref_plan)[:, :2].sum()) * B * B * 4
-    return {"streamed": True, "stream_dma_bytes": dma,
-            "fused_vmem_bytes": 2 * (max(1, ws) + max(1, wu)) * B * B * 4}
+    nb = ref_plan.bs.nb
+    entry = 4 * (-(-B * (B + 1) // 4) * 4)
+    widest, copied = 0, 0
+    for d in range(ref_plan.n_devices):
+        solved = ref_plan.solve_rows[d][ref_plan.solve_rows[d] >= 0]
+        dest = ref_plan.tile_row[d][ref_plan.tile_row[d] != nb]
+        items = np.bincount(dest, minlength=nb + 1)
+        items[solved] += 1
+        widest = max(widest, int(items.max()))
+        copied = max(copied, int(items.sum()))
+
+    def size(warps, cap):
+        return warps * (16 + 2 * cap * entry + 8 * B)
+
+    need = max(1, widest)
+    fits = [w for w in (8, 4, 2, 1) if size(w, need) <= SHARED_LIMIT]
+    vmem = (size(fits[0], need) if fits
+            else size(1, max(1, min(need, (SHARED_LIMIT - size(1, 0)) // (2 * entry)))))
+    return {"streamed": True, "fused_vmem_bytes": vmem,
+            "stream_dma_bytes": copied * entry if ref_plan.n_levels else 0}
 
 
 def assert_dispatch_stats_match(ref_stats: dict, ref_plan, port_stats: dict) -> None:
