@@ -39,8 +39,11 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    solve at sides 256, 512 and 1024.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
-its plain version, the one-call PyTorch equivalent and its bound, prints
-them as one ``{"kernels": [...]}`` line, and ends with the line
+its plain version, the one-call PyTorch equivalent and its bound; times
+each block kernel's device work alone (``torch.profiler``'s
+``key_averages()``, without the host's launch gaps); times the GEMV family
+and ``torch.bmm`` at the tile count of phase 4's SpMV; prints them as one
+``{"kernels": [...]}`` line, and ends with the line
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/`` next to
 it and a CUDA device; without either it exits non-zero.
 """
@@ -75,6 +78,16 @@ KERNELS = {
     "superstep_streamed": ("src/repro/kernels/superstep.py:182", "superstep.cu"),
 }
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
+# each block kernel's __global__ function, matched in the profiler's kernel
+# name whether demangled ("...::gemv_kernel(float const*, ...)") or not
+# ("_ZN12_GLOBAL__N_111gemv_kernelEPKf..."), and the kernels of a cuBLAS call
+# (torch.bmm, torch.linalg.solve_triangular); the device-only times count
+# these alone
+DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(E ]|$)" for name, sym in (
+    ("block_trsv", "trsv_rowsweep_kernel"), ("block_trsm", "trsm_rowsweep_kernel"),
+    ("block_gemv", "gemv_kernel"), ("block_gemm", "gemm_kernel"),
+    ("block_trsv_panel", "trsv_panel_kernel"), ("block_gemv_grouped", "gemv_grouped_kernel"))}
+LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
 
 
 def fail(msg: str) -> None:
@@ -119,6 +132,36 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 50) -> float | None:
+    """Mean device time of one call (ms) of the kernels whose name matches
+    the regular expression ``kernel`` (searched in the profiler's kernel
+    name), as ``torch.profiler``'s ``key_averages()`` report them over
+    ``iters`` calls, without the host's gaps between launches; any other
+    kernel the call launches (a fill, a copy) is left out. Profiles twice at
+    most; ``None``, logged with the kernel names it did see, if no kernel
+    matches."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events if re.search(kernel, e.key))
+        if us > 0:
+            return us / 1e3 / iters
+    log(f"device_ms: no kernel matching {kernel!r} in the profile; saw "
+        f"{sorted({e.key for e in events})}")
+    return None
 
 
 def bound(name: str, k: int, B: int, R: int) -> tuple[float, str]:
@@ -491,7 +534,8 @@ def main() -> None:
     for R in (1, 3):
         rhs = rng.integers(-4, 5, dy.n if R == 1 else (dy.n, R)).astype(np.float32)
         tables, vecs, stp = fused_inputs(torch, dplan, pad_b(dplan, rhs))
-        got = superstep.superstep_call(*tables, *vecs, stp=stp)
+        got = superstep.superstep_call(*tables, *vecs, stp=stp,
+                                       flags=superstep.ReadyFlags(dplan.bs.nb + 1, "cuda"))
         plain_out = ref.superstep_ref(*tables, *vecs, stp=stp)
         check(all(torch.equal(g, w) for g, w in zip(got, plain_out)),
               f"megakernel != its plain version on the dyadic problem, R={R}")
@@ -502,7 +546,8 @@ def main() -> None:
         table = superstep.superstep_table(
             *[t.cpu().numpy() for t in tables], n_rows=p.bs.nb + 1,
             stp=stp.cpu().numpy()).to("cuda")
-        got = superstep.superstep_call(*tables, *vecs, stp=stp, table=table)[1]
+        got = superstep.superstep_call(*tables, *vecs, stp=stp, table=table,
+                                       flags=superstep.ReadyFlags(p.bs.nb + 1, "cuda"))[1]
         plain_x = ref.superstep_ref(*tables, *vecs, stp=stp)[1]
         torch.cuda.synchronize()
         e = float((got - plain_x).abs().max())
@@ -535,12 +580,15 @@ def main() -> None:
     log(f"phase 5 fused IC(0)-PCG: {fres.n_iters} iterations, {fpcg_s:.1f} s, true rel "
         f"residual {ftrue:.2e} (phase 4: {true_res:.2e}), launches {json.dumps(fpcg_launches)}")
 
-    # the megakernel's own times at full size, beside its plain version and cuSPARSE
-    fms = time_ms(lambda: superstep.superstep_call(*ftab, *fvec, stp=fstp, table=ftable), 20)
+    # the megakernel's own times at full size, beside its plain version and
+    # cuSPARSE; one ReadyFlags kept across the timed launches, as a Solver does
+    ready = superstep.ReadyFlags(fplan.bs.nb + 1, "cuda")
+    fms = time_ms(lambda: superstep.superstep_call(*ftab, *fvec, stp=fstp, table=ftable,
+                                                   flags=ready), 20)
     b8 = torch.from_numpy(pad_b(fplan, panel)).cuda()
     z8 = torch.zeros_like(b8)
     fms8 = time_ms(lambda: superstep.superstep_call(*ftab, *fvec[:2], b8, z8, z8, stp=fstp,
-                                                    table=ftable), 10)
+                                                    table=ftable, flags=ready), 10)
     fplain_ms = time_ms(lambda: ref.superstep_ref(*ftab, *fvec, stp=fstp), 3, warmup=1)
     bvec = torch.from_numpy(np.asarray(b, np.float32)).cuda().reshape(-1, 1)
     sp = to_scipy(a)
@@ -621,7 +669,9 @@ def main() -> None:
     def streamed_against_plain(p, rhs, inputs=None):
         tables, vecs, stp = inputs or fused_inputs(torch, p, pad_b(p, rhs))
         svecs, layout = streamed_from(p, tables, vecs)
-        got = superstep.superstep_streamed_call(*tables, *svecs, stp=stp, layout=layout)
+        got = superstep.superstep_streamed_call(
+            *tables, *svecs, stp=stp, layout=layout,
+            flags=superstep.ReadyFlags(p.bs.nb + 1, "cuda"))
         plain_out = ref.superstep_streamed_ref(*tables, svecs[0], layout.diag_entry,
                                                layout.tile_entry, *svecs[1:], stp=stp)
         torch.cuda.synchronize()
@@ -685,9 +735,10 @@ def main() -> None:
     # the resident kernel at three sizes (in turns: resident, streamed,
     # streamed, resident; 10 solves each)
     sms = time_ms(lambda: superstep.superstep_streamed_call(*stab, *svec, stp=sstp,
-                                                            layout=slay), 20)
+                                                            layout=slay, flags=ready), 20)
     sms8 = time_ms(lambda: superstep.superstep_streamed_call(*stab, svec[0], b8, z8, z8,
-                                                             stp=sstp, layout=slay), 10)
+                                                             stp=sstp, layout=slay,
+                                                             flags=ready), 10)
     splain_ms = time_ms(lambda: ref.superstep_streamed_ref(
         *stab, svec[0], slay.diag_entry, slay.tile_entry, *svec[1:], stp=sstp), 3, warmup=1)
     log(f"phase 6 streamed megakernel {sms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) "
@@ -706,12 +757,14 @@ def main() -> None:
                 *[t.cpu().numpy() for t in tables], n_rows=p_.bs.nb + 1,
                 stp=stp.cpu().numpy()).to("cuda")
             svecs, layout = streamed_from(p_, tables, vecs)
+        side_ready = superstep.ReadyFlags(p_.bs.nb + 1, "cuda")
 
         def resident_fn():
-            superstep.superstep_call(*tables, *vecs, stp=stp, table=table)
+            superstep.superstep_call(*tables, *vecs, stp=stp, table=table, flags=side_ready)
 
         def streamed_fn():
-            superstep.superstep_streamed_call(*tables, *svecs, stp=stp, layout=layout)
+            superstep.superstep_streamed_call(*tables, *svecs, stp=stp, layout=layout,
+                                              flags=side_ready)
 
         turns = [time_ms(fn, 10, warmup=2)
                  for fn in (resident_fn, streamed_fn, streamed_fn, resident_fn)]
@@ -778,6 +831,8 @@ def main() -> None:
             "plain_ms": time_ms(lambda: plain[name](mat, vec)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lambda: library[name](mat, vec)),
+            "device_ms": device_ms(lambda: fn(mat, vec), DEVICE_KERNEL[name]),
+            "library_device_ms": device_ms(lambda: library[name](mat, vec), LIBRARY_KERNEL),
             "shape": [k, B, R],
         })
     # the same kernels on a wide batch, where the device, not the host, sets the pace
@@ -796,6 +851,38 @@ def main() -> None:
                     f"library_ms={time_ms(lambda: library[name](mat, vec), 50):.4f} "
                     f"bound_ms={bound(name, k, B, R)[0]:.4f}")
     log("kernel times at k=4096 tiles: " + "; ".join(wide))
+    # the GEMV family at the tile count of phase 4's SpMV (every tile of the
+    # n = PCG_SIDE^2 problem, B = 32), where the SpMV calls the GEMV
+    sp_tiles = torch.from_numpy(np.ascontiguousarray(
+        build_plan(a_spd, 1, SolverConfig()).tiles[0])).cuda()
+    m_sp = sp_tiles.shape[0]
+    at_spmv = []
+    for row in rows_out:
+        name = row["name"]
+        if name not in ("block_gemv", "block_gemm", "block_gemv_grouped"):
+            continue
+        R = row["shape"][2]
+        vec = torch.rand((m_sp, Bsz) if R == 1 else (m_sp, Bsz, R), device="cuda",
+                         generator=gen) * 2 - 1
+        fn = kops.KERNELS[name]
+        got, want = fn(sp_tiles, vec), plain[name](sp_tiles, vec)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL),
+              f"{name} disagrees with its plain version at the SpMV's {m_sp} tiles")
+        row["at_spmv"] = {
+            "shape": [m_sp, Bsz, R], "ms": time_ms(lambda: fn(sp_tiles, vec)),
+            "library_ms": time_ms(lambda: library[name](sp_tiles, vec)),
+            "device_ms": device_ms(lambda: fn(sp_tiles, vec), DEVICE_KERNEL[name]),
+            "library_device_ms": device_ms(lambda: library[name](sp_tiles, vec),
+                                           LIBRARY_KERNEL),
+            "bound_ms": bound(name, m_sp, Bsz, R)[0]}
+        at_spmv.append(f"{name}[{m_sp}x{Bsz}x{R}] " + " ".join(
+            f"{k}={v}" for k, v in row["at_spmv"].items() if k != "shape"))
+    log("GEMV family at the SpMV's tile count (ms; device_ms from torch.profiler): "
+        + "; ".join(at_spmv))
+    log("block kernels' device-only ms at the widest level (kernel / torch library call): "
+        + ", ".join(f"{r['name']}={r['device_ms']} / {r['library_device_ms']}"
+                    for r in rows_out))
     rows_out += [superstep_row, streamed_row]
     torch.cuda.synchronize()
 

@@ -10,12 +10,13 @@ default) or the superstep megakernel (``fused``, or its streamed form
 traces one forward solve with ``torch.profiler`` and prints: the solve's
 wall time, the summed device time of its kernels, the device's idle share
 of the wall time, and the operations ranked by host and by device time.
-For the megakernel it then splits its time with CUDA events: the whole
-launch, a launch with the same levels and barriers but no work (every solve
-slot a pad, no tile updates; it copies every row's carry through instead,
-and the streamed form copies no tile), and one with the row solves but no
-tile products (the streamed form then copies only the diagonal tiles).
-Needs a CUDA device.
+For the megakernel it then splits its time with CUDA events, per launch
+and per level: the whole launch; one without tile products (every update
+width 0: no row pulls, so no row waits for another, and the streamed form
+copies only the diagonal tiles); and one without solves either (every solve
+slot a pad as well: the launch and the walk over the levels alone, which
+copies every row's carry through and sets no flag, and no pull waits for
+one). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ def main() -> None:
     # kernel rows only: the aten rows repeat their kernels' device time
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"[profile] {torch.cuda.get_device_name(0)}; n={a.n} levels={solver.plan.n_levels} "
+    print(f"[profile] {torch.cuda.get_device_name(0)} ({card_line()}); n={a.n} "
+          f"levels={solver.plan.n_levels} "
           f"R={args.rhs} backend={args.backend}")
     print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms, traced {traced_ms:.2f} ms; "
           f"device kernel time {device_us / 1e3:.3f} ms; device idle share "
@@ -82,9 +84,18 @@ def main() -> None:
         megakernel_split(solver, b_blocks)
 
 
+def card_line() -> str:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
 def megakernel_split(solver, b_blocks) -> None:
     """ms of the whole megakernel launch and of two stripped launches over
-    the same levels (CUDA events, mean of 10 after a warm call)."""
+    the same levels (CUDA events, mean of 10 after a warm call), per launch
+    and in µs per level."""
     import numpy as np
     import torch
 
@@ -100,6 +111,7 @@ def megakernel_split(solver, b_blocks) -> None:
 
     def timed(tables, stp):
         host = [t.cpu().numpy() for t in tables]
+        ready = superstep.ReadyFlags(plan.bs.nb + 1, "cuda")  # kept from launch to launch
         if fused.layout is not None:  # the streamed form: its own store for these tables
             layout = superstep.streamed_layout(*host, n_rows=plan.bs.nb + 1,
                                                stp=stp.cpu().numpy()).to("cuda")
@@ -109,14 +121,14 @@ def megakernel_split(solver, b_blocks) -> None:
 
             def run():
                 superstep.superstep_streamed_call(*tables, values, b_pad, zeros, zeros,
-                                                  stp=stp, layout=layout)
+                                                  stp=stp, layout=layout, flags=ready)
         else:
             table = superstep.superstep_table(*host, n_rows=plan.bs.nb + 1,
                                               stp=stp.cpu().numpy()).to("cuda")
 
             def run():
                 superstep.superstep_call(*tables, solver._diag, solver._tiles, b_pad, zeros,
-                                         zeros, stp=stp, table=table)
+                                         zeros, stp=stp, table=table, flags=ready)
 
         run()
         torch.cuda.synchronize()
@@ -132,11 +144,15 @@ def megakernel_split(solver, b_blocks) -> None:
     no_updates = level_widths(plan).copy()
     no_updates[:, 1] = 0
     pads = np.full_like(plan.solve_rows[0], -1)
-    whole = timed(fused.tables, fused.stp)
-    barriers = timed([seg, off, dev(no_updates), dev(pads), ut, trow, tcol], fused.stp)
-    solves = timed([seg, off, dev(no_updates), sr, ut, trow, tcol], fused.stp)
-    print(f"[profile] megakernel split (ms per launch): whole {whole:.3f}; barriers only "
-          f"{barriers:.3f}; row solves without tile products {solves:.3f}")
+    split = {"whole": timed(fused.tables, fused.stp),
+             "without tile products": timed([seg, off, dev(no_updates), sr, ut, trow, tcol],
+                                            fused.stp),
+             "without solves (launch and level walk)": timed(
+                 [seg, off, dev(no_updates), dev(pads), ut, trow, tcol], fused.stp)}
+    levels = max(1, plan.n_levels)
+    print(f"[profile] megakernel split over {plan.n_levels} levels, ms per launch "
+          f"(µs per level): " + "; ".join(f"{k} {v:.3f} ({1e3 * v / levels:.3f})"
+                                         for k, v in split.items()))
 
 
 if __name__ == "__main__":

@@ -437,8 +437,9 @@ def fused_segments(plan: Plan) -> np.ndarray:
 # The fused executor on Hopper. The reference's resident megakernel holds
 # the diag/tile stores in the TPU core's VMEM, so above a VMEM budget
 # (8 MiB by default) "fused" upgrades itself to streaming them. The port's
-# resident kernel reads the stores from HBM and keeps only per-warp columns
-# in shared memory, so its on-chip footprint does not grow with the plan:
+# resident kernel reads the stores from HBM and keeps only a per-warp ring
+# of prefetched tile rows and three columns in shared memory, so its
+# on-chip footprint does not grow with the plan:
 # "fused" does not upgrade itself, and only kernel_backend="fused_streamed"
 # selects the streamed form. An automatic upgrade waits for the calibration
 # port and the crossover measured on the card (PERF.md).
@@ -488,8 +489,9 @@ def fused_vmem_bytes(plan: Plan, *, streamed: bool = False,
     """On-chip bytes of one fused launch, by the port's Hopper rule: the
     megakernel's dynamic shared memory per CTA.
 
-    Resident: :func:`repro_torch.kernels.superstep.shared_bytes` (a staging
-    buffer and two columns of B floats per warp), whatever the plan's size
+    Resident: :func:`repro_torch.kernels.superstep.shared_bytes` (a ring of
+    three prefetch stages and three columns of B floats per warp), whatever
+    the plan's size
     or the panel width (a panel column is a work item of its own).
     Streamed: :func:`repro_torch.kernels.superstep.streamed_shared_bytes`,
     two stages of the widest work item (a row's incoming tiles and its
@@ -633,7 +635,9 @@ class _FusedSchedule:
     tensors and, on a card, the resident kernel's pull table
     (:func:`repro_torch.kernels.superstep.superstep_table`), or, for the
     streamed form, its layout (:func:`~repro_torch.kernels.superstep.streamed_layout`)
-    and, once values are loaded, the streamed store."""
+    and, once values are loaded, the streamed store; and the launch's
+    :class:`~repro_torch.kernels.superstep.ReadyFlags` scratch, allocated
+    once and kept from solve to solve."""
 
     def __init__(self, plan: Plan, device: torch.device, streamed: bool):
         def dev(x):
@@ -644,6 +648,7 @@ class _FusedSchedule:
         self.tables = tuple(dev(t) for t in host)
         self.stp = dev(step_offsets(plan))
         self.table = self.layout = self.values = None
+        self.flags = superstep.ReadyFlags(plan.bs.nb + 1, device)
         if streamed:
             layout = fused_layouts(plan)[0]
             superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
@@ -664,10 +669,11 @@ class _FusedSchedule:
         zeros = torch.zeros_like(b_pad)
         if self.layout is not None:
             _, x = superstep.superstep_streamed_call(*self.tables, self.values, b_pad, zeros,
-                                                     zeros, stp=self.stp, layout=self.layout)
+                                                     zeros, stp=self.stp, layout=self.layout,
+                                                     flags=self.flags)
         else:
             _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
-                                            stp=self.stp, table=self.table)
+                                            stp=self.stp, table=self.table, flags=self.flags)
         return x
 
 

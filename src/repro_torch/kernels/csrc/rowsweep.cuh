@@ -1,6 +1,8 @@
-// Device functions shared by the row-sweep kernels (block_trsv.cu) and the
-// superstep megakernel (superstep.cu), so both solve a diagonal tile with
-// the same instructions in the same order.
+// Device functions of the row-sweep kernels (block_trsv.cu: TRSV, TRSM and
+// the panel TRSV), so each solves a diagonal tile with the same
+// instructions in the same order. The superstep megakernel (superstep.cu)
+// no longer uses them: it solves its diagonal tiles with a column sweep of
+// its own, in registers.
 //
 // Arithmetic, kept op for op from the reference's row sweep
 // (src/repro/kernels/block_trsv.py::_trsv_rowsweep_kernel): row i takes the

@@ -4,9 +4,9 @@
 // Replaces src/repro/kernels/superstep.py::_superstep_kernel in its resident
 // form (superstep_call(stream=False), split_delta=False) and in its
 // streamed form (stream=True, _step_copies), as two instantiations of one
-// kernel (superstep_kernel<kStream>) that share every arithmetic step. For each level of
-// the launch's superstep range, in order, the reference solves the level's
-// rows with rhs = b - acc, then applies the level's tile updates
+// kernel (superstep_kernel<kStream>) that share every arithmetic step. For
+// each level of the launch's superstep range, in order, the reference solves
+// the level's rows with rhs = b - acc, then applies the level's tile updates
 // acc[trow] += tile @ x[tcol]. It is correct on the TPU because the grid
 // programs run one after another on one core; CUDA blocks do not, so the
 // port is one persistent, cooperative kernel:
@@ -15,37 +15,65 @@
 //   which refuses a grid that cannot be resident all at once. The entry
 //   point returns that refusal (or a device without cooperative launch)
 //   as an error; it never spins over a grid that might not be resident.
-// * Levels are separated by cooperative_groups' grid barrier. A level with
-//   no solve slots writes nothing, so its barrier is skipped; the level
-//   widths are read by every thread, so every CTA skips the same barriers.
-//   Every CTA reaches every other barrier: no thread returns early, and pad
-//   slots (sr = -1) only skip work inside the level.
 // * Pull, not push: the host builds, once per plan, each solved row's list
 //   of incoming tiles in the order the reference adds them (level, then
 //   position in the flat update schedule; kernels/superstep.py::
-//   superstep_table). The warp that solves row r at level t sums them into
-//   acc[r], starting from the incoming carry, right before it solves. No
-//   floating-point atomics and one barrier per level: a real-valued solve
-//   gives the same bits run after run. Rows that receive updates but are not
-//   solved in the launch ("orphans") are summed after the last level. Updates
-//   into the pad row (the zero pad tile) are not applied.
-// * x written by another CTA is read with __ldcg (L2, never a stale L1
-//   line) after the barrier that follows its level.
+//   superstep_table). The warp that solves row r sums them into acc[r],
+//   starting from the incoming carry, right before it solves. No
+//   floating-point atomics: a real-valued solve gives the same bits run
+//   after run. Rows that receive updates but are not solved in the launch
+//   ("orphans") are summed after the last level. Updates into the pad row
+//   (the zero pad tile) are not applied.
+// * Per-row ready flags, not a barrier per level. Work items are (solve
+//   slot, right-hand-side column) pairs, one warp each, and each warp runs
+//   its items in level order. The warp that solves row r, column c writes
+//   x, passes a warp barrier, and lane 0 publishes flags[r R + c] = epoch
+//   with a release store at GPU scope (the epoch is a launch counter the
+//   wrapper passes in, so the flags are never cleared between launches).
+//   For the rows an item pulls from, lane g polls source g's flag with an
+//   acquire load until it holds the epoch (kGather sources at once, so an
+//   item's waits overlap), then the warp reads their x with __ldcg (L2,
+//   never a stale L1 line), all loads before the first use. A row waits
+//   for the rows it pulls from, not for the whole level. Every dependency
+//   points to an earlier level and the grid is co-resident, so the warp
+//   holding the lowest unfinished item can always proceed. A pull from a
+//   row the launch does not solve (a copy row: x comes from x_in, copied
+//   before the launch's one grid barrier) is marked by the host
+//   (pull_wait = 0) and never waits.
+// * Off the chain: b[row] and acc_in[row] do not depend on x; a warp loads
+//   them into registers when it starts an item, before any wait. Tiles do
+//   not depend on x either: each warp prefetches its next pieces of work
+//   into shared memory before it waits (below). The level walk loads each
+//   level's offset and width one level ahead.
 //
-// Work items are (solve slot, right-hand-side column) pairs, one warp each,
-// so column c of an (n, R) panel runs exactly the vector solve's code on
-// column c. A warp stages each tile (up to kStage floats of it at a time)
-// into its shared buffer with all of its loads in flight at once, then
-// computes from there: the stores are too large to stay in L2, and a load
-// per tile row would put a memory latency on the chain B times. Tile
-// products are float32 FMAs (no TF32, no tensor cores), one lane per tile
-// row, summed over the row in column order; the diagonal solve is
-// rowsweep.cuh's sweep, shared with block_trsv.cu.
+// The diagonal solve is a column sweep held in registers: lane l owns row
+// i0 + l of a block of at most 32 rows and keeps its right-hand side in a
+// register. It first subtracts the columns solved before the block; then,
+// for each column j of the block, every lane divides its value by its own
+// diagonal entry (an IEEE division), one __shfl_sync hands lane j's quotient
+// x_j to all, and every lane below j does r = fmaf(-L_ij, x_j, r). The chain
+// per column is one division, one shuffle and one FMA. Row i's value is
+// b_i - acc_i, then fmaf by L_i0 x_0, ..., L_i,i-1 x_{i-1} in column order,
+// then the division, however the rows are cut into blocks, so both forms
+// (and any chunking) give the same bits. L is read from padded rows (B + 1
+// floats apart): a column read, one lane per row, has no bank conflict, and
+// the reads do not depend on x. Tile products are float32 FMAs (no TF32,
+// no tensor cores), one lane per tile row, summed over the row in column
+// order (tile_rows). This order is not the reference's row sweep; on the
+// dyadic problems every intermediate is exact, so the bits agree, and on
+// real values the solve agrees to float32 rounding.
 //
-// Bound: the bytes of the stores (diagonal tiles and update tiles, each read
-// once) over the memory rate. The kernel is far from it: a solve is a chain
-// of dependent levels, each a grid barrier, the pulls of the level's rows
-// and a B-step row sweep, so its time is set by that latency chain (PERF.md).
+// The resident form reads diag and tiles where they lie. Each warp keeps a
+// ring of kRing stages of kStage floats in shared memory and walks its work
+// items, in the order it runs them, as a sequence of pieces: for each item
+// its incoming tiles in pull order, then its diagonal tile, each cut into
+// row chunks that fit a stage (a whole tile for B <= 32). Each piece is a
+// cp.async gather, a lane per column (4-byte copies: a row of B + 1 floats
+// is only 4-byte aligned), into padded rows, issued kRing - 1 pieces ahead,
+// so the pieces of a warp's next item are in flight while it waits for the
+// current one's sources; each piece's tile id is loaded one piece ahead.
+// One commit group per piece (empty past the last) keeps
+// cp.async.wait_group's count exact.
 //
 // The streamed form. The reference streams each superstep's schedule-
 // ordered slice of diag and tiles into VMEM while the previous one
@@ -54,46 +82,53 @@
 // own store (kernels/superstep.py::streamed_layout): for each solve slot its
 // incoming tiles in pull order, then its diagonal tile, slot after slot, so
 // a level is one contiguous run and a work item one contiguous range. Each
-// tile's rows are padded to B + 1 floats (no bank conflicts for a lane per
-// row) and the tile to a multiple of four floats, so every entry is 16-byte
-// aligned and every bulk copy a multiple of 16 bytes, odd B included. A
-// warp double-buffers its own sequence of work items in shared memory: TMA
-// bulk copies (cp.async.bulk ... mbarrier::complete_tx) into two stages, each
-// completing an mbarrier; the warp's next item (at the next level, most
-// often) is issued before it computes the current one, so before the grid
-// barrier that ends the level. Tile values do not depend on x, so that is
-// legal; x itself is still read with __ldcg after the barrier. An item
-// wider than a stage (more incoming tiles than fit) arrives in chunks, each
-// issued one chunk ahead. Before a stage is refilled, the warp's reads of it
-// are ordered before the async proxy's writes by fence.proxy.async. A panel
-// column is a work item of its own, so each column's warp copies its slot's
-// tiles (R times the bytes of a vector solve, counted in stream_dma_bytes).
+// tile's rows are padded to B + 1 floats and the tile to a multiple of four
+// floats, so every entry is 16-byte aligned and every bulk copy a multiple
+// of 16 bytes, odd B included. A warp double-buffers its own sequence of
+// work items in shared memory: TMA bulk copies (cp.async.bulk ...
+// mbarrier::complete_tx) into two stages, each completing an mbarrier; the
+// warp's next item is issued before it computes the current one. An item
+// wider than a stage arrives in chunks, each issued one chunk ahead. Before
+// a stage is refilled, the warp's reads of it are ordered before the async
+// proxy's writes by fence.proxy.async. A panel column is a work item of its
+// own, so each column's warp copies its slot's tiles (R times the bytes of
+// a vector solve, counted in stream_dma_bytes).
 // kernels/superstep.py::streamed_shape picks warps per CTA and tiles per
 // stage so the CTA fits 227 KB of shared memory.
 //
+// Bound: the bytes of the stores (each solved row's lower triangle and each
+// pulled tile read once) over the memory rate, about 0.1 ms for the 1M-row
+// factor. The kernel is far from it: a solve is a chain of dependent levels,
+// and each level's time is its latency chain: the flag round trip through
+// L2, the source column's read, the tile FMAs and the B-column sweep
+// (PERF.md).
+//
 // Layout: b, acc, x (n_rows, B, R) row-major float32 (R = 1 for vectors),
 // diag (n_rows, B, B), tiles (ML+1, B, B); the streamed store (entries,
-// round_up(B (B + 1), 4)); int32 tables. The wrappers (kernels/superstep.py)
-// check shapes, dtype, device and contiguity.
+// round_up(B (B + 1), 4)); flags (n_rows R) int32; int32 tables. The
+// wrappers (kernels/superstep.py) check shapes, dtype, device and
+// contiguity.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "rowsweep.cuh"
-
 namespace cg = cooperative_groups;
 
 namespace {
 
-using repro::kWarp;
-using repro::sweep_rows;
-
+constexpr int kWarp = 32;
 constexpr int kWarpsPerCta = 8;  // the resident kernel's; the streamed one takes 1 to 8
 constexpr int kMaxThreads = kWarpsPerCta * kWarp;
-constexpr int kStage = 33 * kWarp;  // staging floats per warp: a B = 32 tile, rows padded
+constexpr int kStage = 33 * kWarp;  // floats of a resident stage: a B = 32 tile, rows padded
+constexpr int kRing = 3;            // resident stages per warp
+constexpr int kGather = 2;          // source columns a warp waits for and reads at once
 constexpr size_t kSharedLimit = 232448;  // dynamic shared memory a Hopper block may use
+// Polls of one flag before the wait is taken for lost (a schedule that
+// cannot finish): the kernel traps, and the launch fails, instead of
+// spinning for ever. Each poll is an L2 round trip, so this is many seconds.
+constexpr long long kSpinLimit = 1ll << 26;
 
 struct Args {
   const int* off;         // (T, 3) level offsets into the flats
@@ -102,6 +137,7 @@ struct Args {
   const int* pull_ptr;    // (S + n_orphans + 1,) incoming-tile ranges per target
   const int* pull_tile;   // incoming tile ids, in the reference's order (resident)
   const int* pull_col;    // the source block row (tcol) of each incoming tile
+  const int* pull_wait;   // 1 where the source row is solved in this launch
   const int* orphan_row;  // (n_orphans,) rows updated but not solved
   const int* copy_row;    // (n_copy,) rows not solved: they keep the incoming x
   const float* diag;      // resident stores
@@ -112,49 +148,30 @@ struct Args {
   const float* x_in;
   float* acc;
   float* x;
+  int* flags;             // (n_rows R,) per-row ready flags
   int t_lo, t_hi;  // level range of the launch
   int B, R, S, n_orphans, n_copy;
   int cap, stride;  // streamed: tiles per stage, floats per store entry
+  int chunk;        // resident: tile rows per stage
+  int epoch;        // this launch's flag value, never 0
 };
 
-// Resident: per warp, a staging buffer of kStage floats, the row's sum (B)
-// and the tile's source column (B).
-size_t shared_bytes(int B) { return sizeof(float) * kWarpsPerCta * (kStage + 2 * B); }
+// Resident: per warp, kRing stages of kStage floats, then 1 + kGather
+// columns of B floats: the row's sum and the source columns.
+size_t shared_bytes(int B) {
+  return sizeof(float) * kWarpsPerCta * (kRing * kStage + (1 + kGather) * B);
+}
 
 // Streamed: per warp, two 8-byte mbarriers, two stages of `cap` store
-// entries, the row's sum and the source column; laid out in that order
+// entries, the same columns; laid out in that order
 // (kernels/superstep.py::_streamed_bytes is the same formula).
 size_t streamed_bytes(int warps, int cap, int B, int stride) {
-  return static_cast<size_t>(warps) * (16 + 2 * static_cast<size_t>(cap) * 4 * stride + 8 * B);
+  return static_cast<size_t>(warps) *
+         (16 + 2 * static_cast<size_t>(cap) * 4 * stride + 4 * (1 + kGather) * B);
 }
 
-// Tile rows staged at once: rows padded to B + 1 floats must fit kStage.
-__device__ __forceinline__ int chunk_rows(int B) {
-  const int rows = kStage / (B + 1);
-  return rows < B ? rows : B;
-}
-
-// Copies the first `rows` rows of a row-major tile with B columns from
-// global memory into the warp's shared buffer, rows B + 1 floats apart, so
-// a lane per row and a lane per column both read without bank conflicts.
-// Every load of a lane is issued before its first store: the copy costs one
-// memory latency, not one per row.
-__device__ __forceinline__ void stage(const float* __restrict__ src, float* dst, int rows,
-                                      int B, int lane) {
-  const int n = rows * B;
-  float v[kStage / kWarp];
-#pragma unroll
-  for (int u = 0; u < kStage / kWarp; ++u) {
-    const int e = lane + u * kWarp;
-    v[u] = e < n ? __ldg(src + e) : 0.f;
-  }
-  int r = lane / B, c = lane % B;
-#pragma unroll
-  for (int u = 0; u < kStage / kWarp; ++u) {
-    if (lane + u * kWarp < n) dst[r * (B + 1) + c] = v[u];
-    for (c += kWarp; c >= B; c -= B) ++r;
-  }
-  __syncwarp();
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // s[i] += (row i of a tile) . xc for rows i in [i0, i1), one lane per row,
@@ -171,54 +188,281 @@ __device__ __forceinline__ void tile_rows(const float* T, int ld, int i0, int i1
   }
 }
 
-// acc[row, :, c] = acc_in[row, :, c] + sum of the target's incoming tile
-// products, tile by tile in table order; the sum is left in s (B floats).
-// Each lane computes whole rows of a product (a float32 FMA chain over j).
-__device__ void pull(const Args& a, int target, int row, int c, float* buf, float* s,
-                     float* xc, int lane) {
-  const int B = a.B, R = a.R, chunk = chunk_rows(B);
-  for (int j = lane; j < B; j += kWarp)
-    s[j] = __ldg(a.acc_in + (static_cast<size_t>(row) * B + j) * R + c);
-  const int p1 = __ldg(a.pull_ptr + target + 1);
-  for (int p = __ldg(a.pull_ptr + target); p < p1; ++p) {
-    const float* T = a.tiles + static_cast<size_t>(__ldg(a.pull_tile + p)) * B * B;
-    const float* xv = a.x + static_cast<size_t>(__ldg(a.pull_col + p)) * B * R + c;
-    for (int i0 = 0; i0 < B; i0 += chunk) {
-      const int i1 = i0 + chunk < B ? i0 + chunk : B;
-      __syncwarp();  // the previous chunk's reads of buf, xc and s are done
-      if (i0 == 0)
-        for (int j = lane; j < B; j += kWarp) xc[j] = __ldcg(xv + static_cast<size_t>(j) * R);
-      stage(T + static_cast<size_t>(i0) * B, buf, i1 - i0, B, lane);
-      tile_rows(buf, B + 1, i0, i1, xc, s, B, lane);
-    }
+// Rows [i0, i1) (at most 32) of a forward substitution, column by column in
+// registers. s holds the right-hand side of rows i >= i0 and the solution
+// of rows i < i0 on entry, the solution of rows < i1 on exit. T points at
+// row i0 of a lower-triangular tile in shared memory, rows ld floats apart.
+// Lane l owns row i0 + l; see the note at the top for the order of the
+// operations, which is what both forms share.
+__device__ __forceinline__ void column_sweep(const float* T, int ld, int i0, int i1, float* s,
+                                             int lane) {
+  const int n = i1 - i0;
+  const bool own = lane < n;
+  const float* ti = T + (own ? lane : 0) * ld;
+  float r = own ? s[i0 + lane] : 0.f;
+  const float lii = own ? ti[i0 + lane] : 1.f;
+  for (int j = 0; j < i0; ++j) r = fmaf(-ti[j], s[j], r);
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float xj = __shfl_sync(0xffffffffu, __fdiv_rn(r, lii), o);
+    if (lane > o) r = fmaf(-ti[i0 + o], xj, r);
+    if (lane == o) s[i0 + o] = xj;
   }
   __syncwarp();
-  for (int j = lane; j < B; j += kWarp) a.acc[(static_cast<size_t>(row) * B + j) * R + c] = s[j];
 }
 
-// x[row, :, c] = solve(diag[row], b[row, :, c] - s), s holding the pulled sum.
-__device__ void solve(const Args& a, int row, int c, float* buf, float* s, int lane) {
-  const int B = a.B, R = a.R, chunk = chunk_rows(B);
-  for (int j = lane; j < B; j += kWarp)
-    s[j] = __ldg(a.b + (static_cast<size_t>(row) * B + j) * R + c) - s[j];
-  const float* L = a.diag + static_cast<size_t>(row) * B * B;
-  for (int i0 = 0; i0 < B; i0 += chunk) {
-    const int i1 = i0 + chunk < B ? i0 + chunk : B;
-    __syncwarp();
-    stage(L + static_cast<size_t>(i0) * B, buf, i1 - i0, B, lane);
-    sweep_rows(buf, B + 1, i0, i1, s, lane);
+// ---------------------------------------------------------------------------
+// Ready flags and the item's inputs
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+// Source columns of pulls [p, p + n), n <= kGather, into xcs (column g at
+// xcs + g B). Lane g < n waits until source row g's flag for column c
+// holds the launch's epoch, unless the host marked the pull as reading a
+// row this launch does not solve, so the item's waits overlap; then the
+// warp reads the n columns with __ldcg, every load before the first store.
+// The pull order of the sums is untouched: the columns are used in order.
+__device__ void gather_sources(const Args& a, int p, int n, int c, float* xcs, int lane) {
+  const int src = lane < n ? __ldg(a.pull_col + p + lane) : 0;
+  if (lane < n && __ldg(a.pull_wait + p + lane)) {
+    const int* f = a.flags + static_cast<size_t>(src) * a.R + c;
+    for (long long k = 0; load_acquire(f) != a.epoch;)
+      if (++k == kSpinLimit) __trap();
   }
-  for (int j = lane; j < B; j += kWarp) a.x[(static_cast<size_t>(row) * B + j) * R + c] = s[j];
+  __syncwarp();  // the sources are solved; the previous pulls' reads of xcs are done
+  int sg[kGather];
+#pragma unroll
+  for (int g = 0; g < kGather; ++g) sg[g] = __shfl_sync(0xffffffffu, src, g);
+  for (int j = lane; j < a.B; j += kWarp) {
+    float v[kGather];
+#pragma unroll
+    for (int g = 0; g < kGather; ++g)
+      v[g] = g < n ? __ldcg(a.x + (static_cast<size_t>(sg[g]) * a.B + j) * a.R + c) : 0.f;
+#pragma unroll
+    for (int g = 0; g < kGather; ++g)
+      if (g < n) xcs[g * a.B + j] = v[g];
+  }
+  __syncwarp();
+}
+
+// The incoming carry and b of the row a lane owns in the sweep (row `lane`),
+// loaded into registers when the item starts, before any wait, and used
+// after it. Rows from 32 on (B > 32) take the carry into s at once and b
+// when it is used.
+struct Carry {
+  float acc, b;
+};
+
+__device__ __forceinline__ Carry item_inputs(const Args& a, int row, int c, bool slot,
+                                             float* s, int lane) {
+  Carry in{0.f, 0.f};
+  for (int j = lane; j < a.B; j += kWarp) {
+    const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
+    if (j == lane) {
+      in.acc = __ldg(a.acc_in + at);
+      if (slot) in.b = __ldg(a.b + at);
+    } else {
+      s[j] = __ldg(a.acc_in + at);
+    }
+  }
+  return in;
+}
+
+// The carry into s, for the first tile product (each lane its own row).
+__device__ __forceinline__ void place(const Carry& in, float* s, int B, int lane) {
+  if (lane < B) s[lane] = in.acc;
+}
+
+// After the pulls: acc = s, and, for a solve slot, s = b - acc, the
+// sweep's right-hand side.
+__device__ __forceinline__ void store_sum(const Args& a, int row, int c, bool slot,
+                                          const Carry& in, float* s, int lane) {
+  __syncwarp();
+  for (int j = lane; j < a.B; j += kWarp) {
+    const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
+    a.acc[at] = s[j];
+    if (slot) s[j] = (j == lane ? in.b : __ldg(a.b + at)) - s[j];
+  }
+  __syncwarp();
+}
+
+// x[row, :, c] = s, then the row's flag: after the warp barrier, lane 0's
+// release store orders every lane's x before the epoch it publishes.
+__device__ __forceinline__ void store_x(const Args& a, int row, int c, const float* s,
+                                        int lane) {
+  for (int j = lane; j < a.B; j += kWarp)
+    a.x[(static_cast<size_t>(row) * a.B + j) * a.R + c] = s[j];
+  __syncwarp();
+  if (lane == 0) store_release(a.flags + static_cast<size_t>(row) * a.R + c, a.epoch);
+}
+
+// ---------------------------------------------------------------------------
+// A warp's sequence of work items, shared by both prefetchers
+// ---------------------------------------------------------------------------
+
+// Work item cursor: level t (t_hi: the orphans), the item's index there,
+// and, once found, its target (slot k < S or orphan S + q), its first pull
+// p0 and its entries: its incoming tiles, then, for a slot, its diagonal
+// tile.
+struct Cursor {
+  int t, item, target, n_ent, p0;
+};
+
+// Moves c to this warp's next live work item at or after it, in the order
+// the kernel runs them (levels, then the orphans once t == t_hi); false
+// past the last item.
+__device__ bool seek(const Args& a, int gwarp, int n_warps, Cursor& c) {
+  for (;;) {
+    if (c.t < a.t_hi) {
+      if (c.item < __ldg(a.wid + 3 * c.t) * a.R) {
+        const int k = __ldg(a.off + 3 * c.t) + c.item / a.R;
+        if (__ldg(a.sr + k) >= 0) {
+          c.target = k;
+          c.p0 = __ldg(a.pull_ptr + k);
+          c.n_ent = __ldg(a.pull_ptr + k + 1) - c.p0 + 1;
+          return true;
+        }
+        c.item += n_warps;  // pad slot: no work, nothing copied
+      } else {
+        ++c.t;
+        c.item = gwarp;
+      }
+    } else {
+      if (c.item >= a.n_orphans * a.R) return false;
+      c.target = a.S + c.item / a.R;
+      c.p0 = __ldg(a.pull_ptr + c.target);
+      c.n_ent = __ldg(a.pull_ptr + c.target + 1) - c.p0;
+      return true;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The resident form's ring: cp.async gathers from diag and tiles
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
+}
+
+struct Ring {
+  float* stage;  // kRing stages of kStage floats
+  Cursor cur;    // the item being issued
+  int e, i0;     // its entry and row chunk still to issue
+  int id;        // that entry's tile: an update tile's id, or ~row for a diagonal tile
+  bool live;
+  unsigned issued, used;  // pieces issued; pieces computed
+};
+
+// The tile of entry e of the cursor's item, as Ring::id encodes it.
+__device__ __forceinline__ int piece_id(const Args& a, const Cursor& c, int e) {
+  return e < c.n_ent - (c.target < a.S ? 1 : 0) ? __ldg(a.pull_tile + c.p0 + e)
+                                                 : ~__ldg(a.sr + c.target);
+}
+
+// Issues the next piece of the warp's sequence (rows [i0, i0 + chunk) of
+// entry e of the current item) into its stage, a lane per column, and
+// commits one group, empty past the last piece. The next entry's tile id
+// is loaded as the cursor moves, and first used at the next call.
+__device__ void ring_issue(const Args& a, Ring& rg, int gwarp, int n_warps, int lane) {
+  if (rg.live) {
+    const int B = a.B, i1 = min(rg.i0 + a.chunk, B), rows = i1 - rg.i0;
+    const float* tile = rg.id >= 0 ? a.tiles + static_cast<size_t>(rg.id) * B * B
+                                   : a.diag + static_cast<size_t>(~rg.id) * B * B;
+    const float* src = tile + static_cast<size_t>(rg.i0) * B;
+    const uint32_t dst = smem_addr(rg.stage + (rg.issued % kRing) * kStage);
+    for (int col = lane; col < B; col += kWarp) {
+      const float* sp = src + col;
+      uint32_t dp = dst + 4 * col;
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r, sp += B, dp += 4 * (B + 1)) cp_async4(dp, sp);
+    }
+    rg.i0 = i1;
+    if (rg.i0 == B) {
+      rg.i0 = 0;
+      if (++rg.e == rg.cur.n_ent) {
+        rg.e = 0;
+        rg.cur.item += n_warps;
+        rg.live = seek(a, gwarp, n_warps, rg.cur);
+      }
+      if (rg.live) rg.id = piece_id(a, rg.cur, rg.e);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  ++rg.issued;
+}
+
+__device__ void ring_init(const Args& a, Ring& rg, float* stage, int gwarp, int n_warps,
+                          int lane) {
+  rg.stage = stage;
+  rg.cur = Cursor{a.t_lo, gwarp, 0, 0, 0};
+  rg.e = rg.i0 = 0;
+  rg.issued = rg.used = 0;
+  rg.live = seek(a, gwarp, n_warps, rg.cur);
+  if (rg.live) rg.id = piece_id(a, rg.cur, 0);
+  for (int i = 0; i < kRing - 1; ++i) ring_issue(a, rg, gwarp, n_warps, lane);
+}
+
+// The next piece, once it has landed; first issues the piece kRing - 1
+// ahead into the stage the previous piece freed.
+__device__ const float* ring_acquire(const Args& a, Ring& rg, int gwarp, int n_warps, int lane) {
+  ring_issue(a, rg, gwarp, n_warps, lane);
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kRing - 1) : "memory");
+  __syncwarp();  // every lane's copies of the piece are visible to the warp
+  return rg.stage + (rg.used % kRing) * kStage;
+}
+
+__device__ __forceinline__ void ring_release(Ring& rg) {
+  __syncwarp();
+  ++rg.used;
+}
+
+// One resident work item: the pulls into s, then, for a solve slot, the
+// column sweep, x and the flag. Each group of sources is awaited after the
+// piece of its first tile is acquired, so the ring's look-ahead is issued
+// before the wait.
+__device__ void resident_item(const Args& a, Ring& rg, int gwarp, int n_warps, int target,
+                              int row, int c, bool slot, float* s, float* xcs, int lane) {
+  const int B = a.B, chunk = a.chunk;
+  const Carry in = item_inputs(a, row, c, slot, s, lane);
+  const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
+  if (p0 == p1) place(in, s, B, lane);
+  for (int pg = p0; pg < p1; pg += kGather) {
+    const int n = min(kGather, p1 - pg);
+    const float* buf = ring_acquire(a, rg, gwarp, n_warps, lane);
+    gather_sources(a, pg, n, c, xcs, lane);
+    if (pg == p0) place(in, s, B, lane);
+    for (int g = 0; g < n; ++g) {
+      for (int i0 = 0; i0 < B; i0 += chunk) {
+        if (g > 0 || i0 > 0) buf = ring_acquire(a, rg, gwarp, n_warps, lane);
+        tile_rows(buf, B + 1, i0, min(i0 + chunk, B), xcs + g * B, s, B, lane);
+        ring_release(rg);
+      }
+    }
+  }
+  store_sum(a, row, c, slot, in, s, lane);
+  if (!slot) return;
+  for (int i0 = 0; i0 < B; i0 += chunk) {
+    const float* buf = ring_acquire(a, rg, gwarp, n_warps, lane);
+    column_sweep(buf, B + 1, i0, min(i0 + chunk, B), s, lane);
+    ring_release(rg);
+  }
+  store_x(a, row, c, s, lane);
 }
 
 // ---------------------------------------------------------------------------
 // The streamed form: each warp's work items, in the order the warp runs
 // them, arrive in shared memory by TMA bulk copies, one chunk ahead.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
@@ -245,63 +489,34 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const float* src, uint32
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// Moves (t, item) to this warp's next live work item at or after it, in
-// the order the kernel runs them (levels, then the orphans once t == t_hi),
-// and sets [e0, e1) to the item's store entries; false past the last item.
-// Target k < S (a solve slot) holds entries [pull_ptr[k] + k,
-// pull_ptr[k+1] + k + 1): its incoming tiles, then its diagonal tile;
-// orphan q, target S + q, only incoming tiles.
-__device__ bool seek(const Args& a, int gwarp, int n_warps, int& t, int& item, int& e0,
-                     int& e1) {
-  for (;;) {
-    if (t < a.t_hi) {
-      if (item < __ldg(a.wid + 3 * t) * a.R) {
-        const int k = __ldg(a.off + 3 * t) + item / a.R;
-        if (__ldg(a.sr + k) >= 0) {
-          e0 = __ldg(a.pull_ptr + k) + k;
-          e1 = __ldg(a.pull_ptr + k + 1) + k + 1;
-          return true;
-        }
-        item += n_warps;  // pad slot: no work, nothing copied
-      } else {
-        ++t;
-        item = gwarp;
-      }
-    } else {
-      if (item >= a.n_orphans * a.R) return false;
-      const int q = a.S + item / a.R;
-      e0 = __ldg(a.pull_ptr + q) + a.S;
-      e1 = __ldg(a.pull_ptr + q + 1) + a.S;
-      return true;
-    }
-  }
-}
-
 // A warp's double buffer. Its items' entries, cut into chunks of at most
 // `cap`, form one sequence; chunk j lands in stage j % 2 and completes that
 // stage's mbarrier for the (j / 2)-th time. While chunk j is computed,
-// chunk j + 1 is in flight: the copy of a warp's next item (at the next
-// level, most often) is issued before the grid barrier that ends the level
-// it computes. Tile values do not depend on x, so that is legal.
+// chunk j + 1 is in flight. Target k < S holds store entries from
+// pull_ptr[k] + k, orphan q (target S + q) from pull_ptr[S + q] + S.
 struct Stream {
   float* stage[2];
   uint32_t bar[2];
-  int t, item, e, e_end;  // the item being issued and its entries still to issue
+  Cursor cur;  // the item being issued
+  int e;       // its first entry still to issue
+  bool live;
   unsigned issued, used;  // chunks issued; chunks computed
 };
 
 __device__ void issue_next(const Args& a, Stream& st, int gwarp, int n_warps, int lane) {
-  if (st.e >= st.e_end) return;  // the warp's last chunk is already in flight
-  const int n = min(a.cap, st.e_end - st.e);
+  if (!st.live) return;  // the warp's last chunk is already in flight
+  const int n = min(a.cap, st.cur.n_ent - st.e);
+  const int first = st.cur.p0 + min(st.cur.target, a.S) + st.e;
   const int sl = st.issued & 1;
   if (lane == 0)
-    bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(st.e) * a.stride,
+    bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(first) * a.stride,
               static_cast<uint32_t>(n) * a.stride * 4, st.bar[sl]);
   ++st.issued;
   st.e += n;
-  if (st.e == st.e_end) {
-    st.item += n_warps;
-    if (!seek(a, gwarp, n_warps, st.t, st.item, st.e, st.e_end)) st.e = st.e_end = 0;
+  if (st.e == st.cur.n_ent) {
+    st.e = 0;
+    st.cur.item += n_warps;
+    st.live = seek(a, gwarp, n_warps, st.cur);
   }
 }
 
@@ -318,9 +533,9 @@ __device__ void stream_init(const Args& a, Stream& st, uint64_t* bars, float* st
   }
   __syncwarp();
   st.issued = st.used = 0;
-  st.t = a.t_lo;
-  st.item = gwarp;
-  if (!seek(a, gwarp, n_warps, st.t, st.item, st.e, st.e_end)) st.e = st.e_end = 0;
+  st.cur = Cursor{a.t_lo, gwarp, 0, 0, 0};
+  st.e = 0;
+  st.live = seek(a, gwarp, n_warps, st.cur);
   issue_next(a, st, gwarp, n_warps, lane);  // the warp's first chunk
 }
 
@@ -341,50 +556,54 @@ __device__ void release(Stream& st) {
   ++st.used;
 }
 
-// One streamed work item: pull() for `target`, then, for a solve slot,
-// solve(), on the tiles of its entries as they arrive. The arithmetic is
-// the resident form's, operation for operation: the same tile_rows() and
-// sweep_rows() on the same values in the same order, so both forms give
-// the same bits.
-__device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
-                              int row, int c, bool slot, float* s, float* xc, int lane) {
-  const int B = a.B, R = a.R;
-  for (int j = lane; j < B; j += kWarp)
-    s[j] = __ldg(a.acc_in + (static_cast<size_t>(row) * B + j) * R + c);
-  const int p0 = __ldg(a.pull_ptr + target);
-  const int n_pull = __ldg(a.pull_ptr + target + 1) - p0;
-  const int n_ent = n_pull + (slot ? 1 : 0);
-  for (int e = 0; e < n_ent;) {
-    const float* buf = acquire(a, st, gwarp, n_warps, lane);
-    const int n = min(a.cap, n_ent - e);
-    for (int u = 0; u < n; ++u, ++e) {
-      const float* T = buf + static_cast<size_t>(u) * a.stride;  // rows B + 1 floats apart
-      if (e < n_pull) {
-        const float* xv = a.x + static_cast<size_t>(__ldg(a.pull_col + p0 + e)) * B * R + c;
-        __syncwarp();  // the previous tile's reads of xc and s are done
-        for (int j = lane; j < B; j += kWarp) xc[j] = __ldcg(xv + static_cast<size_t>(j) * R);
-        __syncwarp();
-        tile_rows(T, B + 1, 0, B, xc, s, B, lane);
-      } else {  // the diagonal tile: store the pulled sum, then solve
-        __syncwarp();
-        for (int j = lane; j < B; j += kWarp) {
-          const size_t at = (static_cast<size_t>(row) * B + j) * R + c;
-          a.acc[at] = s[j];
-          s[j] = __ldg(a.b + at) - s[j];
-        }
-        __syncwarp();
-        sweep_rows(T, B + 1, 0, B, s, lane);
-        for (int j = lane; j < B; j += kWarp)
-          a.x[(static_cast<size_t>(row) * B + j) * R + c] = s[j];
-      }
+// One item's entries through the warp's stages: tile(e) is entry e's tile,
+// in order, acquiring the next stage when the held one is used up.
+struct StreamedEntries {
+  const float* buf = nullptr;
+  int u = 0, held = 0;  // the next of the held stage's `held` entries
+
+  __device__ const float* tile(const Args& a, Stream& st, int gwarp, int n_warps, int e,
+                               int n_ent, int lane) {
+    if (u == held) {
+      if (buf) release(st);
+      buf = acquire(a, st, gwarp, n_warps, lane);
+      held = min(a.cap, n_ent - e);
+      u = 0;
     }
-    release(st);
+    return buf + static_cast<size_t>(u++) * a.stride;  // rows B + 1 floats apart
   }
-  if (!slot) {  // an orphan: only the pulled sum
-    __syncwarp();
-    for (int j = lane; j < B; j += kWarp)
-      a.acc[(static_cast<size_t>(row) * B + j) * R + c] = s[j];
+};
+
+// One streamed work item: resident_item's steps, operation for operation,
+// on whole tiles as they arrive: the same tile_rows() and column_sweep()
+// on the same values in the same order, so both forms give the same bits.
+__device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
+                              int row, int c, bool slot, float* s, float* xcs, int lane) {
+  const int B = a.B;
+  const Carry in = item_inputs(a, row, c, slot, s, lane);
+  const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
+  const int n_ent = p1 - p0 + (slot ? 1 : 0);
+  StreamedEntries ent;
+  if (p0 == p1) place(in, s, B, lane);
+  for (int pg = p0; pg < p1; pg += kGather) {
+    const int n = min(kGather, p1 - pg);
+    const float* T = ent.tile(a, st, gwarp, n_warps, pg - p0, n_ent, lane);
+    gather_sources(a, pg, n, c, xcs, lane);
+    if (pg == p0) place(in, s, B, lane);
+    for (int g = 0; g < n; ++g) {
+      if (g > 0) T = ent.tile(a, st, gwarp, n_warps, pg - p0 + g, n_ent, lane);
+      tile_rows(T, B + 1, 0, B, xcs + g * B, s, B, lane);
+    }
   }
+  store_sum(a, row, c, slot, in, s, lane);
+  if (slot) {
+    const float* T = ent.tile(a, st, gwarp, n_warps, p1 - p0, n_ent, lane);
+    for (int i0 = 0; i0 < B; i0 += kWarp)
+      column_sweep(T + static_cast<size_t>(i0) * (B + 1), B + 1, i0, min(i0 + kWarp, B), s,
+                   lane);
+    store_x(a, row, c, s, lane);
+  }
+  release(st);
 }
 
 template <bool kStream>
@@ -397,20 +616,21 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
   const int gwarp = blockIdx.x * warps + warp;
   const int n_warps = gridDim.x * warps;
   const int R = a.R, row_el = a.B * a.R;
-  float* buf = nullptr;
   float* s;
   Stream st;
+  Ring rg;
   if constexpr (kStream) {
     float* stages = reinterpret_cast<float*>(smem + 16 * warps);
-    s = stages + static_cast<size_t>(warps) * 2 * a.cap * a.stride + warp * 2 * a.B;
+    s = stages + static_cast<size_t>(warps) * 2 * a.cap * a.stride + warp * (1 + kGather) * a.B;
     stream_init(a, st, reinterpret_cast<uint64_t*>(smem) + 2 * warp,
                 stages + static_cast<size_t>(warp) * 2 * a.cap * a.stride, gwarp, n_warps,
                 lane);
   } else {
-    buf = reinterpret_cast<float*>(smem) + warp * (kStage + 2 * a.B);
-    s = buf + kStage;
+    float* mine = reinterpret_cast<float*>(smem) + warp * (kRing * kStage + (1 + kGather) * a.B);
+    s = mine + kRing * kStage;
+    ring_init(a, rg, mine, gwarp, n_warps, lane);
   }
-  float* xc = s + a.B;
+  float* xcs = s + a.B;
 
   // rows the launch does not solve keep the incoming x (and, unless they
   // are orphans, the incoming acc); solved rows are written when solved.
@@ -438,32 +658,42 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
       }
     }
   }
-  grid.sync();
+  grid.sync();  // the copy rows' x, read without waiting, is in place
 
+  // the level walk: each level's offset and width are loaded one level
+  // ahead, so the walk adds no load latency between two items
+  int o = 0, w = 0;
+  if (a.t_lo < a.t_hi) {
+    o = __ldg(a.off + 3 * a.t_lo);
+    w = __ldg(a.wid + 3 * a.t_lo);
+  }
   for (int t = a.t_lo; t < a.t_hi; ++t) {
-    const int o = __ldg(a.off + 3 * t), w = __ldg(a.wid + 3 * t);
-    if (w == 0) continue;  // nothing written at this level: no barrier needed
+    int o_next = 0, w_next = 0;
+    if (t + 1 < a.t_hi) {
+      o_next = __ldg(a.off + 3 * (t + 1));
+      w_next = __ldg(a.wid + 3 * (t + 1));
+    }
     for (int item = gwarp; item < w * R; item += n_warps) {
       const int k = o + item / R, c = item % R;
       const int row = __ldg(a.sr + k);
       if (row < 0) continue;  // pad slot
-      if constexpr (kStream) {
-        streamed_item(a, st, gwarp, n_warps, k, row, c, true, s, xc, lane);
-      } else {
-        pull(a, k, row, c, buf, s, xc, lane);
-        solve(a, row, c, buf, s, lane);
-      }
+      if constexpr (kStream)
+        streamed_item(a, st, gwarp, n_warps, k, row, c, true, s, xcs, lane);
+      else
+        resident_item(a, rg, gwarp, n_warps, k, row, c, true, s, xcs, lane);
     }
-    grid.sync();
+    o = o_next;
+    w = w_next;
   }
 
   for (int item = gwarp; item < a.n_orphans * R; item += n_warps) {
     const int q = item / R, row = __ldg(a.orphan_row + q);
     if constexpr (kStream)
-      streamed_item(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xc, lane);
+      streamed_item(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
     else
-      pull(a, a.S + q, row, item % R, buf, s, xc, lane);
+      resident_item(a, rg, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
   }
+  if constexpr (!kStream) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Opts the kernel in to `bytes` of dynamic shared memory. A refusal is
@@ -501,6 +731,7 @@ cudaError_t resident_ctas(int threads, size_t smem, int* out) {
 
 template <bool kStream>
 int launch(Args a, int warps, int max_items, int grid, void* stream) {
+  if (a.epoch == 0) return cudaErrorInvalidValue;  // 0 is the value of a fresh flag
   const size_t smem = kStream ? streamed_bytes(warps, a.cap, a.B, a.stride) : shared_bytes(a.B);
   int resident = 0;
   cudaError_t err = resident_ctas<kStream>(warps * kWarp, smem, &resident);
@@ -521,16 +752,17 @@ int launch(Args a, int warps, int max_items, int grid, void* stream) {
 }
 
 int launch_resident(const int* off, const int* wid, const int* sr, const int* pull_ptr,
-                    const int* pull_tile, const int* pull_col, const int* orphan_row,
-                    const int* copy_row, const float* diag, const float* tiles, const float* b,
-                    const float* acc_in, const float* x_in, float* acc, float* x, int t_lo,
-                    int t_hi, int B, int R, int S, int n_orphans, int n_copy, int max_items,
-                    int grid, void* stream) {
-  if (B < 1 || B >= kStage) return cudaErrorInvalidValue;
-  Args a{off,    wid,    sr,   pull_ptr, pull_tile, pull_col, orphan_row, copy_row,
-         diag,   tiles,  nullptr, b,     acc_in,    x_in,     acc,        x,
-         t_lo,   t_hi,   B,    R,        S,         n_orphans, n_copy,    0,
-         0};
+                    const int* pull_tile, const int* pull_col, const int* pull_wait,
+                    const int* orphan_row, const int* copy_row, const float* diag,
+                    const float* tiles, const float* b, const float* acc_in, const float* x_in,
+                    float* acc, float* x, int* flags, int t_lo, int t_hi, int B, int R, int S,
+                    int n_orphans, int n_copy, int max_items, int grid, int epoch, void* stream) {
+  if (B < 1 || B >= kStage || R < 1) return cudaErrorInvalidValue;
+  const int chunk = kStage / (B + 1) < B ? kStage / (B + 1) : B;  // at most 32 rows
+  Args a{off,   wid,  sr,     pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, copy_row,
+         diag,  tiles, nullptr, b,      acc_in,    x_in,     acc,       x,          flags,
+         t_lo,  t_hi, B,      R,        S,         n_orphans, n_copy,   0,          0,
+         chunk, epoch};
   return launch<false>(a, kWarpsPerCta, max_items, grid, stream);
 }
 
@@ -540,27 +772,30 @@ extern "C" {
 
 // Each entry point launches on `stream` and returns the launch's CUDA error
 // (0 on success); it never synchronises. grid <= 0 sizes the grid itself.
+// `flags` is the (n_rows R,) scratch of kernels/superstep.py::ReadyFlags and
+// `epoch` its value for this launch (not 0, and no flag may hold it yet).
 int repro_superstep_f32(const int* off, const int* wid, const int* sr, const int* pull_ptr,
-                        const int* pull_tile, const int* pull_col, const int* orphan_row,
-                        const int* copy_row, const float* diag, const float* tiles,
-                        const float* b, const float* acc_in, const float* x_in, float* acc,
-                        float* x, int t_lo, int t_hi, int B, int S, int n_orphans, int n_copy,
-                        int max_items, int grid, void* stream) {
-  return launch_resident(off, wid, sr, pull_ptr, pull_tile, pull_col, orphan_row, copy_row, diag,
-                         tiles, b, acc_in, x_in, acc, x, t_lo, t_hi, B, 1, S, n_orphans, n_copy,
-                         max_items, grid, stream);
+                        const int* pull_tile, const int* pull_col, const int* pull_wait,
+                        const int* orphan_row, const int* copy_row, const float* diag,
+                        const float* tiles, const float* b, const float* acc_in,
+                        const float* x_in, float* acc, float* x, int* flags, int t_lo, int t_hi,
+                        int B, int S, int n_orphans, int n_copy, int max_items, int grid,
+                        int epoch, void* stream) {
+  return launch_resident(off, wid, sr, pull_ptr, pull_tile, pull_col, pull_wait, orphan_row,
+                         copy_row, diag, tiles, b, acc_in, x_in, acc, x, flags, t_lo, t_hi, B, 1,
+                         S, n_orphans, n_copy, max_items, grid, epoch, stream);
 }
 
 int repro_superstep_panel_f32(const int* off, const int* wid, const int* sr,
                               const int* pull_ptr, const int* pull_tile, const int* pull_col,
-                              const int* orphan_row, const int* copy_row, const float* diag,
-                              const float* tiles, const float* b, const float* acc_in,
-                              const float* x_in, float* acc, float* x, int t_lo, int t_hi,
-                              int B, int R, int S, int n_orphans, int n_copy, int max_items,
-                              int grid, void* stream) {
-  return launch_resident(off, wid, sr, pull_ptr, pull_tile, pull_col, orphan_row, copy_row, diag,
-                         tiles, b, acc_in, x_in, acc, x, t_lo, t_hi, B, R, S, n_orphans, n_copy,
-                         max_items, grid, stream);
+                              const int* pull_wait, const int* orphan_row, const int* copy_row,
+                              const float* diag, const float* tiles, const float* b,
+                              const float* acc_in, const float* x_in, float* acc, float* x,
+                              int* flags, int t_lo, int t_hi, int B, int R, int S, int n_orphans,
+                              int n_copy, int max_items, int grid, int epoch, void* stream) {
+  return launch_resident(off, wid, sr, pull_ptr, pull_tile, pull_col, pull_wait, orphan_row,
+                         copy_row, diag, tiles, b, acc_in, x_in, acc, x, flags, t_lo, t_hi, B, R,
+                         S, n_orphans, n_copy, max_items, grid, epoch, stream);
 }
 
 // The streamed form: `store` is the streamed store (kernels/superstep.py::
@@ -568,21 +803,21 @@ int repro_superstep_panel_f32(const int* off, const int* wid, const int* sr,
 // CTA and `cap` entries per stage come from kernels/superstep.py::
 // streamed_shape. Vectors and (n, R) panels alike.
 int repro_superstep_streamed_f32(const int* off, const int* wid, const int* sr,
-                                 const int* pull_ptr, const int* pull_col,
+                                 const int* pull_ptr, const int* pull_col, const int* pull_wait,
                                  const int* orphan_row, const int* copy_row, const float* store,
                                  const float* b, const float* acc_in, const float* x_in,
-                                 float* acc, float* x, int t_lo, int t_hi, int B, int R, int S,
-                                 int n_orphans, int n_copy, int max_items, int grid, int warps,
-                                 int cap, void* stream) {
+                                 float* acc, float* x, int* flags, int t_lo, int t_hi, int B,
+                                 int R, int S, int n_orphans, int n_copy, int max_items,
+                                 int grid, int warps, int cap, int epoch, void* stream) {
   const int stride = (B * (B + 1) + 3) / 4 * 4;
   if (B < 1 || R < 1 || warps < 1 || warps > kWarpsPerCta || cap < 1 ||
       streamed_bytes(warps, cap, B, stride) > kSharedLimit)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(store) % 16 != 0) return cudaErrorMisalignedAddress;
-  Args a{off,   wid,   sr,    pull_ptr, nullptr, pull_col, orphan_row, copy_row,
-         nullptr, nullptr, store, b,     acc_in,  x_in,     acc,        x,
-         t_lo,  t_hi,  B,     R,        S,       n_orphans, n_copy,    cap,
-         stride};
+  Args a{off,    wid,     sr,    pull_ptr, nullptr, pull_col, pull_wait, orphan_row, copy_row,
+         nullptr, nullptr, store, b,       acc_in,  x_in,     acc,       x,          flags,
+         t_lo,   t_hi,    B,     R,        S,       n_orphans, n_copy,   cap,        stride,
+         0,      epoch};
   return launch<true>(a, warps, max_items, grid, stream);
 }
 

@@ -53,11 +53,11 @@ SIGNATURES = {
     "block_spmv": {"repro_gemv_f32": (_P, _P, _P, _I, _I, _P),
                    "repro_gemv_grouped_f32": (_P, _P, _P, _I, _I, _I, _P),
                    "repro_gemm_f32": (_P, _P, _P, _I, _I, _I, _P)},
-    # eight table pointers, seven tensor pointers, then the sizes
-    "superstep": {"repro_superstep_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
-                  "repro_superstep_panel_f32": (_P,) * 15 + (_I,) * 9 + (_P,),
-                  # seven table pointers, six tensor pointers, then the sizes
-                  "repro_superstep_streamed_f32": (_P,) * 13 + (_I,) * 11 + (_P,)},
+    # nine table pointers, eight tensor pointers (the flags last), then the sizes
+    "superstep": {"repro_superstep_f32": (_P,) * 17 + (_I,) * 9 + (_P,),
+                  "repro_superstep_panel_f32": (_P,) * 17 + (_I,) * 10 + (_P,),
+                  # eight table pointers, seven tensor pointers, then the sizes
+                  "repro_superstep_streamed_f32": (_P,) * 15 + (_I,) * 12 + (_P,)},
 }
 
 

@@ -1,22 +1,25 @@
 """The superstep megakernel: a whole single-device solve in one launch,
 resident or streamed.
 
-Wrapper over ``csrc/superstep.cu`` (which says what it replaces, how levels
-are separated on Hopper and what bounds it). :func:`superstep_call` takes the
-reference's eight schedule tables and returns ``(acc, x)``; given CPU
-tensors it returns the plain version (:func:`repro_torch.kernels.ref.superstep_ref`),
-given CUDA tensors it makes one cooperative launch on the current stream or
-raises. :func:`superstep_streamed_call` is the same function with every tile
-read from the streamed store (:func:`streamed_layout`,
-:func:`streamed_values`), which the kernel copies into shared memory with
-asynchronous bulk copies issued ahead of use. ``launches`` on each wrapper
-counts kernel launches, and nothing else.
+Wrapper over ``csrc/superstep.cu`` (which says what it replaces, how rows
+wait for the rows they pull from on Hopper and what bounds it).
+:func:`superstep_call` takes the reference's eight schedule tables and
+returns ``(acc, x)``; given CPU tensors it returns the plain version
+(:func:`repro_torch.kernels.ref.superstep_ref`), given CUDA tensors it makes
+one cooperative launch on the current stream or raises.
+:func:`superstep_streamed_call` is the same function with every tile read
+from the streamed store (:func:`streamed_layout`, :func:`streamed_values`),
+which the kernel copies into shared memory with asynchronous bulk copies
+issued ahead of use. ``launches`` on each wrapper counts kernel launches,
+and nothing else.
 
 The kernel pulls each row's tile updates right before it solves the row, so
 it needs, besides the reference's tables, the host-built
 :class:`SuperstepTable`: every solved row's incoming tiles in the order the
 reference adds them. :func:`superstep_table` builds it once per plan; the
-executor (``core/solver.py``) keeps it on the device beside the plan.
+executor (``core/solver.py``) keeps it on the device beside the plan, with
+the :class:`ReadyFlags` scratch through which a row tells the rows that pull
+from it that it is solved.
 """
 from __future__ import annotations
 
@@ -28,15 +31,53 @@ import torch
 from repro_torch.kernels import extension, ref
 
 WARPS_PER_CTA = 8  # kWarpsPerCta in csrc/superstep.cu
-STAGE_FLOATS = 33 * 32  # kStage: a warp's buffer for tile rows, B + 1 floats apart
+STAGE_FLOATS = 33 * 32  # kStage: one stage of tile rows, B + 1 floats apart
+RING = 3  # kRing: the resident kernel's stages per warp
 SHARED_LIMIT = 232_448  # dynamic shared memory one Hopper block may use (227 KB)
+EPOCH_LIMIT = 2**31 - 1  # the largest flag value (int32); ReadyFlags re-zeros past it
 
 
 def shared_bytes(B: int) -> int:
-    """Dynamic shared memory of one megakernel CTA: per warp, a staging
-    buffer of ``STAGE_FLOATS`` floats for tile rows and two columns of ``B``
-    floats (the row's sum and the tile's source column)."""
-    return 4 * WARPS_PER_CTA * (STAGE_FLOATS + 2 * B)
+    """Dynamic shared memory of one resident megakernel CTA: per warp, a
+    ring of ``RING`` stages of ``STAGE_FLOATS`` floats for prefetched tile
+    rows and three columns of ``B`` floats (the row's sum and two source
+    columns, read together)."""
+    return 4 * WARPS_PER_CTA * (RING * STAGE_FLOATS + 3 * B)
+
+
+class ReadyFlags:
+    """The megakernel's per-row ready flags: for each ``R``, an int32 array
+    of ``n_rows * R`` flags on ``device``, allocated zeroed at first use and
+    kept. The warp that solves row ``r``, column ``c`` sets
+    ``flags[r * R + c]`` to the launch's epoch; a warp that pulls from that
+    row waits for it. :meth:`next` returns the array and a fresh epoch, one
+    more than the last launch's, so the flags are never cleared between
+    launches; once the epoch would pass :data:`EPOCH_LIMIT` every array is
+    zeroed (on the current stream) and the count starts again at 1. One
+    ``ReadyFlags`` serves launches on one stream, one after another.
+    """
+
+    def __init__(self, n_rows: int, device):
+        self.n_rows = int(n_rows)
+        self.device = torch.device(device)
+        self.epoch = 0  # the last launch's
+        self._flags: dict[int, torch.Tensor] = {}
+
+    def flags(self, R: int) -> torch.Tensor:
+        """The ``(n_rows * R,)`` int32 flags of ``R``-column launches."""
+        if R not in self._flags:
+            self._flags[R] = torch.zeros(self.n_rows * R, dtype=torch.int32, device=self.device)
+        return self._flags[R]
+
+    def next(self, R: int) -> tuple[torch.Tensor, int]:
+        """The flags of an ``R``-column launch and the launch's epoch."""
+        flags = self.flags(R)
+        if self.epoch >= EPOCH_LIMIT:
+            for f in self._flags.values():
+                f.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return flags, self.epoch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +90,12 @@ class SuperstepTable:
     is not solved in it. ``pull_tile[pull_ptr[k]:pull_ptr[k+1]]`` are target
     ``k``'s incoming tiles in the reference's order: by level, then by
     position in the flat update schedule; ``pull_col`` holds their source
-    rows (``tcol``). Updates into the pad row (the
-    zero pad tile) are left out. ``copy_row`` are the rows the launch does
-    not solve, whose ``x`` (and, but for orphans, ``acc``) the kernel copies
-    from the carries passed in. ``max_items`` is the most work items (solve
+    rows (``tcol``), and ``pull_wait`` is 1 where that row is solved in the
+    launch (the kernel waits for its flag) and 0 where it is not (its ``x``
+    is the carry passed in, copied before any row is solved). Updates into
+    the pad row (the zero pad tile) are left out. ``copy_row`` are the rows
+    the launch does not solve, whose ``x`` (and, but for orphans, ``acc``)
+    the kernel copies from the carries passed in. ``max_items`` is the most work items (solve
     slots or orphans) of any phase, which sizes the grid.
     """
 
@@ -60,6 +103,7 @@ class SuperstepTable:
     pull_ptr: np.ndarray | torch.Tensor
     pull_tile: np.ndarray | torch.Tensor
     pull_col: np.ndarray | torch.Tensor
+    pull_wait: np.ndarray | torch.Tensor
     orphan_row: np.ndarray | torch.Tensor
     copy_row: np.ndarray | torch.Tensor
     n_solve_slots: int
@@ -77,6 +121,7 @@ class SuperstepTable:
         return dataclasses.replace(self, pull_ptr=dev(self.pull_ptr),
                                    pull_tile=dev(self.pull_tile),
                                    pull_col=dev(self.pull_col),
+                                   pull_wait=dev(self.pull_wait),
                                    orphan_row=dev(self.orphan_row),
                                    copy_row=dev(self.copy_row))
 
@@ -136,7 +181,8 @@ def _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows: int, stp=None) -> dic
     pull_ptr = np.zeros(S + orphan_row.shape[0] + 1, np.int64)
     np.cumsum(np.bincount(target, minlength=S + orphan_row.shape[0]), out=pull_ptr[1:])
     return dict(levels=(t_lo, t_hi), S=S, live_slot=slot, pull_ptr=pull_ptr,
-                pull_tile=tid[order], pull_col=tcol[tid[order]], pull_pos=pos[order],
+                pull_tile=tid[order], pull_col=tcol[tid[order]],
+                pull_wait=solve_level[tcol[tid[order]]] >= 0, pull_pos=pos[order],
                 pull_target=target[order], orphan_row=orphan_row,
                 copy_row=np.nonzero(solve_level < 0)[0],
                 widest=int(wid[levels, 0].max()) if levels.size else 0)
@@ -159,7 +205,7 @@ def _table(o: dict) -> SuperstepTable:
     return SuperstepTable(
         levels=o["levels"], pull_ptr=o["pull_ptr"].astype(np.int32),
         pull_tile=o["pull_tile"].astype(np.int32), pull_col=o["pull_col"].astype(np.int32),
-        orphan_row=o["orphan_row"].astype(np.int32),
+        pull_wait=o["pull_wait"].astype(np.int32), orphan_row=o["orphan_row"].astype(np.int32),
         copy_row=o["copy_row"].astype(np.int32), n_solve_slots=o["S"],
         n_orphans=n_orphans, n_copy=int(o["copy_row"].shape[0]),
         max_items=max(o["widest"], n_orphans))
@@ -180,9 +226,9 @@ def stream_tile_floats(B: int) -> int:
 
 def _streamed_bytes(warps: int, cap: int, B: int) -> int:
     # per warp: two 8-byte mbarriers, two stages of `cap` tiles, the row's
-    # sum and the tile's source column (B floats each); csrc/superstep.cu
-    # lays the CTA out in this order
-    return warps * (16 + 2 * cap * 4 * stream_tile_floats(B) + 8 * B)
+    # sum and two source columns (B floats each); csrc/superstep.cu lays
+    # the CTA out in this order
+    return warps * (16 + 2 * cap * 4 * stream_tile_floats(B) + 12 * B)
 
 
 def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int]:
@@ -315,8 +361,19 @@ def _check(diag, tiles, b_pad, acc, x, tables) -> None:
         raise ValueError(f"superstep_call: block size {diag.shape[1]} >= {STAGE_FLOATS}")
 
 
+def _check_flags(fn: str, flags: ReadyFlags, n_rows: int, device) -> None:
+    if not isinstance(flags, ReadyFlags):
+        raise TypeError(f"{fn}: flags must be a ReadyFlags, got {type(flags).__name__}")
+    same = (flags.device.type == device.type
+            and None in (flags.device.index, device.index) or flags.device == device)
+    if flags.n_rows != n_rows or not same:
+        raise ValueError(f"{fn}: flags for {flags.n_rows} rows on {flags.device}, the "
+                         f"operands have {n_rows} rows on {device}")
+
+
 def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x,
-                   stp=None, *, grid: int = 0, table: SuperstepTable | None = None):
+                   stp=None, *, grid: int = 0, table: SuperstepTable | None = None,
+                   flags: ReadyFlags):
     """Run supersteps ``seg[0] .. seg[0] + seg[1] - 1`` of the schedule in
     one launch; returns new ``(acc, x)``, leaving the carries passed in as
     they were.
@@ -328,11 +385,14 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
     the card at once; more than fits is refused, and raises), not a program
     per superstep: every superstep of ``seg`` runs. ``table`` is
     :func:`superstep_table` of the same tables, already on the device; when
-    it is ``None`` the wrapper builds it from host copies. A launch with no
-    level makes no kernel launch.
+    it is ``None`` the wrapper builds it from host copies. ``flags`` is the
+    caller's :class:`ReadyFlags` for ``diag.shape[0]`` rows on the operands'
+    device, kept from launch to launch (the plain version on the CPU does
+    not touch it). A launch with no level makes no kernel launch.
     """
     tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
     _check(diag, tiles, b_pad, acc, x, tables)
+    _check_flags("superstep_call", flags, diag.shape[0], diag.device)
     if diag.device.type == "cpu":
         return ref.superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad,
                                  acc, x, stp)
@@ -346,11 +406,13 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
     acc_out, x_out = torch.empty_like(acc), torch.empty_like(x)
     B = diag.shape[1]
     R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
+    ready, epoch = flags.next(R)
     ptrs = [t.data_ptr() for t in (off, wid, sr, table.pull_ptr, table.pull_tile,
-                                   table.pull_col, table.orphan_row, table.copy_row, diag,
-                                   tiles, b_pad, acc, x, acc_out, x_out)]
+                                   table.pull_col, table.pull_wait, table.orphan_row,
+                                   table.copy_row, diag, tiles, b_pad, acc, x, acc_out, x_out,
+                                   ready)]
     sizes = [t_lo, t_hi, B] + ([] if R == 1 else [R]) + [
-        table.n_solve_slots, table.n_orphans, table.n_copy, table.max_items, grid]
+        table.n_solve_slots, table.n_orphans, table.n_copy, table.max_items, grid, epoch]
     fn = "repro_superstep_f32" if R == 1 else "repro_superstep_panel_f32"
     extension.launch("superstep", fn, diag.device, *ptrs, *sizes)
     superstep_call.launches += 1
@@ -358,7 +420,6 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
 
 
 superstep_call.launches = 0
-
 
 
 def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> None:
@@ -386,15 +447,16 @@ def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> No
         raise ValueError("superstep_streamed_call: operands must be contiguous")
     if values.device.type == "cuda" and any(
             not isinstance(t, torch.Tensor) or t.device != values.device
-            for t in (layout.table.pull_ptr, layout.table.pull_col, layout.table.orphan_row,
-                      layout.table.copy_row)):
+            for t in (layout.table.pull_ptr, layout.table.pull_col, layout.table.pull_wait,
+                      layout.table.orphan_row, layout.table.copy_row)):
         raise ValueError("superstep_streamed_call: layout must be on the operands' device "
                          "(StreamedLayout.to)")
     check_streamed_fits(B, layout.max_item_tiles)
 
 
 def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, acc, x,
-                            stp=None, *, layout: StreamedLayout, grid: int = 0):
+                            stp=None, *, layout: StreamedLayout, grid: int = 0,
+                            flags: ReadyFlags):
     """:func:`superstep_call` with the streamed store: the same function of
     the same tables, with every tile read from ``values``
     (:func:`streamed_values` of ``layout``, the launch's
@@ -403,10 +465,12 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     item's tiles into shared memory with asynchronous bulk copies issued
     one item ahead; given CPU tensors, the plain version
     (:func:`repro_torch.kernels.ref.superstep_streamed_ref`). ``layout`` must
-    be on the operands' device for a launch. Raises for a block size whose
-    tile does not fit two stages of shared memory."""
+    be on the operands' device for a launch; ``flags`` as for
+    :func:`superstep_call`, for ``b_pad.shape[0]`` rows. Raises for a block
+    size whose tile does not fit two stages of shared memory."""
     tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
     _check_streamed(values, b_pad, acc, x, tables, layout)
+    _check_flags("superstep_streamed_call", flags, b_pad.shape[0], values.device)
     if values.device.type == "cpu":
         return ref.superstep_streamed_ref(
             seg, off, wid, sr, ut, trow, tcol, values, torch.as_tensor(layout.diag_entry),
@@ -419,11 +483,12 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     B = b_pad.shape[1]
     R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
     warps, cap = streamed_shape(B, layout.max_item_tiles)
+    ready, epoch = flags.next(R)
     ptrs = [t.data_ptr() for t in (off, wid, sr, table.pull_ptr, table.pull_col,
-                                   table.orphan_row, table.copy_row, values, b_pad, acc, x,
-                                   acc_out, x_out)]
+                                   table.pull_wait, table.orphan_row, table.copy_row, values,
+                                   b_pad, acc, x, acc_out, x_out, ready)]
     sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.n_copy,
-             table.max_items, grid, warps, cap]
+             table.max_items, grid, warps, cap, epoch]
     extension.launch("superstep", "repro_superstep_streamed_f32", values.device, *ptrs, *sizes)
     superstep_streamed_call.launches += 1
     return acc_out, x_out

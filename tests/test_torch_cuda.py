@@ -151,7 +151,7 @@ def _fused_tables(plan, device):
 
 
 @pytest.mark.parametrize("B,sched,R", [(8, "levelset", 1), (16, "dagpart", 3),
-                                       (32, "levelset", 2)])
+                                       (32, "levelset", 2), (48, "levelset", 1)])
 def test_megakernel_bit_identical_to_plain_version_on_dyadic(cuda_device, B, sched, R):
     from repro_torch.core.solver import SolverConfig, build_plan
     from repro_torch.kernels import superstep
@@ -169,7 +169,8 @@ def test_megakernel_bit_identical_to_plain_version_on_dyadic(cuda_device, B, sch
         acc, x = superstep.superstep_call(
             *tables, torch.from_numpy(plan.diag).to(dev),
             torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(dev),
-            torch.from_numpy(b_pad).to(dev), zeros, zeros, stp=stp)
+            torch.from_numpy(b_pad).to(dev), zeros, zeros, stp=stp,
+            flags=superstep.ReadyFlags(shape[0], dev))
         outs[str(dev)] = (acc.cpu().numpy(), x.cpu().numpy())
     np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
     np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
@@ -207,7 +208,8 @@ def test_refused_cooperative_launch_raises_and_next_launch_is_clean(cuda_device)
     before = superstep.superstep_call.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         superstep.superstep_call(*fused.tables, solver._diag, solver._tiles, b_pad, b_pad,
-                                 b_pad, stp=fused.stp, table=fused.table, grid=too_many)
+                                 b_pad, stp=fused.stp, table=fused.table, grid=too_many,
+                                 flags=fused.flags)
     assert superstep.superstep_call.launches == before
     np.testing.assert_array_equal(ctx.solve(h, b), x)
     torch.cuda.synchronize()
@@ -218,15 +220,21 @@ def test_refused_cooperative_launch_raises_and_next_launch_is_clean(cuda_device)
 # ---------------------------------------------------------------------------
 
 
-def test_streamed_bit_identical_to_resident_one_launch_each(cuda_device):
+@pytest.mark.parametrize("sched,B", [("levelset", 32), ("dagpart", 32), ("levelset", 48)])
+def test_streamed_bit_identical_to_resident_one_launch_each(cuda_device, sched, B):
     """Same arithmetic in the same order: the streamed kernel gives the
-    resident kernel's bits on real values, one streamed launch per solve."""
+    resident kernel's bits on real values (forward, transpose, an (n, 3)
+    panel), one streamed launch per solve, within 2e-4 of the CPU. At
+    B = 48 the resident form sweeps the diagonal tile in row chunks of 21
+    and the streamed form in blocks of 32, which must not change a bit."""
     a = suite.grid2d_factor(64, seed=6)
     rng = np.random.default_rng(4)
-    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 4))
-    ctx = {k: SpTRSVContext(options=PlanOptions(block_size=32, kernel=k))
+    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 3))
+    ctx = {k: SpTRSVContext(options=PlanOptions(block_size=B, sched=sched, kernel=k))
            for k in ("fused", "fused_streamed")}
     h = {k: c.analyse(a) for k, c in ctx.items()}
+    cpu = SpTRSVContext(device="cpu", options=PlanOptions(block_size=B, sched=sched))
+    hc = cpu.analyse(a)
     for rhs, transpose in ((b, False), (b, True), (panel, False)):
         ops.reset_launch_counts()
         x = ctx["fused_streamed"].solve(h["fused_streamed"], rhs, transpose=transpose)
@@ -236,6 +244,8 @@ def test_streamed_bit_identical_to_resident_one_launch_each(cuda_device):
             x, ctx["fused"].solve(h["fused"], rhs, transpose=transpose))
         np.testing.assert_array_equal(
             x, ctx["fused_streamed"].solve(h["fused_streamed"], rhs, transpose=transpose))
+        np.testing.assert_allclose(x, cpu.solve(hc, rhs, transpose=transpose),
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("B,R", [(5, 1), (7, 3), (15, 2), (16, 3)])
@@ -259,7 +269,7 @@ def test_streamed_kernel_bit_identical_to_plain_version_odd_and_even_B(cuda_devi
         zeros = torch.zeros(shape, device=dev)
         acc, x = superstep.superstep_streamed_call(
             *tables, values, torch.from_numpy(b_pad).to(dev), zeros, zeros, stp=stp,
-            layout=layout)
+            layout=layout, flags=superstep.ReadyFlags(shape[0], dev))
         outs[str(dev)] = (acc.cpu().numpy(), x.cpu().numpy())
     np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
     np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
@@ -296,7 +306,106 @@ def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device):
     before = superstep.superstep_streamed_call.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         superstep.superstep_streamed_call(*fused.tables, fused.values, b_pad, b_pad, b_pad,
-                                          stp=fused.stp, layout=fused.layout, grid=10**6)
+                                          stp=fused.stp, layout=fused.layout, grid=10**6,
+                                          flags=fused.flags)
     assert superstep.superstep_streamed_call.launches == before
     np.testing.assert_array_equal(ctx.solve(h, b), x)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# per-row ready flags (both megakernels)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["fused", "fused_streamed"])
+def test_consecutive_solves_match_a_fresh_solver(cuda_device, kernel):
+    """Five solves on one Solver, each with its own right-hand side: each
+    within 2e-4 of scipy and bit-equal to a fresh Solver's solve, so no flag
+    left by an earlier launch lets a row read a stale x."""
+    from repro_torch.core import solver as tsolver
+    from repro_torch.sparse.matrix import reference_solve
+
+    a = suite.grid2d_factor(64, seed=6)
+    cfg = tsolver.SolverConfig(block_size=32, kernel_backend=kernel)
+    plan = tsolver.build_plan(a, 1, cfg)
+    kept = tsolver.Solver(plan)
+    rng = np.random.default_rng(11)
+    for _ in range(5):
+        b = rng.uniform(-1, 1, a.n)
+        x = kept.solve(b)
+        want = reference_solve(a, b)
+        assert np.abs(x - want).max() <= 2e-4 * np.abs(want).max()
+        np.testing.assert_array_equal(x, tsolver.Solver(plan).solve(b))
+    assert kept._fused.flags.epoch == 5
+
+
+@pytest.mark.parametrize("kernel", ["fused", "fused_streamed"])
+def test_epoch_wrap_rezeros_the_flags(cuda_device, kernel):
+    """At the wrap point the flags are zeroed and the count restarts at 1: a
+    stale flag that already holds 1 must not let a row through early."""
+    from repro_torch.core import solver as tsolver
+    from repro_torch.kernels import superstep
+
+    a = suite.grid2d_factor(64, seed=6)
+    cfg = tsolver.SolverConfig(block_size=32, kernel_backend=kernel)
+    plan = tsolver.build_plan(a, 1, cfg)
+    solver = tsolver.Solver(plan)
+    b = np.random.default_rng(12).uniform(-1, 1, a.n)
+    want = tsolver.Solver(plan).solve(b)
+    ready = solver._fused.flags
+    ready.flags(1).fill_(1)  # as if every row were solved by a launch of epoch 1
+    ready.epoch = superstep.EPOCH_LIMIT
+    np.testing.assert_array_equal(solver.solve(b), want)
+    assert ready.epoch == 1
+    assert set(ready.flags(1).unique().tolist()) <= {0, 1}
+    np.testing.assert_array_equal(solver.solve(b), want)
+    assert ready.epoch == 2
+
+
+@pytest.mark.parametrize("kernel", ["fused", "fused_streamed"])
+@pytest.mark.parametrize("early_pads", [False, True])
+def test_partial_launch_with_carries_bit_identical_to_plain_version(cuda_device, kernel,
+                                                                    early_pads):
+    """A launch over supersteps 2..5 with non-zero carries: copy rows, orphans
+    and (with level 0's rows made pads, as if an earlier launch had solved
+    them) pulls that must not wait, all bit-identical to the plain version
+    on a dyadic problem."""
+    from repro_torch.core.solver import SolverConfig, build_plan
+    from repro_torch.kernels import superstep
+
+    a = _dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+    plan = build_plan(a, 1, SolverConfig(block_size=8, kernel_backend=kernel))
+    (seg, off, wid, sr, ut, trow, tcol), stp = _fused_tables(plan, "cpu")
+    seg = torch.tensor([0, plan.n_supersteps] if early_pads else [2, 4], dtype=torch.int32)
+    if early_pads:
+        sr = sr.clone()
+        sr[int(off[0, 0]):int(off[0, 0] + wid[0, 0])] = -1
+    tables = [seg, off, wid, sr, ut, trow, tcol]
+    rng = np.random.default_rng(8)
+    shape = (plan.bs.nb + 1, 8)
+    b_pad, acc, x = (rng.integers(-3, 4, shape).astype(np.float32) for _ in range(3))
+    for v in (b_pad, acc, x):
+        v[-1] = 0
+    host = [t.numpy() for t in tables]
+    layout = superstep.streamed_layout(*host, n_rows=shape[0], stp=stp.numpy())
+    assert layout.table.n_copy > 0
+    assert (not layout.table.pull_wait.all()) if early_pads else layout.table.n_orphans > 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        t = [v.to(dev) for v in tables]
+        vecs = [torch.from_numpy(v).to(dev) for v in (b_pad, acc, x)]
+        diag = torch.from_numpy(plan.diag).to(dev)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(dev)
+        if kernel == "fused":
+            got = superstep.superstep_call(*t, diag, tiles, *vecs, stp=stp.to(dev),
+                                           flags=superstep.ReadyFlags(shape[0], dev))
+        else:
+            lay = layout.to(dev)
+            values = superstep.streamed_values(lay, diag, tiles)
+            got = superstep.superstep_streamed_call(*t, values, *vecs, stp=stp.to(dev),
+                                                    layout=lay,
+                                                    flags=superstep.ReadyFlags(shape[0], dev))
+        outs[str(dev)] = [g.cpu().numpy() for g in got]
+    np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])

@@ -87,7 +87,7 @@ def _port_streamed(plan, tab, b_pad, acc, x):
     acc, x = tss.superstep_streamed_call(
         t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"], values,
         torch.from_numpy(b_pad), torch.from_numpy(acc), torch.from_numpy(x), stp=t["stp"],
-        layout=layout)
+        layout=layout, flags=tss.ReadyFlags(b_pad.shape[0], "cpu"))
     return acc.numpy(), x.numpy()
 
 
@@ -180,7 +180,61 @@ def test_streamed_shape_fits_the_shared_memory():
         tss.superstep_streamed_call(
             t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"],
             torch.zeros(layout.source.shape[0], tss.stream_tile_floats(200)), zeros, zeros,
-            zeros, stp=t["stp"], layout=layout)
+            zeros, stp=t["stp"], layout=layout, flags=tss.ReadyFlags(zeros.shape[0], "cpu"))
+
+
+def test_streamed_shared_memory_rule():
+    """Per warp: two mbarriers, two stages of the widest item's padded
+    tiles and three columns of B floats (the row's sum and two source
+    columns); the widest block that fits stays 169."""
+    for B, item in ((32, 3), (7, 2), (169, 1)):
+        warps, cap = tss.streamed_shape(B, item)
+        assert tss.streamed_shared_bytes(B, item) == warps * (
+            16 + 2 * cap * 4 * tss.stream_tile_floats(B) + 12 * B)
+    assert tss.streamed_shared_bytes(32, 3) == 8 * (16 + 2 * 3 * 4 * 1056 + 12 * 32) == 205_952
+    assert tss.streamed_shared_bytes(169, 1) <= tss.SHARED_LIMIT
+    assert tss.streamed_shared_bytes(170, 1) > tss.SHARED_LIMIT
+
+
+def test_streamed_layout_table_carries_the_wait_marks():
+    plan = _ref_plan("skewed", 8, "dagpart", False)
+    tab = _tables(plan)
+    layout = _layout(plan, tab)
+    resident = tss.superstep_table(tab["seg"], tab["off"], tab["wid"], tab["sr"], tab["ut"],
+                                   tab["trow"], tab["tcol"], n_rows=plan.bs.nb + 1,
+                                   stp=tab["stp"])
+    np.testing.assert_array_equal(layout.table.pull_wait, resident.pull_wait)
+    assert layout.table.pull_wait.all()  # the whole plan in one launch: every source solved
+    on_dev = layout.to("cpu")
+    assert on_dev.table.pull_wait.dtype == torch.int32
+
+
+def test_streamed_wrapper_checks_the_flags():
+    plan = _ref_plan("skewed", 8, "levelset", False)
+    tab = _tables(plan)
+    layout = _layout(plan, tab)
+    values = tss.streamed_values(layout, torch.from_numpy(plan.diag),
+                                 torch.from_numpy(np.ascontiguousarray(plan.tiles[0])))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)) for k, v in tab.items()}
+    shape = (plan.bs.nb + 1, plan.bs.B)
+    b_pad = torch.from_numpy(_b_pad(plan, _rhs(plan.bs.n, 1)))
+
+    def call(flags):
+        return tss.superstep_streamed_call(
+            t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"], values,
+            b_pad, torch.zeros(shape), torch.zeros(shape), stp=t["stp"], layout=layout,
+            flags=flags)
+
+    with pytest.raises(TypeError, match="ReadyFlags"):
+        call(object())
+    with pytest.raises(ValueError, match="rows"):
+        call(tss.ReadyFlags(shape[0] + 1, "cpu"))
+    with pytest.raises(TypeError, match="ReadyFlags"):
+        call(None)  # every caller keeps its own flags
+    got = call(tss.ReadyFlags(shape[0], "cpu"))
+    want = _port_streamed(plan, tab, b_pad.numpy(), np.zeros(shape, np.float32),
+                          np.zeros(shape, np.float32))
+    assert all(np.array_equal(g.numpy(), w) for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------

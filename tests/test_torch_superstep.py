@@ -70,7 +70,7 @@ def _port_kernel(tab, b_pad, acc, x):
     acc, x = tss.superstep_call(
         t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"], t["diag"],
         t["tiles"], torch.from_numpy(b_pad), torch.from_numpy(acc), torch.from_numpy(x),
-        stp=t["stp"])
+        stp=t["stp"], flags=tss.ReadyFlags(tab["diag"].shape[0], "cpu"))
     return acc.numpy(), x.numpy()
 
 
@@ -218,6 +218,100 @@ def test_table_rejects_schedules_the_pull_order_cannot_run():
     early[tab["ut"][0]] = tab["sr"][0]
     with pytest.raises(ValueError, match="at or after"):
         tss.superstep_table(*args[:5], early, args[6], n_rows=n_rows)
+
+
+@pytest.mark.parametrize("sched,seg", [("levelset", (2, 4)), ("dagpart", (1, 2)),
+                                       ("levelset", None)])
+def test_pull_wait_marks_the_rows_the_launch_solves(sched, seg):
+    """A pull waits for its source row's flag exactly when the launch solves
+    that row, also for a launch that starts mid-plan."""
+    plan = build_plan(strategies.SOLVER_MATRICES["levelled"](), 1,
+                      SolverConfig(block_size=16, sched=sched))
+    tab = _tables(plan, seg)
+    table = _table(tab)
+    t_lo, t_hi = table.levels
+    solved = np.concatenate([tab["sr"][tab["off"][t, 0]:tab["off"][t, 0] + tab["wid"][t, 0]]
+                             for t in range(t_lo, t_hi)])
+    want = np.isin(table.pull_col, solved[solved >= 0]).astype(np.int32)
+    assert table.pull_wait.dtype == np.int32 and table.pull_wait.shape == table.pull_col.shape
+    np.testing.assert_array_equal(table.pull_wait, want)
+
+
+def test_pulls_from_rows_solved_by_an_earlier_launch_never_wait():
+    """Rows solved before the launch (here level 0's, made pads) are copy
+    rows: every pull from one is marked not to wait, the others to wait."""
+    plan = _ref_plan("skewed", 8, "levelset", False)
+    tab = _tables(plan)
+    first = slice(tab["off"][0, 0], tab["off"][0, 0] + tab["wid"][0, 0])
+    earlier = tab["sr"][first][tab["sr"][first] >= 0]
+    sr = tab["sr"].copy()
+    sr[first] = -1
+    table = _table({**tab, "sr": sr})
+    from_earlier = np.isin(table.pull_col, earlier)
+    assert from_earlier.any() and not from_earlier.all()
+    np.testing.assert_array_equal(table.pull_wait, (~from_earlier).astype(np.int32))
+    assert set(earlier) <= set(table.copy_row.tolist())
+
+
+def test_resident_shared_memory_rule():
+    """Per warp: three prefetch stages of 33 * 32 floats and three columns
+    of B floats; every B the resident form takes (up to 1055) fits."""
+    for B in (1, 7, 16, 32, 64, 1055):
+        assert tss.shared_bytes(B) == 4 * 8 * (3 * 1056 + 3 * B) <= tss.SHARED_LIMIT
+    plan = tsolver.plan_from_arrays(flatten_plan(_ref_plan("skewed", 8, "levelset", False)))
+    assert (tsolver.fused_vmem_bytes(plan) == tsolver.dispatch_stats(plan)["fused_vmem_bytes"]
+            == tss.shared_bytes(8) == 4 * 8 * (3 * 1056 + 24))
+
+
+def test_ready_flags_shape_epoch_and_wrap():
+    """One int32 flag per (block row, column) for each R, zeroed at first
+    use; each launch a fresh epoch; past the limit every array is zeroed and
+    the count starts again at 1."""
+    solver = _port_solver("skewed", 8, "levelset", False, "fused")
+    ready = solver._fused.flags
+    n_rows = solver.plan.bs.nb + 1
+    assert ready.n_rows == n_rows and ready.device.type == "cpu" and ready.epoch == 0
+    for R in (1, 3):
+        f = ready.flags(R)
+        assert f.shape == (n_rows * R,) and f.dtype == torch.int32 and not f.any()
+    flags, epoch = ready.next(3)
+    assert flags is ready.flags(3) and epoch == 1
+    assert ready.next(1) == (ready.flags(1), 2)
+    for f in (ready.flags(1), ready.flags(3)):
+        f.fill_(7)
+    ready.epoch = tss.EPOCH_LIMIT - 1
+    assert ready.next(1)[1] == tss.EPOCH_LIMIT and ready.flags(3).eq(7).all()
+    assert ready.next(1)[1] == 1
+    assert not ready.flags(1).any() and not ready.flags(3).any()
+
+
+def test_wrapper_checks_the_flags():
+    plan = _ref_plan("skewed", 8, "levelset", False)
+    tab = _tables(plan)
+    rng = np.random.default_rng(3)
+    shape = (plan.bs.nb + 1, plan.bs.B)
+    b_pad = rng.integers(-3, 4, shape).astype(np.float32)
+    zeros = np.zeros(shape, np.float32)
+    want = _port_kernel(tab, b_pad, zeros, zeros)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in tab.items()}
+
+    def call(flags):
+        return tss.superstep_call(
+            t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"], t["diag"],
+            t["tiles"], torch.from_numpy(b_pad), torch.zeros(shape), torch.zeros(shape),
+            stp=t["stp"], flags=flags)
+
+    with pytest.raises(TypeError, match="ReadyFlags"):
+        call(torch.zeros(shape[0], dtype=torch.int32))
+    with pytest.raises(TypeError, match="ReadyFlags"):
+        call(None)  # every caller keeps its own flags
+    with pytest.raises(ValueError, match="rows"):
+        call(tss.ReadyFlags(shape[0] - 1, "cpu"))
+    with pytest.raises(ValueError, match="rows"):
+        call(tss.ReadyFlags(shape[0], "meta"))
+    got = call(tss.ReadyFlags(shape[0], "cpu"))
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
 
 
 # ---------------------------------------------------------------------------

@@ -93,15 +93,16 @@ def hopper_fused_stats(ref_plan) -> dict:
     but does not solve (incoming tiles only). Store entries are tiles with
     rows padded to B + 1 floats, then to a multiple of four; each warp
     double-buffers its widest item when 8, 4, 2 or 1 warps of them fit the
-    shared memory, besides two mbarriers and two B-float columns.
+    shared memory, besides two mbarriers and three B-float columns.
     """
     B = ref_plan.bs.B
     streamed = (ref_plan.config.sched in ("levelset", "dagpart")
                 and ref_plan.config.kernel_backend == "fused_streamed")
     if not streamed:
-        # 8 warps, each with a 1056-float staging buffer and two B-float columns
+        # 8 warps, each with a ring of three 1056-float prefetch stages and
+        # three B-float columns (the row's sum and two source columns)
         return {"streamed": False, "stream_dma_bytes": 0,
-                "fused_vmem_bytes": 4 * 8 * (33 * 32 + 2 * B)}
+                "fused_vmem_bytes": 4 * 8 * (3 * 33 * 32 + 3 * B)}
     nb = ref_plan.bs.nb
     entry = 4 * (-(-B * (B + 1) // 4) * 4)
     widest, copied = 0, 0
@@ -114,7 +115,7 @@ def hopper_fused_stats(ref_plan) -> dict:
         copied = max(copied, int(items.sum()))
 
     def size(warps, cap):
-        return warps * (16 + 2 * cap * entry + 8 * B)
+        return warps * (16 + 2 * cap * entry + 12 * B)
 
     need = max(1, widest)
     fits = [w for w in (8, 4, 2, 1) if size(w, need) <= SHARED_LIMIT]
