@@ -9,8 +9,9 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
 2. hold each per-op kernel (TRSV, TRSM, GEMV, GEMM, panel TRSV, grouped
    GEMV) against its plain PyTorch version on the card, rtol = atol = 2e-5
    (float32; the kernels and the plain versions sum in different orders),
-   bit-identical on dyadic batches; grouped GEMV bit-equal to GEMV, also
-   for a batch that is no multiple of the group;
+   bit-identical on dyadic batches; grouped GEMV bit-equal to GEMV (groups
+   of 1, 4, 8 and 40, also for a batch that is no multiple of the group),
+   and each GEMM column bit-equal to the GEMV of that column alone;
 3. the main path at full size: the suite's ``delaunay_n20`` generator at its
    Table-I size (``grid2d_factor(1024, seed=6)``, n = 1,048,576, B = 32,
    levelset, taskpool) through ``SpTRSVContext().analyse`` -> ``solve`` for
@@ -219,9 +220,13 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
         for m in (1, 17, 1000):
             T, xv = uniform(m, B, B), uniform(m, B)
             compare("block_gemv", gemv(T, xv), ref.block_gemv_ref(T, xv))
-            for R in (2, 8):
+            for R in (1, 2, 3, 4, 8, 16):
                 X = uniform(m, B, R)
-                compare("block_gemm", gemm(T, X), ref.block_gemv_ref(T, X))
+                Y = gemm(T, X)
+                compare("block_gemm", Y, ref.block_gemv_ref(T, X))
+                for c in range(R):  # each column is summed as the GEMV sums it alone
+                    check(torch.equal(Y[..., c], gemv(T, X[..., c].contiguous())),
+                          f"block_gemm column {c} != block_gemv bit for bit at B={B} m={m} R={R}")
     panel, grouped = ops.KERNELS["block_trsv_panel"], ops.KERNELS["block_gemv_grouped"]
     for B in (8, 16, 32, 64):
         for k in (1, 17, 1000):
@@ -230,7 +235,7 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
     for B in (8, 32, 128):
         for m in (1, 17, 1000, 1003):
             T, xv = uniform(m, B, B), uniform(m, B)
-            for G in (4, 8):  # 17 and 1003 are no multiple of either
+            for G in (1, 4, 8, 40):  # 17 and 1003 are no multiple of 4, 8 or 40
                 y = grouped(T, xv, G)
                 compare("block_gemv_grouped", y, ref.block_gemv_ref(T, xv))
                 check(torch.equal(y, gemv(T, xv)),
@@ -245,6 +250,11 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
               f"panel TRSV != its plain version on a dyadic batch at B={B}")
         check(torch.equal(grouped(Li, xi, 8), ref.block_gemv_ref(Li, xi)),
               f"grouped GEMV != its plain version on a dyadic batch at B={B}")
+        Ti = torch.randint(-1, 2, (k, B, B), device="cuda", generator=gen).float()
+        for R in (3, 8):  # scalar and float4 column accesses
+            Xi = torch.randint(-3, 4, (k, B, R), device="cuda", generator=gen).float()
+            check(torch.equal(gemm(Ti, Xi), ref.block_gemv_ref(Ti, Xi)),
+                  f"GEMM != its plain version on a dyadic batch at B={B} R={R}")
     # an empty batch launches nothing
     before = ops.launch_counts()
     check(trsv(tri(0, 8), uniform(0, 8)).shape == (0, 8), "k=0 TRSV shape")

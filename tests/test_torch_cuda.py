@@ -66,15 +66,45 @@ def test_kernel_matches_plain_version(cuda_device, name, B, k, R):
     assert fn.launches == before + 1
 
 
-@pytest.mark.parametrize("m,group", [(16, 8), (13, 4), (70, 40)])
-def test_grouped_gemv_bit_equal_to_gemv(cuda_device, m, group):
+def _uniform(rng, shape, device):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("B", [8, 32, 128])
+@pytest.mark.parametrize("m,group", [(16, 8), (70, 40)] + [
+    (m, group) for m in (13, 64, 1003) for group in (1, 4, 8, 40)])
+def test_grouped_gemv_bit_equal_to_gemv(cuda_device, m, group, B):
     """Grouped or not, each tile's product has the same bits; a short last
     group reads nothing past m."""
     rng = np.random.default_rng(m)
-    T = torch.from_numpy(rng.uniform(-1, 1, (m, 32, 32)).astype(np.float32)).to(cuda_device)
-    x = torch.from_numpy(rng.uniform(-1, 1, (m, 32)).astype(np.float32)).to(cuda_device)
+    T, x = _uniform(rng, (m, B, B), cuda_device), _uniform(rng, (m, B), cuda_device)
     grouped = ops.KERNELS["block_gemv_grouped"](T, x, group)
     assert torch.equal(grouped, ops.KERNELS["block_gemv"](T, x))
+
+
+@pytest.mark.parametrize("B,R", [(8, 3), (32, 8), (32, 1), (128, 5), (32, 16), (32, 4),
+                                 (32, 12), (64, 8)])
+def test_gemm_column_bit_equal_to_gemv(cuda_device, B, R):
+    """Column c of a GEMM is summed as the GEMV sums X[..., c] alone, in
+    both GEMM kernels (gemm_kernel's tile in registers for B <= 32, with
+    scalar and float4 column accesses and a part-filled 8-column block;
+    gemm_wide_kernel's 4-column passes and 1-column rest above)."""
+    rng = np.random.default_rng(B * R)
+    m = 17
+    T, X = _uniform(rng, (m, B, B), cuda_device), _uniform(rng, (m, B, R), cuda_device)
+    Y = ops.KERNELS["block_gemm"](T, X)
+    for c in range(R):
+        assert torch.equal(Y[..., c], ops.KERNELS["block_gemv"](T, X[..., c].contiguous())), c
+
+
+@pytest.mark.parametrize("B,R", [(16, 8), (32, 3), (33, 4), (128, 2)])
+def test_gemm_bit_identical_to_plain_version_on_dyadic(cuda_device, B, R):
+    """Integer tiles and columns: every partial sum is exact, so the kernel
+    and its plain version agree bit for bit whatever their orders."""
+    rng = np.random.default_rng(B + R)
+    T = torch.from_numpy(rng.integers(-1, 2, (29, B, B)).astype(np.float32)).to(cuda_device)
+    X = torch.from_numpy(rng.integers(-3, 4, (29, B, R)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(ops.KERNELS["block_gemm"](T, X), ref.block_gemv_ref(T, X))
 
 
 def test_kernels_share_pytorch_cuda_runtime(cuda_device):
