@@ -11,7 +11,11 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    (float32; the kernels and the plain versions sum in different orders),
    bit-identical on dyadic batches; grouped GEMV bit-equal to GEMV (groups
    of 1, 4, 8 and 40, also for a batch that is no multiple of the group),
-   and each GEMM column bit-equal to the GEMV of that column alone;
+   each GEMM column bit-equal to the GEMV of that column alone and each
+   TRSM column to the TRSV of that column alone; at B = 7, 8, 16 and 32
+   the GEMV, every GEMM column (R = 1, 2, 3, 8, 16, 17), the grouped GEMV,
+   the TRSV and every TRSM column bit-equal to the bit oracles
+   (``ref.gemv_bits_ref``, ``ref.rowsweep_bits_ref``, run on the host);
 3. the main path at full size: the suite's ``delaunay_n20`` generator at its
    Table-I size (``grid2d_factor(1024, seed=6)``, n = 1,048,576, B = 32,
    levelset, taskpool) through ``SpTRSVContext().analyse`` -> ``solve`` for
@@ -79,15 +83,17 @@ KERNELS = {
     "superstep_streamed": ("src/repro/kernels/superstep.py:182", "superstep.cu"),
 }
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
-# each block kernel's __global__ function, matched in the profiler's kernel
-# name whether demangled ("...::gemv_kernel(float const*, ...)") or not
-# ("_ZN12_GLOBAL__N_111gemv_kernelEPKf..."), and the kernels of a cuBLAS call
+# the __global__ function that serves each block kernel at the timed shapes
+# (B = 32), matched in the profiler's kernel name whether demangled
+# ("...::gemm_kernel(float const*, ...)") or not
+# ("_ZN12_GLOBAL__N_111gemm_kernelEPKf..."), and the kernels of a cuBLAS call
 # (torch.bmm, torch.linalg.solve_triangular); the device-only times count
 # these alone
-DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(E ]|$)" for name, sym in (
-    ("block_trsv", "trsv_rowsweep_kernel"), ("block_trsm", "trsm_rowsweep_kernel"),
-    ("block_gemv", "gemv_kernel"), ("block_gemm", "gemm_kernel"),
-    ("block_trsv_panel", "trsv_panel_kernel"), ("block_gemv_grouped", "gemv_grouped_kernel"))}
+DEVICE_SYMBOL = {
+    "block_trsv": "trsv_rowsweep_kernel", "block_trsm": "trsm_kernel",
+    "block_gemv": "gemv_grouped_kernel", "block_gemm": "gemm_kernel",
+    "block_trsv_panel": "trsv_panel_kernel", "block_gemv_grouped": "gemv_grouped_kernel"}
+DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(E ]|$)" for name, sym in DEVICE_SYMBOL.items()}
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
 
 
@@ -213,9 +219,10 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
                 rp = uniform(k, B, R)
                 xp = trsm(L, rp)
                 compare("block_trsm", xp, ref.block_trsv_ref(L, rp))
-                col = trsv(L, rp[..., 1].contiguous())
-                check(torch.equal(xp[..., 1], col),
-                      f"block_trsm column != independent block_trsv at B={B} k={k} R={R}")
+                for c in range(R):  # each column is swept as the TRSV sweeps it alone
+                    check(torch.equal(xp[..., c], trsv(L, rp[..., c].contiguous())),
+                          f"block_trsm column {c} != independent block_trsv at B={B} k={k} "
+                          f"R={R}")
     for B in (8, 32, 128):
         for m in (1, 17, 1000):
             T, xv = uniform(m, B, B), uniform(m, B)
@@ -240,6 +247,27 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
                 compare("block_gemv_grouped", y, ref.block_gemv_ref(T, xv))
                 check(torch.equal(y, gemv(T, xv)),
                       f"grouped GEMV (G={G}) != block_gemv bit for bit at m={m} B={B}")
+    # the bit oracles (plain PyTorch on the host, B <= 32): each kernel's
+    # summation order, one float32 operation at a time
+    def host(*ts):
+        torch.cuda.synchronize()
+        return [t.cpu() for t in ts]
+
+    for B in (7, 8, 16, 32):
+        k = 1000
+        T, xv, L, r = uniform(k, B, B), uniform(k, B), tri(k, B), uniform(k, B)
+        want_y, want_x = ref.gemv_bits_ref(*host(T, xv)), ref.rowsweep_bits_ref(*host(L, r))
+        check(torch.equal(host(gemv(T, xv))[0], want_y), f"block_gemv != its bit oracle at B={B}")
+        for G in (1, 4, 8, 40):
+            check(torch.equal(host(grouped(T, xv, G))[0], want_y),
+                  f"grouped GEMV (G={G}) != its bit oracle at B={B}")
+        check(torch.equal(host(trsv(L, r))[0], want_x), f"block_trsv != its bit oracle at B={B}")
+        for R in (1, 2, 3, 8, 16, 17):
+            X, rp = uniform(k, B, R), uniform(k, B, R)
+            check(torch.equal(host(gemm(T, X))[0], ref.gemv_bits_ref(*host(T, X))),
+                  f"a block_gemm column != its bit oracle at B={B} R={R}")
+            check(torch.equal(host(trsm(L, rp))[0], ref.rowsweep_bits_ref(*host(L, rp))),
+                  f"a block_trsm column != its bit oracle at B={B} R={R}")
     # dyadic batches: integer tiles and vectors, every partial sum exact
     for B, k in ((16, 33), (32, 1000)):
         Li = torch.tril(torch.randint(-1, 2, (k, B, B), device="cuda", generator=gen).float(), -1)

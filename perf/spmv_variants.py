@@ -5,8 +5,9 @@
                                   [--B 32 64 128] [--m 64 15857]
 
 Times the GEMM (``gemm_kernel``, or ``gemm_wide_kernel`` for B > 32; R =
-8), ``gemv_grouped_kernel`` (G = 8), ``gemv_kernel`` and ``torch.bmm`` (R =
-8 and R = 1) at each B and tile count m: device ms per call,
+8), the grouped GEMV (G = 8), the GEMV (``block_gemv``: ``gemv_grouped_kernel``
+at ``kGemvTiles`` tiles per CTA; the parent's ``gemv_kernel``) and
+``torch.bmm`` (R = 8 and R = 1) at each B and tile count m: device ms per call,
 ``torch.profiler``'s ``key_averages()`` over 50 calls of the named kernel
 alone (as ``chip_smoke.py`` reads them). The default m are the main path's
 widest level (64 tiles) and the IC(0)-PCG SpMV's tile count (15,857 at B =
@@ -14,7 +15,9 @@ widest level (64 tiles) and the IC(0)-PCG SpMV's tile count (15,857 at B =
 under ``build/spmv_variants/<variant>/`` (the checkout is not touched),
 built fresh:
 
-* ``base``: the kernels as they are;
+* ``base``: the kernels as they are (the GEMV one tile per CTA);
+* ``gemv4``: the GEMV four tiles per CTA (one warp each, as the GEMM's
+  grid) instead of one;
 * ``natural``: ``gemm_kernel``'s tile registers kept in natural row order,
   reduced with two selects per shuffle (``transpose_reduce<false>``, as
   ``warp_rows_dot`` does), instead of permuted once per tile into xor order
@@ -35,7 +38,9 @@ built fresh:
 
 Every variant computes the same bits; before timing, each tree's GEMM
 columns and grouped GEMV are checked bit for bit against its GEMV at every
-B (``bits=ok`` or ``bits=DIFFER`` on its lines). ``--parent DIR`` also
+B, and at B <= 32 its GEMV and GEMM against this checkout's
+``ref.gemv_bits_ref`` on the host (``bits=ok`` or ``bits=DIFFER`` on its
+lines). ``--parent DIR`` also
 times the kernels of another checkout of the repository (for example
 ``git archive`` of the parent commit unpacked into ``build/parent/``), built
 in its own ``build/``. Prints the card line, each variant's registers and
@@ -46,19 +51,17 @@ Needs a CUDA device and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-KERNEL = Path("src/repro_torch/kernels/csrc/block_spmv.cu")
+from variant_trees import device_ms, edits, oracles, replace_once, run_trees, variant_tree
+
 R_GEMM, GROUP = 8, 8
 KERNEL_RE = r"(?<![A-Za-z_]){}(?=[(E ]|$)"  # as chip_smoke.py::DEVICE_KERNEL
 LIBRARY_RE = r"(?i)gemm|gemv|xmma|cutlass|cublas|sm90_"
 
 GEMM_RE = r"(?<![A-Za-z_])gemm_(?:wide_)?kernel(?=[(E ]|$)"
+GEMV_RE = r"(?<![A-Za-z_])gemv_(?:grouped_)?kernel(?=[(E ]|$)"  # the parent's is gemv_kernel
 GEMM_LAUNCH = "gemm_kernel<<<grid,"
 XOR_SWAPS = "".join(f"  xor_swap<{o}>(tr, lane);\n" for o in (16, 8, 4, 2, 1))
 WIDE_BODY = """\
@@ -163,22 +166,9 @@ def prefetch_edit(depth: int):
     return edit
 
 
-def replace_once(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise ValueError(f"expected one {old[:60]!r}, found {src.count(old)}")
-    return src.replace(old, new)
-
-
-def edits(*pairs):
-    def edit(src: str) -> str:
-        for old, new in pairs:
-            src = replace_once(src, old, new)
-        return src
-    return edit
-
-
 VARIANTS = {
     "base": None,
+    "gemv4": edits(("constexpr int kGemvTiles = 1;", "constexpr int kGemvTiles = 4;")),
     "natural": edits((XOR_SWAPS, ""), ("transpose_reduce<true>(v, lane)",
                                        "transpose_reduce<false>(v, lane)")),
     "scalar": edits(("const bool vec = R % 4 == 0 &&", "const bool vec = false &&")),
@@ -194,62 +184,14 @@ VARIANTS = {
 }
 
 
-def variant_tree(name: str) -> Path:
-    """A copy of ``src/`` with the variant's edit applied."""
-    out = ROOT / "build" / "spmv_variants" / name
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    shutil.copytree(ROOT / "src", out / "src", ignore=shutil.ignore_patterns("__pycache__"))
-    edit = VARIANTS[name]
-    if edit is not None:
-        (out / KERNEL).write_text(edit((out / KERNEL).read_text()))
-    return out
-
-
-def resource_usage(tree: Path) -> str:
-    """``ptxas``'s registers and spills per kernel of the tree's source."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import extension
-
-    flags = [f for f in extension.NVCC_FLAGS if f.startswith(("-O", "-std", "-gencode"))]
-    run = subprocess.run([extension.nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
-                          str(tree / "block_spmv.cubin"), str(tree / KERNEL)],
-                         capture_output=True, text=True, timeout=300)
-    if run.returncode != 0:
-        return f"nvcc failed: {run.stderr[-2000:]}"
-    usage, name = {}, None
-    for line in run.stderr.splitlines():
-        hit = re.search(r"\d(gemm_kernel|gemm_wide_kernel|gemv_grouped_kernel|gemv_kernel)E",
-                        line)
-        if hit:
-            name = hit.group(1)
-        elif name and ("registers" in line or "spill" in line):
-            usage.setdefault(name, []).append(line.split(":", 1)[-1].strip())
-    return " | ".join(f"{n}: {'; '.join(v)}" for n, v in usage.items())
-
-
-def device_ms(fn, kernel: str, iters: int = 50) -> float | None:
-    """Mean device ms per call of the kernels matching ``kernel``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and re.search(kernel, e.key))
-    return us / 1e3 / iters if us > 0 else None
-
-
 def time_tree(src: Path, label: str, Bs: list[int], ms: list[int]) -> None:
     """Child process: check and time one tree's kernels."""
     sys.path.insert(0, str(src))
     import torch
 
     from repro_torch.kernels import block_spmv as k
+
+    ref = oracles()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -262,13 +204,16 @@ def time_tree(src: Path, label: str, Bs: list[int], ms: list[int]) -> None:
         bits = (all(torch.equal(Y[..., c], k.block_gemv(T, X[..., c].contiguous()))
                     for c in range(R_GEMM))
                 and torch.equal(k.block_gemv_grouped(T, x, GROUP), k.block_gemv(T, x)))
+        if B <= ref.WARP:
+            bits = (bits and torch.equal(Y.cpu(), ref.gemv_bits_ref(T.cpu(), X.cpu()))
+                    and torch.equal(k.block_gemv(T, x).cpu(), ref.gemv_bits_ref(T.cpu(), x.cpu())))
         for m in ms:
             T, X, x = uniform(m, B, B), uniform(m, B, R_GEMM), uniform(m, B)
             times = {
                 "gemm": device_ms(lambda: k.block_gemm(T, X), GEMM_RE),
                 "grouped": device_ms(lambda: k.block_gemv_grouped(T, x, GROUP),
                                      KERNEL_RE.format("gemv_grouped_kernel")),
-                "gemv": device_ms(lambda: k.block_gemv(T, x), KERNEL_RE.format("gemv_kernel")),
+                "gemv": device_ms(lambda: k.block_gemv(T, x), GEMV_RE),
                 "bmm8": device_ms(lambda: torch.bmm(T, X), LIBRARY_RE),
                 "bmm1": device_ms(lambda: torch.bmm(T, x.unsqueeze(-1)), LIBRARY_RE)}
             print(f"[spmv] {label} B={B} m={m} bits={'ok' if bits else 'DIFFER'} "
@@ -289,28 +234,12 @@ def main() -> None:
         time_tree(Path(args.time[0]), args.time[1], args.B, args.m)
         return
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60)
-    print(f"[spmv] card: {card.stdout.strip() or 'nvidia-smi failed'}", flush=True)
     trees = [(name, None) for name in args.variants]
     if args.parent:
         trees.insert(0, ("parent", args.parent.resolve()))
-    shape = ["--B", *map(str, args.B), "--m", *map(str, args.m)]
-    for label, tree in trees:
-        try:
-            tree = tree or variant_tree(label)
-        except ValueError as e:
-            print(f"[spmv] {label}: edit does not apply: {e}", flush=True)
-            continue
-        print(f"[spmv] {label} ptxas: {resource_usage(tree)}", flush=True)
-        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time",
-                              str(tree / "src"), label, *shape],
-                             capture_output=True, text=True, timeout=900)
-        print(run.stdout, end="", flush=True)
-        if run.returncode != 0:
-            print(f"[spmv] {label}: failed (exit {run.returncode}): {run.stderr[-3000:]}",
-                  flush=True)
+    run_trees("spmv", Path(__file__).resolve(), "block_spmv", trees,
+              lambda name: variant_tree("spmv_variants", name, "block_spmv", VARIANTS[name]),
+              ["--B", *map(str, args.B), "--m", *map(str, args.m)])
 
 
 if __name__ == "__main__":

@@ -1,21 +1,22 @@
 // Batched per-tile products (block GEMV / GEMM) for Hopper.
 //
 // Replaces the Pallas kernels of src/repro/kernels/block_spmv.py:
-// _gemv_kernel (tiles (m,B,B) @ xs (m,B)) with gemv_kernel,
-// _gemv_grouped_kernel (the same product, G tiles per program) with
-// gemv_grouped_kernel, and _gemm_kernel (tiles (m,B,B) @ xs (m,B,R)) with
+// _gemv_kernel (tiles (m,B,B) @ xs (m,B)) and _gemv_grouped_kernel (the
+// same product, G tiles per program) with gemv_grouped_kernel (the GEMV is
+// its G = 1 launch), and _gemm_kernel (tiles (m,B,B) @ xs (m,B,R)) with
 // gemm_kernel (B <= 32) and gemm_wide_kernel (B > 32). The scatter-add of
 // the products into destination rows stays outside the kernel, as in the
 // reference.
 //
-// The bits. Every output, in all four kernels, is summed as gemv_kernel
-// sums it: lane l forms its partial from 0.f with an FMA chain over the
-// columns j = l, l + 32, ... in increasing order (lanes with l >= B hold
-// 0), then the xor butterfly combines the 32 partials with offsets 16, 8,
-// 4, 2, 1, each lane adding its partner's value. IEEE addition is
+// The bits, the family's definition: every output of all three kernels is
+// summed the same way. Lane l forms its partial from 0.f with an FMA chain
+// over the columns j = l, l + 32, ... in increasing order (lanes with l >= B
+// hold 0), then the xor butterfly combines the 32 partials with offsets 16,
+// 8, 4, 2, 1, each lane adding its partner's value. IEEE addition is
 // commutative, so every lane ends with the same bits. Only float32 FMAs and
 // adds: no tensor cores and no TF32, which would change the bits the
-// exact-arithmetic parity tests compare.
+// exact-arithmetic parity tests compare. ref.py::gemv_bits_ref emulates
+// this order for B <= 32, and the card tests hold every kernel to it.
 //
 // The transpose-reduce (transpose_reduce) does that butterfly for 32 rows
 // at once. Lane l holds its partials v[0..31] of 32 rows. At offset o it
@@ -23,22 +24,23 @@
 // adding what it receives for the rows it keeps. A row's value at lane l
 // after offset o is the sum of its values at lanes l and l ^ o before it,
 // exactly as in the butterfly, so every row meets the same pairs in the
-// same order and ends with gemv_kernel's bits. Lane -> row map: at offset o
-// lane l keeps the upper half of its rows when bit o of l is set, the lower
-// half when it is clear, so after offset 1 lane l holds row l of the 32
-// (row row0 + l of the tile), and that lane stores it. Picking the half
-// to keep costs two selects per shuffle; gemm_kernel, which reuses one tile
-// for every column, permutes its registers once into xor order (slot s
-// holds row s ^ l) and needs none, with the same map at the end. The cost
-// is 31 shuffles and 31 adds per lane for 32 rows, where 32 butterflies
-// take 160 of each, and the 32 row loads are independent coalesced
-// 128-byte segments, not 32 serial chains.
+// same order and ends with the butterfly's bits. Lane -> row map: at
+// offset o lane l keeps the upper half of its rows when bit o of l is set,
+// the lower half when it is clear, so after offset 1 lane l holds row l of
+// the 32 (row row0 + l of the tile), and that lane stores it: one
+// coalesced 128-byte store. Picking the half to keep costs two selects per
+// shuffle; gemm_kernel, which reuses one tile for every column, permutes
+// its registers once into xor order (slot s holds row s ^ l) and needs
+// none, with the same map at the end. The cost is 31 shuffles and 31 adds
+// per lane for 32 rows, where a butterfly per row takes 160 of each, and
+// the 32 row loads are independent coalesced 128-byte segments, not 32
+// serial chains.
 //
 // What bounds them on an H100 (PERF.md): at the IC(0)-PCG SpMV's tile count
 // (m = 15,857, B = 32) the tiles' bytes, 4 KB a tile read once (0.021 ms at
 // 3.35 TB/s for a vector, 0.029 ms with R = 8 panels); at the main path's
-// widest level (m = 64) latency: one tile's loads, then five dependent
-// shuffle steps per column, on a few dozen warps. For B > 32,
+// widest level (m = 64) latency: one tile's loads, then the reduction's
+// dependent shuffle steps, on a few dozen warps. For B > 32,
 // gemm_wide_kernel re-reads each 32-row block from L1 or L2 once per
 // 4-column pass.
 //
@@ -53,18 +55,12 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerTile = 4;    // gemv_kernel
+constexpr int kGemvTiles = 1;       // repro_gemv_f32: tiles per gemv_grouped_kernel CTA
 constexpr int kMaxGroupWarps = 16;  // gemv_grouped_kernel: larger groups stride over these;
                                     // 512 threads leave a thread 128 registers
 constexpr int kGemmWarps = 4;       // both GEMM kernels: tiles per CTA, one warp each
 constexpr int kCols = 8;            // gemm_kernel, B <= 32: right-hand-side columns per pass
 constexpr int kRowCols = 4;         // gemm_wide_kernel: columns per pass over a row block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 // One offset o of the transpose-reduce: lane l keeps slots 0 .. o-1 and
 // adds to each what lane l ^ o sends from its slots o .. 2o-1. With rows in
@@ -112,9 +108,9 @@ __device__ __forceinline__ void xor_swap(float (&v)[kWarp], int lane) {
 
 // One warp, rows row0 .. row0 + 31 of the (B,B) tile T against N vectors:
 // element j of vector c at x[j * xs + c]. Lane l sets y[c] to row row0 + l's
-// sum against vector c, with the bits gemv_kernel gives for that vector
-// alone. Rows at or past B re-read the tile's last row, so every load is
-// unconditional; their sums are never stored. Each 32-column chunk issues
+// sum against vector c, with the family's bits for that vector alone. Rows
+// at or past B re-read the tile's last row, so every load is unconditional;
+// their sums are never stored. Each 32-column chunk issues
 // its 32 row loads before the FMAs that use them, and each loaded element
 // serves all N vectors.
 template <int N>
@@ -146,26 +142,12 @@ __device__ __forceinline__ void warp_rows_dot(const float* __restrict__ T,
   for (int c = 0; c < N; ++c) y[c] = transpose_reduce<false>(v[c], lane);
 }
 
-__global__ void gemv_kernel(const float* __restrict__ T, const float* __restrict__ xv,
-                            float* __restrict__ y, int B) {
-  const size_t t = blockIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const float* Tt = T + t * B * B;
-  const float* xt = xv + t * B;
-  for (int i = threadIdx.x / kWarp; i < B; i += kWarpsPerTile) {
-    const float* ti = Tt + static_cast<size_t>(i) * B;
-    float p = 0.f;
-    for (int j = lane; j < B; j += kWarp) p += __ldg(ti + j) * __ldg(xt + j);
-    p = warp_sum(p);
-    if (lane == 0) y[t * B + i] = p;
-  }
-}
-
 // G tiles per CTA, one warp per tile (tiles strided over at most
 // kMaxGroupWarps warps when G is larger); the warp takes its tile 32 rows at
 // a time through warp_rows_dot, and lane l stores row row0 + l: a coalesced
 // 128-byte store. The last CTA checks its tiles against m instead of
-// reading padded copies.
+// reading padded copies. The GEMV (repro_gemv_f32) is its launch with
+// kGemvTiles tiles per CTA.
 __global__ void __launch_bounds__(kMaxGroupWarps * kWarp)
     gemv_grouped_kernel(const float* __restrict__ T, const float* __restrict__ xv,
                         float* __restrict__ y, int m, int B, int G) {
@@ -222,7 +204,7 @@ __device__ __forceinline__ void store_cols(float* __restrict__ dst, int n, bool 
 // of conditional swaps, once per tile), so each right-hand-side column then
 // costs 32 FMAs and a select-free transpose_reduce. Lane l reads its row of
 // X, kCols columns at a time (two float4 loads when R % 4 == 0), and writes
-// row l of Y the same way. Column c of the result has the bits gemv_kernel
+// row l of Y the same way. Column c of the result has the bits the GEMV
 // gives for X[..., c] alone.
 __global__ void __launch_bounds__(kGemmWarps * kWarp)
     gemm_kernel(const float* __restrict__ T, const float* __restrict__ X, float* __restrict__ Y,
@@ -276,7 +258,7 @@ __device__ __forceinline__ void gemm_rows(const float* __restrict__ Tt,
 // kRowCols columns at a time (the rest one at a time), so the block is
 // re-read from L1 or L2 once per pass, not once per column. A kernel of its
 // own, so that its larger register file (kRowCols x 32 partials) does not
-// lower gemm_kernel's occupancy. Column c has gemv_kernel's bits.
+// lower gemm_kernel's occupancy. Column c has the GEMV's bits.
 __global__ void __launch_bounds__(kGemmWarps * kWarp)
     gemm_wide_kernel(const float* __restrict__ T, const float* __restrict__ X,
                      float* __restrict__ Y, int m, int B, int R) {
@@ -300,11 +282,6 @@ extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError() of
 // the launch (0 on success); it never synchronises.
-int repro_gemv_f32(const float* T, const float* x, float* y, int m, int B, void* stream) {
-  gemv_kernel<<<m, kWarpsPerTile * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(T, x, y, B);
-  return cudaGetLastError();
-}
-
 int repro_gemv_grouped_f32(const float* T, const float* x, float* y, int m, int B, int G,
                            void* stream) {
   if (G < 1) return cudaErrorInvalidValue;
@@ -312,6 +289,10 @@ int repro_gemv_grouped_f32(const float* T, const float* x, float* y, int m, int 
   gemv_grouped_kernel<<<(m + G - 1) / G, warps * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       T, x, y, m, B, G);
   return cudaGetLastError();
+}
+
+int repro_gemv_f32(const float* T, const float* x, float* y, int m, int B, void* stream) {
+  return repro_gemv_grouped_f32(T, x, y, m, B, kGemvTiles, stream);
 }
 
 int repro_gemm_f32(const float* T, const float* X, float* Y, int m, int B, int R, void* stream) {

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the block kernels and of the superstep
-megakernel (resident and streamed).
+megakernel (resident and streamed), and the block kernels' bit oracles.
 
 They are the CPU path of every kernel wrapper, the ``"reference"`` backend,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card. They
@@ -45,6 +45,55 @@ def block_gemv_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     if xs.ndim == 3:
         return torch.einsum("mij,mjr->mir", tiles, xs)
     return torch.einsum("mij,mj->mi", tiles, xs)
+
+
+# Bit oracles: the CUDA kernels' summation order, emulated one float32
+# operation at a time, for blocks of at most one warp (B <= 32). Lane l of a
+# warp holds the product of column l (fmaf(a, b, 0.f): a*b rounded once, -0
+# made +0) and lanes past the row's end hold +0; the xor butterfly then adds
+# to every lane its partner's value at offsets 16, 8, 4, 2, 1. The kernels
+# hold themselves to these on the card (``tests/test_torch_cuda.py``,
+# ``chip_smoke.py`` phase 2); the library versions above sum in other orders.
+WARP = 32
+
+
+def _check_block(B: int) -> None:
+    if B > WARP:
+        raise ValueError(f"bit oracles take blocks of at most {WARP}, got B = {B}")
+
+
+def _butterfly(products: torch.Tensor) -> torch.Tensor:
+    """The xor butterfly's sum over the last dim (at most 32 lanes, padded
+    with +0 to 32); every lane ends with these bits."""
+    v = torch.nn.functional.pad(products + 0.0, (0, WARP - products.shape[-1]))
+    lanes = torch.arange(WARP, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def gemv_bits_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """:func:`block_gemv_ref` with the bits of the GEMV family's kernels
+    (GEMV, grouped GEMV, every GEMM column): tiles (m,B,B) with xs (m,B) or
+    (m,B,R), B <= 32."""
+    _check_block(tiles.shape[-1])
+    if xs.ndim == 3:
+        return _butterfly(tiles[:, None] * xs.transpose(1, 2)[:, :, None, :]).transpose(1, 2)
+    return _butterfly(tiles * xs[:, None, :])
+
+
+def rowsweep_bits_ref(diag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """:func:`block_trsv_ref` with the bits of the row-sweep kernels (TRSV,
+    every TRSM column): row i sums L[i, :i] * x[:i] as the GEMV family sums
+    a row, then x[i] = (r[i] - s) / L[i, i], each rounded to float32.
+    ``diag`` (k,B,B) with ``rhs`` (k,B) or (k,B,R), B <= 32."""
+    _check_block(diag.shape[-1])
+    r = rhs if rhs.ndim == 3 else rhs[..., None]
+    x = torch.zeros_like(r)
+    for i in range(r.shape[1]):
+        s = _butterfly(diag[:, i, None, :i] * x[:, :i].transpose(1, 2))
+        x[:, i] = (r[:, i] - s) / diag[:, i, i, None]
+    return x if rhs.ndim == 3 else x[..., 0]
 
 
 def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x, stp=None):

@@ -107,6 +107,65 @@ def test_gemm_bit_identical_to_plain_version_on_dyadic(cuda_device, B, R):
     assert torch.equal(ops.KERNELS["block_gemm"](T, X), ref.block_gemv_ref(T, X))
 
 
+def _lower(rng, k, B, device):
+    """Well-conditioned lower-triangular tiles: a dominant diagonal."""
+    mat = np.tril(rng.uniform(-1, 1, (k, B, B)), -1) / B + 2 * np.eye(B)
+    return torch.from_numpy(mat.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("B,R", [(7, 3), (32, 8), (32, 17), (33, 4), (64, 8)])
+def test_trsm_column_bit_equal_to_trsv(cuda_device, B, R):
+    """Column c of a TRSM is swept as the TRSV sweeps r[..., c] alone, in
+    both TRSM kernels (trsm_kernel's registers for B <= 32, with more
+    columns than warps at R = 17; trsm_wide_kernel's shared memory above)."""
+    rng = np.random.default_rng(B * R)
+    L, r = _lower(rng, 29, B, cuda_device), _uniform(rng, (29, B, R), cuda_device)
+    x = ops.KERNELS["block_trsm"](L, r)
+    for c in range(R):
+        assert torch.equal(x[..., c], ops.KERNELS["block_trsv"](L, r[..., c].contiguous())), c
+
+
+# the bit oracles (ref.gemv_bits_ref, ref.rowsweep_bits_ref) on the host:
+# each kernel's summation order emulated one float32 operation at a time
+ORACLE_B = (7, 8, 16, 32)
+ORACLE_R = (1, 2, 3, 8, 16, 17)
+
+
+@pytest.mark.parametrize("B", ORACLE_B)
+def test_gemv_and_grouped_bit_equal_to_oracle(cuda_device, B):
+    rng = np.random.default_rng(B)
+    T, x = _uniform(rng, (1003, B, B), cuda_device), _uniform(rng, (1003, B), cuda_device)
+    want = ref.gemv_bits_ref(T.cpu(), x.cpu())
+    assert torch.equal(ops.KERNELS["block_gemv"](T, x).cpu(), want)
+    for group in (1, 4, 8, 40):
+        assert torch.equal(ops.KERNELS["block_gemv_grouped"](T, x, group).cpu(), want), group
+
+
+@pytest.mark.parametrize("B", ORACLE_B)
+@pytest.mark.parametrize("R", ORACLE_R)
+def test_gemm_columns_bit_equal_to_oracle(cuda_device, B, R):
+    rng = np.random.default_rng(B * R)
+    T, X = _uniform(rng, (61, B, B), cuda_device), _uniform(rng, (61, B, R), cuda_device)
+    assert torch.equal(ops.KERNELS["block_gemm"](T, X).cpu(), ref.gemv_bits_ref(T.cpu(), X.cpu()))
+
+
+@pytest.mark.parametrize("B", ORACLE_B)
+def test_trsv_bit_equal_to_oracle(cuda_device, B):
+    rng = np.random.default_rng(B)
+    L, r = _lower(rng, 1003, B, cuda_device), _uniform(rng, (1003, B), cuda_device)
+    assert torch.equal(ops.KERNELS["block_trsv"](L, r).cpu(),
+                       ref.rowsweep_bits_ref(L.cpu(), r.cpu()))
+
+
+@pytest.mark.parametrize("B", ORACLE_B)
+@pytest.mark.parametrize("R", ORACLE_R)
+def test_trsm_columns_bit_equal_to_oracle(cuda_device, B, R):
+    rng = np.random.default_rng(B * R)
+    L, r = _lower(rng, 61, B, cuda_device), _uniform(rng, (61, B, R), cuda_device)
+    assert torch.equal(ops.KERNELS["block_trsm"](L, r).cpu(),
+                       ref.rowsweep_bits_ref(L.cpu(), r.cpu()))
+
+
 def test_kernels_share_pytorch_cuda_runtime(cuda_device):
     """The kernel libraries load no second CUDA runtime beside PyTorch's."""
     from pathlib import Path

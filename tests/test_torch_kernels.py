@@ -240,3 +240,29 @@ def test_cpu_and_empty_calls_launch_nothing():
     block_gemv_grouped(torch.zeros(0, 8, 8), torch.zeros(0, 8), 4)
     assert block_trsv(torch.zeros(0, 8, 8), torch.zeros(0, 8)).shape == (0, 8)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_chip_smoke_times_global_functions_of_the_sources():
+    """Each name ``chip_smoke.py`` reads device times by is a ``__global__``
+    function of ``csrc/*.cu``, and its pattern matches that function's
+    mangled name: a renamed kernel would otherwise leave a silent null in
+    the kernels line."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sources = "".join(p.read_text()
+                      for p in (root / "src/repro_torch/kernels/csrc").glob("*.cu"))
+    defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                             sources))
+    assert set(smoke.DEVICE_SYMBOL) == set(smoke.PER_OP) | {"block_trsv_panel",
+                                                            "block_gemv_grouped"}
+    for name, symbol in smoke.DEVICE_SYMBOL.items():
+        assert symbol in defined, (name, symbol, sorted(defined))
+        mangled = f"_ZN12_GLOBAL__N_1{len(symbol)}{symbol}EPKfS1_Pfii"
+        assert re.search(smoke.DEVICE_KERNEL[name], mangled), (name, mangled)
+        assert re.search(smoke.DEVICE_KERNEL[name], f"(anonymous namespace)::{symbol}(float)")
