@@ -15,7 +15,10 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    TRSM column to the TRSV of that column alone; at B = 7, 8, 16 and 32
    the GEMV, every GEMM column (R = 1, 2, 3, 8, 16, 17), the grouped GEMV,
    the TRSV and every TRSM column bit-equal to the bit oracles
-   (``ref.gemv_bits_ref``, ``ref.rowsweep_bits_ref``, run on the host);
+   (``ref.gemv_bits_ref``, ``ref.rowsweep_bits_ref``, run on the host), the
+   TRSV also at k = 1, 32 and 4096 tiles, and the panel TRSV bit-equal to
+   ``ref.panel_bits_ref`` at (B, P) = (8, 4), (16, 8), (24, 3), (24, 6),
+   (32, 1), (32, 8), (32, 32) and k = 1, 17, 1003;
 3. the main path at full size: the suite's ``delaunay_n20`` generator at its
    Table-I size (``grid2d_factor(1024, seed=6)``, n = 1,048,576, B = 32,
    levelset, taskpool) through ``SpTRSVContext().analyse`` -> ``solve`` for
@@ -44,9 +47,12 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    solve at sides 256, 512 and 1024.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
-its plain version, the one-call PyTorch equivalent and its bound; times
+its plain version, the one-call PyTorch equivalent and its bound (for the
+row-sweep kernels also ``chain_bound_ms``: B times one dependent division
+and FMA, measured by ``perf/chain_latency.py``'s microbenchmark); times
 each block kernel's device work alone (``torch.profiler``'s
-``key_averages()``, without the host's launch gaps); times the GEMV family
+``key_averages()``, without the host's launch gaps), also at k = 4096
+tiles; times the GEMV family
 and ``torch.bmm`` at the tile count of phase 4's SpMV; prints them as one
 ``{"kernels": [...]}`` line, and ends with the line
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/`` next to
@@ -85,15 +91,18 @@ KERNELS = {
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 # the __global__ function that serves each block kernel at the timed shapes
 # (B = 32), matched in the profiler's kernel name whether demangled
-# ("...::gemm_kernel(float const*, ...)") or not
-# ("_ZN12_GLOBAL__N_111gemm_kernelEPKf..."), and the kernels of a cuBLAS call
-# (torch.bmm, torch.linalg.solve_triangular); the device-only times count
-# these alone
+# ("...::gemm_kernel(float const*, ...)", "...::trsv_panel_sweep_kernel<8>(")
+# or not ("_ZN12_GLOBAL__N_111gemm_kernelEPKf...", "...kernelILi8EEEvPKf..."),
+# and the kernels of a cuBLAS call (torch.bmm, torch.linalg.solve_triangular);
+# the device-only times count these alone
 DEVICE_SYMBOL = {
-    "block_trsv": "trsv_rowsweep_kernel", "block_trsm": "trsm_kernel",
+    "block_trsv": "trsv_kernel", "block_trsm": "trsm_kernel",
     "block_gemv": "gemv_grouped_kernel", "block_gemm": "gemm_kernel",
-    "block_trsv_panel": "trsv_panel_kernel", "block_gemv_grouped": "gemv_grouped_kernel"}
-DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(E ]|$)" for name, sym in DEVICE_SYMBOL.items()}
+    "block_trsv_panel": "trsv_panel_sweep_kernel", "block_gemv_grouped": "gemv_grouped_kernel"}
+DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(<EI ]|$)"
+                 for name, sym in DEVICE_SYMBOL.items()}
+ROW_SWEEPS = ("block_trsv", "block_trsm", "block_trsv_panel")  # rows with a chain_bound_ms
+PANEL_BP = ((8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32))  # panel oracle
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
 
 
@@ -262,12 +271,22 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
             check(torch.equal(host(grouped(T, xv, G))[0], want_y),
                   f"grouped GEMV (G={G}) != its bit oracle at B={B}")
         check(torch.equal(host(trsv(L, r))[0], want_x), f"block_trsv != its bit oracle at B={B}")
+        if B == 32:  # the TRSV at a batch of one tile, the widest level and a wide batch
+            for kt in (1, 32, 4096):
+                Lk, rk = tri(kt, B), uniform(kt, B)
+                check(torch.equal(host(trsv(Lk, rk))[0], ref.rowsweep_bits_ref(*host(Lk, rk))),
+                      f"block_trsv != its bit oracle at B={B} k={kt}")
         for R in (1, 2, 3, 8, 16, 17):
             X, rp = uniform(k, B, R), uniform(k, B, R)
             check(torch.equal(host(gemm(T, X))[0], ref.gemv_bits_ref(*host(T, X))),
                   f"a block_gemm column != its bit oracle at B={B} R={R}")
             check(torch.equal(host(trsm(L, rp))[0], ref.rowsweep_bits_ref(*host(L, rp))),
                   f"a block_trsm column != its bit oracle at B={B} R={R}")
+    for B, P in PANEL_BP:  # P = 3, 6: no power of two, the products rotated
+        for k in (1, 17, 1003):
+            L, r = tri(k, B), uniform(k, B)
+            check(torch.equal(host(panel(L, r, P))[0], ref.panel_bits_ref(*host(L, r), P)),
+                  f"panel TRSV != its bit oracle at B={B} P={P} k={k}")
     # dyadic batches: integer tiles and vectors, every partial sum exact
     for B, k in ((16, 33), (32, 1000)):
         Li = torch.tril(torch.randint(-1, 2, (k, B, B), device="cuda", generator=gen).float(), -1)
@@ -404,6 +423,8 @@ def main() -> None:
         from repro_torch.krylov import matvec_lower, solve_ic0_pcg, spd_lower_from_triangular
         from repro_torch.sparse import suite
         from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
+        sys.path.insert(0, str(ROOT / "perf"))
+        import chain_latency
     except ImportError as e:
         fail(f"the repro_torch package is not next to chip_smoke.py ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
@@ -414,11 +435,13 @@ def main() -> None:
     log(f"device {kind}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 1. build
+    # 1. build (the chain-latency microbenchmark alongside the kernels)
     t0 = time.perf_counter()
+    chain_build = chain_latency.start_build()
     libs = extension.build()
+    chain_lib = chain_latency.load(chain_build)
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(p.name for p in libs.values())})")
+        f"({', '.join(p.name for p in libs.values())}, {chain_latency.LIBRARY.name})")
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -847,6 +870,8 @@ def main() -> None:
              "block_gemv": ref.block_gemv_ref, "block_gemm": ref.block_gemv_ref,
              "block_trsv_panel": ref.block_trsv_panel_ref,
              "block_gemv_grouped": ref.block_gemv_ref}
+    step_ms = chain_latency.step_ms(chain_lib)
+    log(f"one dependent __fdiv_rn + fmaf (perf/chain_latency.cu): {step_ms * 1e6:.3f} ns")
     rows_out = []
     for name, (mat, (k, B, R)) in shapes.items():
         vec = torch.rand((k, B) if R == 1 else (k, B, R), device="cuda", generator=gen) * 2 - 1
@@ -868,6 +893,7 @@ def main() -> None:
             "ms": time_ms(lambda: fn(mat, vec)),
             "plain_ms": time_ms(lambda: plain[name](mat, vec)),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_bound_ms": B * step_ms if name in ROW_SWEEPS else None,
             "library_ms": time_ms(lambda: library[name](mat, vec)),
             "device_ms": device_ms(lambda: fn(mat, vec), DEVICE_KERNEL[name]),
             "library_device_ms": device_ms(lambda: library[name](mat, vec), LIBRARY_KERNEL),
@@ -887,8 +913,11 @@ def main() -> None:
         wide.append(f"{name}[{k}x{B}x{R}] ms={time_ms(lambda: fn(mat, vec), 50):.4f} "
                     f"plain_ms={time_ms(lambda: plain[name](mat, vec), 50):.4f} "
                     f"library_ms={time_ms(lambda: library[name](mat, vec), 50):.4f} "
-                    f"bound_ms={bound(name, k, B, R)[0]:.4f}")
-    log("kernel times at k=4096 tiles: " + "; ".join(wide))
+                    f"bound_ms={bound(name, k, B, R)[0]:.4f} "
+                    f"device_ms={device_ms(lambda: fn(mat, vec), DEVICE_KERNEL[name])} "
+                    f"library_device_ms="
+                    f"{device_ms(lambda: library[name](mat, vec), LIBRARY_KERNEL)}")
+    log("kernel times at k=4096 tiles (device_ms from torch.profiler): " + "; ".join(wide))
     # the GEMV family at the tile count of phase 4's SpMV (every tile of the
     # n = PCG_SIDE^2 problem, B = 32), where the SpMV calls the GEMV
     sp_tiles = torch.from_numpy(np.ascontiguousarray(

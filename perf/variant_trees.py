@@ -1,9 +1,10 @@
 """What the kernel-variant scripts (``perf/spmv_variants.py``,
-``perf/trsm_variants.py``) share: a copy of ``src/`` with one CUDA source
-edited, ``ptxas``'s registers per kernel, device time from
-``torch.profiler``, this checkout's bit oracles, and the loop that
-checks and times each tree in a child process of its own (each tree's
-``repro_torch`` is imported fresh). Needs a CUDA device and ``nvcc``.
+``perf/trsm_variants.py``, ``perf/trsv_variants.py``) share: a copy of
+``src/`` with one CUDA source edited, ``ptxas``'s registers per kernel,
+device time from ``torch.profiler``, this checkout's bit oracles, and the
+loop that checks and times each tree in a child process of its own (each
+tree's ``repro_torch`` is imported fresh). Needs a CUDA device and
+``nvcc``.
 """
 from __future__ import annotations
 

@@ -52,7 +52,8 @@ def block_trsv_panel(diag: torch.Tensor, rhs: torch.Tensor, panel: int = 8) -> t
     """The panel algorithm of the reference's ``block_trsv(algorithm="panel")``:
     (k,B,B), (k,B) -> (k,B), ``panel`` rows per step, ``B % panel == 0``.
     It sums in another order than :func:`block_trsv`, so the two agree
-    within float32 rounding, not bit for bit."""
+    within float32 rounding, not bit for bit; its kernel gives the bits of
+    :func:`repro_torch.kernels.ref.panel_bits_ref` (B <= 32)."""
     extension.check_operands("block_trsv_panel", diag, rhs)
     if rhs.ndim != 2:
         raise ValueError(f"block_trsv_panel: rhs must be (k,B), got {tuple(rhs.shape)}")

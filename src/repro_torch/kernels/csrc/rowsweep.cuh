@@ -1,8 +1,10 @@
-// Device functions of the row-sweep kernels (block_trsv.cu: TRSV, TRSM and
-// the panel TRSV), so each solves a diagonal tile with the same
-// instructions in the same order. The superstep megakernel (superstep.cu)
-// no longer uses them: it solves its diagonal tiles with a column sweep of
-// its own, in registers.
+// Device functions of the row-sweep kernels for blocks wider than a warp
+// (block_trsv.cu, B > 32: trsv_rowsweep_kernel, trsm_wide_kernel, and
+// warp_sum in trsv_panel_kernel), so each solves a diagonal tile with the
+// same instructions in the same order. At B <= 32 the TRSV, the TRSM and the
+// panel TRSV sweep in registers (block_trsv.cu) and use none of this; the
+// superstep megakernel (superstep.cu) solves its diagonal tiles with a
+// column sweep of its own.
 //
 // Arithmetic, kept op for op from the reference's row sweep
 // (src/repro/kernels/block_trsv.py::_trsv_rowsweep_kernel): row i takes the

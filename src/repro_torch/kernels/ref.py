@@ -96,6 +96,47 @@ def rowsweep_bits_ref(diag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return x if rhs.ndim == 3 else x[..., 0]
 
 
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` on float32 tensors: ``a * b + c`` rounded once.
+    The product of two float32 values is exact in float64; the sum is
+    rounded to odd there (TwoSum gives its error; an inexact sum whose last
+    bit is even moves one float64 step towards the exact value), and
+    rounding that to float32 rounds the exact sum once, since 53 >= 2 * 24
+    + 2. Finite values whose sum does not overflow."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+
+
+def panel_bits_ref(diag: torch.Tensor, rhs: torch.Tensor, panel: int = 8) -> torch.Tensor:
+    """:func:`block_trsv_panel_ref` with the bits of the panel kernels:
+    row i of the panel starting at ``base`` sums L[i, base:i] * x[base:i]
+    with the butterfly (column j on lane j - base), then x[i] = (r[i] - s)
+    / L[i, i]; after the panel each row i below it subtracts u, an FMA
+    chain from 0 over the panel's columns in order (:func:`fmaf`).
+    ``diag`` (k,B,B) with ``rhs`` (k,B), B <= 32, ``B % panel == 0``."""
+    _check_block(diag.shape[-1])
+    B = rhs.shape[1]
+    if panel < 1 or B % panel:
+        raise ValueError(f"block size {B} is not a multiple of panel {panel}")
+    r, x = rhs.clone(), torch.zeros_like(rhs)
+    for base in range(0, B, panel):
+        end = base + panel
+        for i in range(base, end):
+            s = _butterfly(diag[:, i, base:i] * x[:, base:i])
+            x[:, i] = (r[:, i] - s) / diag[:, i, i]
+        u = torch.zeros_like(r[:, end:])
+        for j in range(base, end):
+            u = fmaf(diag[:, end:, j], x[:, j, None].expand_as(u), u)
+        r[:, end:] = r[:, end:] - u
+    return x
+
+
 def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x, stp=None):
     """The resident superstep megakernel's function, level by level: for
     each superstep ``seg[0] <= s < seg[0] + seg[1]`` and each of its levels

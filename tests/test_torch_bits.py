@@ -1,9 +1,14 @@
 """The bit oracles of the port's kernels (``ref.gemv_bits_ref``,
-``ref.rowsweep_bits_ref``) against the JAX reference: within the
-reference's kernel tolerance on the tiles of ``tests/strategies.py`` draws,
-bit-equal on dyadic batches, and equal to a lane-by-lane emulation of the
-kernels' order. The card tests (``tests/test_torch_cuda.py``) and
-``chip_smoke.py`` hold the CUDA kernels to these oracles bit for bit."""
+``ref.rowsweep_bits_ref``, ``ref.panel_bits_ref``) against the JAX
+reference: within the reference's kernel tolerance on the tiles of
+``tests/strategies.py`` draws and on the Pallas kernels, bit-equal on
+dyadic batches, and equal to a lane-by-lane emulation of the kernels'
+order; the panel oracle's exact ``fmaf`` against rounding by brute force.
+The card tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py`` hold the
+CUDA kernels to these oracles bit for bit."""
+import math
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,3 +165,141 @@ def test_oracles_take_blocks_of_at_most_one_warp():
         ref.gemv_bits_ref(torch.ones(2, 33, 33), torch.ones(2, 33))
     with pytest.raises(ValueError, match="at most 32"):
         ref.rowsweep_bits_ref(torch.eye(33).expand(2, 33, 33), torch.ones(2, 33))
+
+
+# the panel oracle (ref.panel_bits_ref): (B, P) pairs, P = 3, 6 not powers of two
+PANEL_BP = [(8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32)]
+FMA_KINDS = ["random", "cancel", "gap", "tiny", "midpoint"]
+
+
+def _round_f32(q: Fraction, negative_zero: bool = False) -> np.float32:
+    """The float32 nearest the rational q, ties to even, by brute force:
+    q = n * 2^e with 2^23 <= |n| < 2^24 (e >= -149, the subnormal step)."""
+    if q == 0:
+        return np.float32(-0.0 if negative_zero else 0.0)
+    mag = abs(q)
+    top = mag.numerator.bit_length() - mag.denominator.bit_length()
+    if mag < Fraction(2) ** top:
+        top -= 1  # now 2^top <= |q| < 2^(top + 1)
+    e = max(top - 23, -149)
+    n = round(mag / Fraction(2) ** e)  # Fraction rounds ties to even
+    return np.float32(math.copysign(n * 2.0 ** e, q))
+
+
+def _fma_exact(a, b, c) -> np.float32:
+    """fmaf(a, b, c) of three float32 scalars, exactly: the exact a*b + c
+    rounded once (an exact zero is -0 only when a*b and c are both -0)."""
+    a, b, c = float(a), float(b), float(c)
+    prod = Fraction(a) * Fraction(b)
+    negative = [math.copysign(1.0, v) < 0 for v in (a, b, c)]
+    both_negative_zeros = prod == 0 and negative[0] != negative[1] and c == 0 and negative[2]
+    return _round_f32(prod + Fraction(c), negative_zero=both_negative_zeros)
+
+
+def _fma_draws(kind: str, n: int = 300):
+    """float32 triples (a, b, c) for fmaf: random magnitudes, sums that
+    cancel to a few bits, large exponent gaps between a*b and c, subnormal
+    or zero products, and sums 2^-70 from a midpoint between two float32
+    values (where rounding the float64 sum to float32 rounds twice)."""
+    rng = np.random.default_rng(FMA_KINDS.index(kind))
+
+    def f32(mant, exp):
+        return (mant * np.exp2(exp)).astype(np.float32)
+
+    a = f32(rng.uniform(-2, 2, n), rng.integers(-20, 20, n))
+    b = f32(rng.uniform(-2, 2, n), rng.integers(-20, 20, n))
+    if kind == "random":
+        c = f32(rng.uniform(-2, 2, n), rng.integers(-40, 40, n))
+    elif kind == "cancel":  # c = -(a*b) rounded, nudged by a few float32 steps
+        c = -(a * b)
+        c = np.nextafter(c, np.where(rng.random(n) < 0.5, np.inf, -np.inf).astype(np.float32))
+        c[::3] = -(a * b)[::3]
+    elif kind == "gap":  # c 2^30 to 2^60 times larger or smaller than a*b
+        gap = rng.integers(30, 60, n) * np.where(rng.random(n) < 0.5, 1, -1)
+        c = f32(rng.uniform(-2, 2, n), np.log2(np.abs(a * b).astype(np.float64) + 1e-30)
+                .astype(int) + gap)
+    elif kind == "midpoint":  # c odd; a*b = +-(half c's step)(1 - m^2 2^-46)
+        m = rng.integers(1, 1024, n)
+        e = rng.integers(-20, 20, n)
+        c = (np.where(rng.random(n) < 0.5, 1.0, -1.0) * np.exp2(e)
+             * (1 + (2 * rng.integers(0, 2 ** 21, n) + 1) * 2.0 ** -23)).astype(np.float32)
+        a = (np.where(rng.random(n) < 0.5, 1.0, -1.0) * np.exp2(e - 24)
+             * (1 + m * 2.0 ** -23)).astype(np.float32)
+        b = (1 - m * 2.0 ** -23).astype(np.float32)
+    else:  # products near or below the float32 subnormal range, signed zeros
+        a = f32(rng.uniform(-2, 2, n), rng.integers(-80, -60, n))
+        b = f32(rng.uniform(-2, 2, n), rng.integers(-80, -60, n))
+        c = f32(rng.uniform(-2, 2, n), rng.integers(-150, -125, n))
+        a[::5], c[1::5] = np.float32(-0.0), np.float32(-0.0)
+    return a, b, c
+
+
+@pytest.mark.parametrize("kind", FMA_KINDS)
+def test_fmaf_equals_rounding_by_brute_force(kind):
+    a, b, c = _fma_draws(kind)
+    got = ref.fmaf(_t(a), _t(b), _t(c)).numpy()
+    want = np.array([_fma_exact(*v) for v in zip(a, b, c)], np.float32)
+    assert got.tobytes() == want.tobytes()
+    if kind == "random":  # not the product rounded first, then the sum
+        assert got.tobytes() != ((a * b) + c).tobytes()
+    if kind == "midpoint":  # not the float64 sum rounded to float32 either
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert got.tobytes() != twice.tobytes()
+
+
+def _panel_by_lanes(L, r, P):
+    """The panel kernels' order written out one row and one lane at a time
+    in numpy float32 scalars: the in-panel products on lanes 0 .. i - base
+    - 1 summed by the butterfly (``_lanes_sum``), the division, then each
+    lower row's update chain with an exact fmaf (``_fma_exact``)."""
+    B = len(r)
+    r, x = r.copy(), np.zeros(B, np.float32)
+    for base in range(0, B, P):
+        for i in range(base, base + P):
+            s = _lanes_sum(L[i, base:i] * x[base:i])
+            x[i] = (r[i] - s) / L[i, i]
+        for i in range(base + P, B):
+            u = np.float32(0.0)
+            for j in range(base, base + P):
+                u = _fma_exact(L[i, j], x[j], u)
+            r[i] = r[i] - u
+    return x
+
+
+def _real_lower(rng, k, B):
+    return (np.tril(rng.uniform(-1, 1, (k, B, B)), -1) / B + 2 * np.eye(B)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,P", PANEL_BP)
+def test_panel_oracle_equals_lane_by_lane_emulation(B, P):
+    rng = np.random.default_rng(B * P)
+    L, r = _real_lower(rng, 2, B), rng.uniform(-1, 1, (2, B)).astype(np.float32)
+    want = np.array([_panel_by_lanes(L[t], r[t], P) for t in range(2)])
+    assert ref.panel_bits_ref(_t(L), _t(r), P).numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("B,P", PANEL_BP)
+def test_panel_oracle_within_reference_tolerance_on_pallas_kernel(B, P):
+    """Real values against the reference's panel kernel (interpret mode),
+    which sums in XLA's order: equal within the tolerance only."""
+    rng = np.random.default_rng(B + P)
+    L, r = _real_lower(rng, 3, B), rng.uniform(-1, 1, (3, B)).astype(np.float32)
+    want = jtrsv(jnp.asarray(L), jnp.asarray(r), algorithm="panel", panel=P, interpret=True)
+    np.testing.assert_allclose(ref.panel_bits_ref(_t(L), _t(r), P), want, **TOL)
+
+
+@pytest.mark.parametrize("B,P", PANEL_BP)
+def test_panel_oracle_bit_equal_to_reference_on_dyadic_batches(B, P):
+    L, r, _, X = _exact_batch(3, B, 1, seed=B + P)
+    got = ref.panel_bits_ref(_t(L), _t(r[..., 0]), P).numpy()
+    np.testing.assert_array_equal(got, X[..., 0])
+    want = jtrsv(jnp.asarray(L), jnp.asarray(r[..., 0]), algorithm="panel", panel=P,
+                 interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_panel_oracle_takes_blocks_of_at_most_one_warp_and_whole_panels():
+    with pytest.raises(ValueError, match="at most 32"):
+        ref.panel_bits_ref(torch.eye(64).expand(2, 64, 64), torch.ones(2, 64), 8)
+    with pytest.raises(ValueError, match="not a multiple of panel 5"):
+        ref.panel_bits_ref(torch.eye(8).expand(2, 8, 8), torch.ones(2, 8), 5)

@@ -157,6 +157,39 @@ def test_trsv_bit_equal_to_oracle(cuda_device, B):
                        ref.rowsweep_bits_ref(L.cpu(), r.cpu()))
 
 
+@pytest.mark.parametrize("B", [7, 32])
+@pytest.mark.parametrize("k", [1, 32, 4096])
+def test_trsv_bit_equal_to_oracle_at_every_batch_size(cuda_device, B, k):
+    """trsv_kernel one warp per tile: a batch of one tile, the main path's
+    widest level and a wide batch."""
+    rng = np.random.default_rng(B * k)
+    L, r = _lower(rng, k, B, cuda_device), _uniform(rng, (k, B), cuda_device)
+    assert torch.equal(ops.KERNELS["block_trsv"](L, r).cpu(),
+                       ref.rowsweep_bits_ref(L.cpu(), r.cpu()))
+
+
+# ref.panel_bits_ref: (B, P) pairs, P = 3, 6 not powers of two
+PANEL_BP = [(8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32)]
+
+
+@pytest.mark.parametrize("B,P", PANEL_BP)
+@pytest.mark.parametrize("k", [1, 17, 1003])
+def test_panel_trsv_bit_equal_to_oracle(cuda_device, B, P, k):
+    rng = np.random.default_rng(B * P + k)
+    L, r = _lower(rng, k, B, cuda_device), _uniform(rng, (k, B), cuda_device)
+    got = ops.KERNELS["block_trsv_panel"](L, r, P)
+    assert torch.equal(got.cpu(), ref.panel_bits_ref(L.cpu(), r.cpu(), P))
+
+
+@pytest.mark.parametrize("B,P", [(64, 8), (64, 16), (48, 3)])
+def test_wide_panel_trsv_within_tolerance_of_plain_version(cuda_device, B, P):
+    """B > 32 takes trsv_panel_kernel, held to the plain version only."""
+    rng = np.random.default_rng(B + P)
+    L, r = _lower(rng, 61, B, cuda_device), _uniform(rng, (61, B), cuda_device)
+    torch.testing.assert_close(ops.KERNELS["block_trsv_panel"](L, r, P),
+                               ref.block_trsv_panel_ref(L, r, P), **TOL)
+
+
 @pytest.mark.parametrize("B", ORACLE_B)
 @pytest.mark.parametrize("R", ORACLE_R)
 def test_trsm_columns_bit_equal_to_oracle(cuda_device, B, R):
