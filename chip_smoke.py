@@ -44,7 +44,27 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    (bit-identical on the dyadic problem at B = 16 and B = 7, within 2e-4 at
    side 256 and full size); a refresh solving with the new values;
    streamed IC(0)-PCG; its times, and the streamed-vs-resident time per
-   solve at sides 256, 512 and 1024.
+   solve at sides 256, 512 and 1024;
+7. the syncfree executor (``PlanOptions(sched="syncfree")``) on the same
+   factor, its dense scan (``kernel="cuda"``) and its frontier-bucketed form
+   (``kernel="fused"``): forward, transpose and (n, 8) panel solves each
+   within 2e-4 of scipy, each launching the block TRSV (TRSM) once per
+   level and the GEMV (GEMM) once per level (dense) or once per level that
+   sources tiles (frontier), no plain version run; a refresh to dyadic
+   values with ``b = L x`` for an integer ``x`` (every partial sum exact,
+   so any correct order gives ``x``): forward and transpose bit-equal to
+   the megakernel's and to ``x``; the block kernels at the largest batches
+   each form hands them (dense: every local row and every tile;
+   frontier: the top ladder rungs), R = 1 and 8, on the solve's data,
+   against their plain versions and (TRSV, GEMV) their bit oracles, each
+   panel column bit-equal to the vector kernel; syncfree IC(0)-PCG
+   (frontier form) with its exact launch counts;
+8. ILU(0)-BiCGStab (``solve_ilu0_bicgstab``) on phase 4's system under
+   ``kernel="cuda"``, ``"fused"`` and ``"fused_streamed"``: converged, the
+   true residual within 10 * tol, two L and two U solves per iteration, and
+   exactly the backend's launches (one megakernel launch per triangular
+   solve for the fused forms, one TRSV and GEMV per level with work for
+   ``cuda``; three GEMV launches per matvec).
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -53,7 +73,8 @@ and FMA, measured by ``perf/chain_latency.py``'s microbenchmark); times
 each block kernel's device work alone (``torch.profiler``'s
 ``key_averages()``, without the host's launch gaps), also at k = 4096
 tiles; times the GEMV family
-and ``torch.bmm`` at the tile count of phase 4's SpMV; prints them as one
+and ``torch.bmm`` at the tile count of phase 4's SpMV, and the four per-op
+kernels at the syncfree dense scan's batches (``at_dense_scan``); prints them as one
 ``{"kernels": [...]}`` line, and ends with the line
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/`` next to
 it and a CUDA device; without either it exits non-zero.
@@ -70,7 +91,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SIDE = 1024  # main-path factor: grid2d_factor(SIDE), n = SIDE^2, delaunay_n20 size
-PCG_SIDE = 512  # IC(0)-PCG system, sized by the host-side ic0 factorisation's time
+# IC(0)-PCG and ILU(0)-BiCGStab system, cut from SIDE: the host-side ic0 and
+# ilu0 factorizations are Python loops
+PCG_SIDE = 512
 SEED = 0  # right-hand sides and kernel-check inputs
 TOL_KERNEL = 2e-5
 TOL_SOLVE = 2e-4
@@ -104,6 +127,7 @@ DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(<EI ]|$)"
 ROW_SWEEPS = ("block_trsv", "block_trsm", "block_trsv_panel")  # rows with a chain_bound_ms
 PANEL_BP = ((8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32))  # panel oracle
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
+ORACLE_CHUNK = 4096  # tiles per host oracle call at the syncfree shapes
 
 
 def fail(msg: str) -> None:
@@ -311,15 +335,44 @@ def phase_kernels(ops, ref, torch, seed: int) -> dict:
     return err
 
 
-def solve_times(ctx, h, b, panel) -> dict:
+def hold_at_path_shape(kops, ref, torch, pair, mat, vec, panel, err: dict,
+                       where: str) -> None:
+    """The block kernels ``pair`` (TRSV and TRSM, or GEMV and GEMM) on the
+    batches a path hands them, ``mat`` with ``vec`` (k, B) and ``panel``
+    (k, B, R): each against its plain version (``TOL_KERNEL``), the vector
+    form bit for bit against its oracle on the host (B <= 32, in chunks of
+    tiles), each panel column against the vector form of that column alone."""
+    vec_k, panel_k = pair
+    plain = ref.block_trsv_ref if vec_k == "block_trsv" else ref.block_gemv_ref
+    oracle = ref.rowsweep_bits_ref if vec_k == "block_trsv" else ref.gemv_bits_ref
+    got = {}
+    for name, v in ((vec_k, vec), (panel_k, panel)):
+        got[name], want = kops.KERNELS[name](mat, v), plain(mat, v)
+        torch.cuda.synchronize()
+        e = float((got[name] - want).abs().max())
+        check(bool(torch.allclose(got[name], want, rtol=TOL_KERNEL, atol=TOL_KERNEL)),
+              f"{name} disagrees with its plain version at {where} {tuple(v.shape)}: {e:.3e}")
+        err[name] = max(err[name], e)
+    if mat.shape[-1] <= 32:
+        for s0 in range(0, mat.shape[0], ORACLE_CHUNK):
+            m, v, g = (t[s0:s0 + ORACLE_CHUNK].cpu() for t in (mat, vec, got[vec_k]))
+            check(torch.equal(g, oracle(m, v)),
+                  f"{vec_k} != its bit oracle at {where} {tuple(vec.shape)}, tiles {s0}..")
+    for c in range(panel.shape[-1]):
+        check(torch.equal(got[panel_k][..., c],
+                          kops.KERNELS[vec_k](mat, panel[..., c].contiguous())),
+              f"{panel_k} column {c} != {vec_k} bit for bit at {where} {tuple(panel.shape)}")
+
+
+def solve_times(ctx, h, b, panel, runs: int = 5) -> dict:
     """ms per ``ctx.solve`` (numpy in and out, so the device is synchronised
-    at the end) for the three forms, 5 runs each, sorted."""
+    at the end) for the three forms, ``runs`` runs each, sorted."""
     timing = {}
     for form, fn in (("forward", lambda: ctx.solve(h, b)),
                      ("transpose", lambda: ctx.solve(h, b, transpose=True)),
                      ("panel_r8", lambda: ctx.solve(h, panel))):
         reps = []
-        for _ in range(5):
+        for _ in range(runs):
             t0 = time.perf_counter()
             fn()
             reps.append(1e3 * (time.perf_counter() - t0))
@@ -373,6 +426,32 @@ def superstep_bound(plan, table, R: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+class PlainCalls:
+    """Counts the calls of every plain version in ``ref`` (its ``*_ref``
+    functions) while the block is open, through the module attributes the
+    wrappers and ``ops`` call."""
+
+    def __init__(self, ref):
+        self.ref, self.calls, self.saved = ref, 0, {}
+
+    def __enter__(self):
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for name in dir(self.ref):
+            if name.endswith("_ref") and callable(getattr(self.ref, name)):
+                self.saved[name] = getattr(self.ref, name)
+                setattr(self.ref, name, counted(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ref, name, fn)
+
+
 def dyadic(a, seed: int = 0):
     """Same sparsity, unit diagonal, +-2^-k off-diagonals: every intermediate
     of a shallow forward substitution is exact in float32."""
@@ -420,7 +499,9 @@ def main() -> None:
         )
         from repro_torch.kernels import extension, ref, superstep
         from repro_torch.kernels import ops as kops
-        from repro_torch.krylov import matvec_lower, solve_ic0_pcg, spd_lower_from_triangular
+        from repro_torch.krylov import (
+            matvec_lower, solve_ic0_pcg, solve_ilu0_bicgstab, spd_lower_from_triangular,
+        )
         from repro_torch.sparse import suite
         from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
         sys.path.insert(0, str(ROOT / "perf"))
@@ -435,7 +516,10 @@ def main() -> None:
     log(f"device {kind}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    phase_start = {}  # each phase's start on the host clock, for its seconds
+
     # 1. build (the chain-latency microbenchmark alongside the kernels)
+    phase_start["1 build"] = time.perf_counter()
     t0 = time.perf_counter()
     chain_build = chain_latency.start_build()
     libs = extension.build()
@@ -444,12 +528,14 @@ def main() -> None:
         f"({', '.join(p.name for p in libs.values())}, {chain_latency.LIBRARY.name})")
 
     # 2. kernels against their plain versions
+    phase_start["2 kernels"] = time.perf_counter()
     t0 = time.perf_counter()
     err = phase_kernels(kops, ref, torch, SEED)
     log(f"phase 2 kernels vs plain: ok in {time.perf_counter() - t0:.1f} s, max abs err "
         + ", ".join(f"{k}={v:.2e}" for k, v in err.items()))
 
     # 3. main path at full size
+    phase_start["3 switch"] = time.perf_counter()
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     a = suite.grid2d_factor(SIDE, seed=6)
@@ -533,6 +619,7 @@ def main() -> None:
         f"{json.dumps(panel_launches)}, max abs err vs plain {e_panel:.2e}")
 
     # 4. IC(0)-PCG
+    phase_start["4 pcg"] = time.perf_counter()
     a_spd = spd_lower_from_triangular(suite.grid2d_factor(PCG_SIDE, seed=6))
     b_spd = rng.uniform(-1, 1, a_spd.n)
     tol = 1e-6
@@ -553,6 +640,7 @@ def main() -> None:
         f"launches {json.dumps(pcg_launches)}")
 
     # 5. the superstep megakernel: each solve is one launch
+    phase_start["5 megakernel"] = time.perf_counter()
     t0 = time.perf_counter()
     fctx = SpTRSVContext(options=PlanOptions(kernel="fused"))
     fh = fctx.analyse(a)
@@ -679,6 +767,7 @@ def main() -> None:
     }
 
     # 6. the streamed megakernel (kernel="fused_streamed") on the same factor
+    phase_start["6 streamed"] = time.perf_counter()
     t0 = time.perf_counter()
     sctx = SpTRSVContext(options=PlanOptions(kernel="fused_streamed"))
     sh = sctx.analyse(a)
@@ -845,7 +934,162 @@ def main() -> None:
         "library_ms": library_ms, "shape": [a.n, splan.bs.B, 1],
     }
 
+    # 7. the syncfree executor at full size: its dense scan (kernel="cuda")
+    # and its frontier-bucketed form (kernel="fused"), on the card's block kernels
+    phase_start["7 syncfree"] = time.perf_counter()
+    x_int = rng.integers(-4, 5, a.n).astype(np.float64)
+    a_dy = dyadic(a, seed=SEED)  # b = L x_int: every partial sum exact, x_int the answer
+    b_dy = (to_scipy(a_dy) @ x_int).astype(np.float32)
+    bt_dy = (to_scipy(a_dy).T @ x_int).astype(np.float32)
+    fctx.factorize(a_dy, fh)  # phase 5's megakernel, now on the dyadic values
+    x_mega, xt_mega = fctx.solve(fh, b_dy), fctx.solve(fh, bt_dy, transpose=True)
+    check(np.array_equal(x_mega, x_int) and np.array_equal(xt_mega, x_int),
+          "the megakernel's solve of the dyadic problem is not exact")
+    path_launches7, sf_ms, dense_in = {}, {}, {}
+    for kernel, name in (("cuda", "dense"), ("fused", "frontier")):
+        t0 = time.perf_counter()
+        yctx = SpTRSVContext(options=PlanOptions(sched="syncfree", kernel=kernel))
+        yh = yctx.analyse(a)
+        ysolver, _ = yctx.executor(yh), yctx.executor(yh, transpose=True)
+        torch.cuda.synchronize()
+        y_an_s = time.perf_counter() - t0
+        yplan, ytplan = yctx.plan(yh), yctx.plan(yh, transpose=True)
+        check(ysolver._syncfree.frontier == (kernel == "fused"),
+              f"syncfree kernel={kernel} did not select the {name} form")
+
+        def expect(p, solve_k, upd_k):
+            upd = with_work(p, 1) if kernel == "fused" else p.n_levels
+            return {**dict.fromkeys(kops.KERNELS, 0), solve_k: p.n_levels, upd_k: upd}
+
+        yx, made = {}, {}
+        with PlainCalls(ref) as plain:
+            for form, fn, want_l in (
+                    ("forward", lambda: yctx.solve(yh, b),
+                     expect(yplan, "block_trsv", "block_gemv")),
+                    ("transpose", lambda: yctx.solve(yh, b, transpose=True),
+                     expect(ytplan, "block_trsv", "block_gemv")),
+                    ("panel_r8", lambda: yctx.solve(yh, panel),
+                     expect(yplan, "block_trsm", "block_gemm"))):
+                kops.reset_launch_counts()
+                yx[form] = fn()
+                made[form] = kops.launch_counts()
+                check(made[form] == want_l,
+                      f"syncfree {name} {form} solve launched {made[form]}, not {want_l}")
+        check(plain.calls == 0, f"syncfree {name}: {plain.calls} plain-version calls on the card")
+        path_launches7[name] = {k: sum(m[k] for m in made.values()) for k in kops.KERNELS}
+        yerrs = {form: rel_err(yx[form], want[form]) for form in yx}
+        for form, e in yerrs.items():
+            check(np.isfinite(e) and e <= TOL_SOLVE,
+                  f"syncfree {name} {form} rel err {e:.3e} > {TOL_SOLVE}")
+        sweeps, reads = ysolver._syncfree.sweeps, ysolver._syncfree.host_reads
+        check(sweeps == yplan.n_levels, f"syncfree {name}: {sweeps} sweeps for "
+                                        f"{yplan.n_levels} levels")
+        # the block kernels at the largest batches this form hands them
+        # (dense: every local row and every tile; frontier: the top ladder
+        # rungs), on this solve's data: the first sweep's right-hand sides
+        # and the last sweep's sources; outside the counted run
+        sch = ysolver._syncfree
+        rows = sch.lr[:sch.lad_s[-1]] if sch.frontier else sch.lr
+        srcs = sch.tcol[:sch.lad_u[-1]] if sch.frontier else sch.tcol
+        b1, b8 = (torch.from_numpy(pad_b(yplan, r)).cuda()[rows] for r in (b, panel))
+        x1, x8 = (torch.from_numpy(pad_b(yplan, r)).cuda()[srcs]
+                  for r in (yx["forward"], yx["panel_r8"]))
+        ldiag, ltiles = ysolver._diag[rows], ysolver._tiles[:srcs.shape[0]]
+        hold_at_path_shape(kops, ref, torch, ("block_trsv", "block_trsm"), ldiag, b1, b8, err,
+                           f"syncfree {name}")
+        hold_at_path_shape(kops, ref, torch, ("block_gemv", "block_gemm"), ltiles, x1, x8, err,
+                           f"syncfree {name}")
+        if not sch.frontier:
+            dense_in = {"block_trsv": (ldiag, b1), "block_trsm": (ldiag, b8),
+                        "block_gemv": (ltiles, x1), "block_gemm": (ltiles, x8)}
+        log(f"phase 7 syncfree {name}: TRSV/TRSM at k={rows.shape[0]} and GEMV/GEMM at "
+            f"m={srcs.shape[0]} tiles (R = 1, 8; this solve's data) within {TOL_KERNEL} of "
+            f"their plain versions, TRSV and GEMV bit-equal to their oracles, every panel "
+            f"column bit-equal to the vector kernel")
+        sf_ms[name] = solve_times(yctx, yh, b, panel, runs=3)
+        log(f"phase 7 syncfree {name} (kernel={kernel}): analyse+plan+upload (forward and "
+            f"transpose) {y_an_s:.1f} s; rel err vs scipy "
+            + ", ".join(f"{k}={v:.2e}" for k, v in yerrs.items())
+            + f"; per forward solve {sweeps} sweeps, {reads} host reads, launches "
+            f"{json.dumps({k: v for k, v in made['forward'].items() if v})}; no plain version")
+        log(f"phase 7 syncfree {name} ms/solve (median of 3; min, max), beside phase 3's "
+            f"(switch) and phase 5's (megakernel) medians: " + ", ".join(
+                f"{k}={v[1]:.2f} ({v[0]:.2f}, {v[-1]:.2f}) vs {timing[k][2]:.2f} / "
+                f"{ftiming[k][2]:.2f}" for k, v in sf_ms[name].items()))
+        # a refresh to the dyadic values: any correct order gives x_int exactly
+        yctx.factorize(a_dy, yh)
+        yd, ydt = yctx.solve(yh, b_dy), yctx.solve(yh, bt_dy, transpose=True)
+        check(np.array_equal(yd, x_mega) and np.array_equal(ydt, xt_mega),
+              f"syncfree {name} after a refresh to dyadic values != the megakernel's bits")
+        log(f"phase 7 syncfree {name} refresh to dyadic values: forward and transpose "
+            f"bit-equal to the megakernel's solve and to the integer solution")
+        del yctx, yh, ysolver
+    fctx.factorize(a, fh)
+
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    yres = solve_ic0_pcg(a_spd, b_spd, tol=tol, maxiter=400,
+                         config=PlanOptions(sched="syncfree", kernel="fused"))
+    ypcg_s = time.perf_counter() - t0
+    ypcg_launches = kops.launch_counts()
+    ytrue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, yres.x)) / np.linalg.norm(b_spd))
+    check(yres.converged and ytrue <= 10 * tol,
+          f"syncfree IC(0)-PCG: converged={yres.converged} in {yres.n_iters} iterations, "
+          f"true residual {ytrue:.3e}")
+    yfw, ybw = yres.info["forward"], yres.info["backward"]
+    ypcg_want = {**dict.fromkeys(kops.KERNELS, 0),
+                 "block_trsv": yfw.plan.n_levels * yfw.n_solves
+                 + ybw.plan.n_levels * ybw.n_solves,
+                 "block_gemv": with_work(yfw.plan, 1) * yfw.n_solves
+                 + with_work(ybw.plan, 1) * ybw.n_solves + 3 * yres.info["spmv"].n_matvecs}
+    check(ypcg_launches == ypcg_want,
+          f"syncfree PCG launches {ypcg_launches}, not {ypcg_want} (one TRSV a level, one "
+          f"GEMV a level with tiles, three a matvec)")
+    log(f"phase 7 syncfree (frontier) IC(0)-PCG: {yres.n_iters} iterations (phase 4: "
+        f"{res.n_iters}), {ypcg_s:.1f} s, true rel residual {ytrue:.2e}, launches "
+        f"{json.dumps(ypcg_launches)}")
+
+    # 8. ILU(0)-BiCGStab: two L and two U solves per iteration, U as the
+    # transpose solve of the reversed U^T
+    phase_start["8 bicgstab"] = time.perf_counter()
+    path_launches8 = {}
+    for kernel in ("cuda", "fused", "fused_streamed"):
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        bres = solve_ilu0_bicgstab(a_spd, b_spd, tol=tol, maxiter=400,
+                                   config=PlanOptions(kernel=kernel))
+        bsecs = time.perf_counter() - t0
+        blaunch = kops.launch_counts()
+        path_launches8[kernel] = blaunch
+        btrue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, bres.x))
+                      / np.linalg.norm(b_spd))
+        check(bres.converged and btrue <= 10 * tol,
+              f"ILU(0)-BiCGStab ({kernel}): converged={bres.converged} in {bres.n_iters} "
+              f"iterations, true residual {btrue:.3e}")
+        nfw, nbw = bres.info["forward"].n_solves, bres.info["backward"].n_solves
+        check(nfw == nbw == 2 * bres.n_iters,
+              f"ILU(0)-BiCGStab ({kernel}): {nfw}/{nbw} sweeps for {bres.n_iters} iterations")
+        # the SpMV: three GEMV launches a matvec; a fused form one megakernel
+        # launch a triangular solve, the switch executor one TRSV a level
+        # with rows and one GEMV a level with tiles
+        fwp, bwp = bres.info["forward"].plan, bres.info["backward"].plan
+        bwant = {**dict.fromkeys(kops.KERNELS, 0), "block_gemv": 3 * bres.info["spmv"].n_matvecs}
+        mega = {"fused": "superstep", "fused_streamed": "superstep_streamed"}.get(kernel)
+        if mega:
+            bwant[mega] = nfw + nbw
+        else:
+            bwant["block_trsv"] = with_work(fwp, 0) * nfw + with_work(bwp, 0) * nbw
+            bwant["block_gemv"] += with_work(fwp, 1) * nfw + with_work(bwp, 1) * nbw
+        check(blaunch == bwant,
+              f"ILU(0)-BiCGStab ({kernel}) launches {blaunch}, not {bwant}, for "
+              f"{bres.n_iters} iterations")
+        log(f"phase 8 ILU(0)-BiCGStab ({kernel}) n={a_spd.n}: {bres.n_iters} iterations, "
+            f"{bsecs:.1f} s (analysis + ilu0 + iterations), true rel residual {btrue:.2e}, "
+            f"{nfw} L + {nbw} U solves, launches "
+            f"{json.dumps({k: v for k, v in blaunch.items() if v})}")
+
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
+    phase_start["kernel timings"] = time.perf_counter()
     s0, ws = widest(plan, 0)
     u0, wu = widest(plan, 1)
     sr = plan.solve_rows[0][s0:s0 + ws]
@@ -947,11 +1191,42 @@ def main() -> None:
             f"{k}={v}" for k, v in row["at_spmv"].items() if k != "shape"))
     log("GEMV family at the SpMV's tile count (ms; device_ms from torch.profiler): "
         + "; ".join(at_spmv))
+    # the per-op kernels at the dense scan's batches (phase 7: every local
+    # row, every tile, on the solve's data), where its device time goes
+    at_dense = []
+    for row in rows_out:
+        name = row["name"]
+        if name not in dense_in:
+            continue
+        mat, vec = dense_in[name]
+        fn = kops.KERNELS[name]
+        kd, R = mat.shape[0], vec.shape[2] if vec.ndim == 3 else 1
+        row["at_dense_scan"] = {
+            "shape": [kd, Bsz, R], "ms": time_ms(lambda: fn(mat, vec), 50),
+            "plain_ms": time_ms(lambda: plain[name](mat, vec), 20),
+            "library_ms": time_ms(lambda: library[name](mat, vec), 50),
+            "device_ms": device_ms(lambda: fn(mat, vec), DEVICE_KERNEL[name]),
+            "library_device_ms": device_ms(lambda: library[name](mat, vec), LIBRARY_KERNEL),
+            "bound_ms": bound(name, kd, Bsz, R)[0]}
+        at_dense.append(f"{name}[{kd}x{Bsz}x{R}] " + " ".join(
+            f"{k}={v}" for k, v in row["at_dense_scan"].items() if k != "shape"))
+    log("per-op kernels at the syncfree dense scan's batches (ms; device_ms from "
+        "torch.profiler): " + "; ".join(at_dense))
     log("block kernels' device-only ms at the widest level (kernel / torch library call): "
         + ", ".join(f"{r['name']}={r['device_ms']} / {r['library_device_ms']}"
                     for r in rows_out))
     rows_out += [superstep_row, streamed_row]
+    # each later path's launches, counted from 0 around that path alone
+    paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
+             "syncfree_pcg": ypcg_launches,
+             **{f"bicgstab_{k}": v for k, v in path_launches8.items()}}
+    for row in rows_out:
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     torch.cuda.synchronize()
+    phase_start["end"] = time.perf_counter()
+    names = list(phase_start)
+    log("seconds per phase: " + ", ".join(
+        f"{n}={phase_start[m] - phase_start[n]:.1f}" for n, m in zip(names, names[1:])))
 
     print(card)
     print(json.dumps({"kernels": rows_out}))

@@ -2,21 +2,26 @@
 """Where one triangular solve's time goes on the card.
 
     python3 perf/profile_solve.py [--side 1024] [--rhs 1] [--backend cuda|fused|fused_streamed]
+                                  [--sched levelset|syncfree]
 
 Builds the ``chip_smoke.py`` main-path problem (``grid2d_factor(side,
-seed=6)``, B = 32, levelset) for the switch executor (``cuda``, the
-default) or the superstep megakernel (``fused``, or its streamed form
-``fused_streamed``), warms the executor, then
+seed=6)``, B = 32) for the switch executor (``cuda``, the default) or the
+superstep megakernel (``fused``, or its streamed form ``fused_streamed``);
+with ``--sched syncfree``, for the syncfree executor's dense scan
+(``cuda``) or its frontier-bucketed form (``fused``, ``fused_streamed``),
+and prints its sweeps and host reads per solve. It warms the executor, then
 traces one forward solve with ``torch.profiler`` and prints: the solve's
-wall time, the summed device time of its kernels, the device's idle share
-of the wall time, and the operations ranked by host and by device time.
+wall time (untraced, the median of 5 solves; and traced), the summed
+device time of its kernels, the device's idle share of the traced wall
+time, and the operations ranked by host and by device time.
 For the megakernel it then splits its time with CUDA events, per launch
 and per level: the whole launch; one without tile products (every update
 width 0: no row pulls, so no row waits for another, and the streamed form
 copies only the diagonal tiles); and one without solves either (every solve
 slot a pad as well: the launch and the walk over the levels alone, which
 copies every row's carry through and sets no flag, and no pull waits for
-one). Needs a CUDA device.
+one). The syncfree executor has no megakernel, so no split. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ def main() -> None:
     parser.add_argument("--rhs", type=int, default=1, help="RHS panel width (1 = vector)")
     parser.add_argument("--backend", choices=("cuda", "fused", "fused_streamed"),
                         default="cuda")
+    parser.add_argument("--sched", choices=("levelset", "syncfree"), default="levelset")
     args = parser.parse_args()
 
     import numpy as np
@@ -47,7 +53,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_solve.py needs a CUDA device")
     a = suite.grid2d_factor(args.side, seed=6)
-    ctx = SpTRSVContext(options=PlanOptions(kernel=args.backend))
+    ctx = SpTRSVContext(options=PlanOptions(kernel=args.backend, sched=args.sched))
     solver = ctx.executor(ctx.analyse(a))
     shape = (a.n,) if args.rhs == 1 else (a.n, args.rhs)
     b = np.random.default_rng(0).uniform(-1, 1, shape)
@@ -56,10 +62,13 @@ def main() -> None:
         solver.solve_blocks(b_blocks)
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    solver.solve_blocks(b_blocks)
-    torch.cuda.synchronize()
-    untraced_ms = 1e3 * (time.perf_counter() - t0)
+    untraced = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        solver.solve_blocks(b_blocks)
+        torch.cuda.synchronize()
+        untraced.append(1e3 * (time.perf_counter() - t0))
+    untraced_ms = sorted(untraced)[2]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -72,15 +81,20 @@ def main() -> None:
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"[profile] {torch.cuda.get_device_name(0)} ({card_line()}); n={a.n} "
           f"levels={solver.plan.n_levels} "
-          f"R={args.rhs} backend={args.backend}")
-    print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms, traced {traced_ms:.2f} ms; "
+          f"R={args.rhs} backend={args.backend} sched={args.sched}")
+    print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms (median of 5; "
+          f"{', '.join(f'{t:.2f}' for t in untraced)}), traced {traced_ms:.2f} ms; "
           f"device kernel time {device_us / 1e3:.3f} ms; device idle share "
           f"{1 - device_us / 1e3 / traced_ms:.4f} of the traced wall")
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=14,
                                     max_name_column_width=48))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=48))
-    if args.backend != "cuda":
+    if args.sched == "syncfree":
+        print(f"[profile] syncfree {'frontier' if solver._syncfree.frontier else 'dense'} "
+              f"form: {solver._syncfree.sweeps} sweeps, {solver._syncfree.host_reads} "
+              f"host reads per solve")
+    elif args.backend != "cuda":
         megakernel_split(solver, b_blocks)
 
 

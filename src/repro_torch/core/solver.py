@@ -1,4 +1,4 @@
-"""SpTRSV plans and the single-device switch executor.
+"""SpTRSV plans and the single-device executors.
 
 Plan construction is host numpy and byte-identical to the reference
 package's: block rows are owned by a :class:`~repro_torch.core.partition.Partition`,
@@ -7,23 +7,31 @@ tiles live on the owner of their *column*, and every schedule is stored
 ``ex_rows``) plus per-level offsets (``lvl_off``), each level's slice padded
 only up to a *bucket width* from a small ladder (``Plan.buckets``).
 
-Execution (:class:`Solver`) runs on one device, by one of two executors:
+Execution (:class:`Solver`) runs on one device. ``sched="levelset"`` and
+``"dagpart"`` plans run on one of two executors:
 
-* the per-level switch executor: for each block level, gather the level's
-  rows, solve their diagonal tiles (block TRSV/TRSM), then apply the tile
-  updates they source (block GEMV/GEMM) with an ``index_add_`` into the
-  accumulator. Level offsets and widths are host Python ints, so the loop
-  never waits on the device;
+* the per-level switch executor (backends ``reference`` and ``cuda``): for
+  each block level, gather the level's rows, solve their diagonal tiles
+  (block TRSV/TRSM), then apply the tile updates they source (block
+  GEMV/GEMM) with an ``index_add_`` into the accumulator. Level offsets and
+  widths are host Python ints, so the loop never waits on the device;
 * ``kernel_backend="fused"``: the whole solve is one launch of the resident
   superstep megakernel (:mod:`repro_torch.kernels.superstep`);
   ``"fused_streamed"``: one launch of its streamed form.
 
+``sched="syncfree"`` plans run the synchronization-free executor: runtime
+in-degree counters, no level tables. Backends ``reference`` and ``cuda``
+run its dense scan (every sweep a masked TRSV over all rows and a masked
+GEMV over all tiles); ``fused`` and ``fused_streamed`` run its
+frontier-bucketed form (the ready rows and the tiles they source compacted
+each sweep, solved and applied at a width from :func:`_frontier_ladder`).
+
 Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
-exchange) and ``sched="syncfree"``. Plans for both build; executing one
-raises ``NotImplementedError``.
+exchange). Their plans build; executing one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 
 import numpy as np
@@ -677,13 +685,133 @@ class _FusedSchedule:
         return x
 
 
+# ---------------------------------------------------------------------------
+# single-device syncfree executor
+# ---------------------------------------------------------------------------
+
+
+def _frontier_ladder(cap: int) -> tuple:
+    """Geometric width ladder ``1, b, b², ..., cap`` for the runtime frontier;
+    the base coarsens (2 -> 4 -> 16) until the ladder fits MAX_BUCKETS."""
+    cap = max(1, int(cap))
+    for base in (2, 4, 16):
+        lad = sorted({cap} | {base ** k for k in range(64) if base ** k < cap})
+        if len(lad) <= MAX_BUCKETS:
+            return tuple(int(w) for w in lad)
+    return (cap,)
+
+
+class _SyncfreeSchedule:
+    """A syncfree plan's device-0 tables as device tensors, built once per
+    executor (the reference's ``_syncfree_device_fn`` at one device).
+
+    ``lr`` are the local rows (pad ``nb``), ``lown`` marks the owned ones and
+    ``indeg`` holds their tile in-degrees; ``trow``/``tcol`` are every local
+    tile's destination and source block row, the zero tile at the pad slot
+    ``MLT - 1`` (both ``nb``). ``frontier`` selects the frontier-bucketed
+    form, whose solve and update widths round up the ladders ``lad_s`` /
+    ``lad_u``. ``sweeps`` and ``host_reads`` count the last solve's sweeps
+    and device-to-host reads.
+    """
+
+    def __init__(self, plan: Plan, device: torch.device, frontier: bool):
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+        lr = plan.local_rows[0].astype(np.int64)
+        owned = plan.owner[lr] == 0
+        self.nb, self.frontier = plan.bs.nb, frontier
+        self.n_owned = int(owned.sum())
+        self.lr, self.lown, self.indeg = dev(lr), dev(owned), dev(plan.indeg[lr])
+        self.trow = dev(plan.tile_row[0].astype(np.int64))
+        self.tcol = dev(plan.tile_col[0].astype(np.int64))
+        mlr, mlt = lr.shape[0], plan.tiles.shape[1]
+        self.iota_l = torch.arange(mlr, device=device)
+        self.iota_t = torch.arange(mlt, device=device)
+        self.lad_s = _frontier_ladder(min(plan.frontier_caps[0], mlr))
+        self.lad_u = _frontier_ladder(min(plan.frontier_caps[1], mlt))
+        self.name = (f"syncfree plan (nb={self.nb}, B={plan.bs.B}, levels={plan.n_levels}, "
+                     f"transpose={plan.transpose})")
+        self.sweeps = self.host_reads = 0
+
+    def width(self, ladder: tuple, count: int) -> int:
+        """The smallest ladder width that holds ``count`` (the reference's
+        ``lax.switch`` branch)."""
+        k = bisect.bisect_left(ladder, count)
+        if k == len(ladder):
+            raise RuntimeError(f"{self.name}: a frontier of {count} exceeds its ladder "
+                               f"{ladder}")
+        return ladder[k]
+
+
+def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
+                  b_pad: torch.Tensor, backend: str, group: int) -> torch.Tensor:
+    """The syncfree sweep loop on padded blocks ``b_pad`` (nb+1, B[, R]);
+    returns ``x``. Each sweep solves the ready rows (owned, unsolved, every
+    incoming tile counted), then applies the tiles whose source row it
+    solved and counts them at their destination. A sweep solves exactly one
+    block level, so a solve takes ``n_levels`` sweeps; the host reads the
+    sweep's counts once (the frontier's widths, and whether rows remain)."""
+    nb = s.nb
+    acc, x = torch.zeros_like(b_pad), torch.zeros_like(b_pad)
+    cnt = torch.zeros(nb + 1, dtype=torch.int32, device=b_pad.device)
+    solved = torch.zeros(nb + 1, dtype=torch.bool, device=b_pad.device)
+    if not s.frontier:
+        ldiag, lb = diag[s.lr], b_pad[s.lr]
+    remaining, s.sweeps, s.host_reads = s.n_owned, 0, 0
+    while remaining:
+        if s.sweeps > nb:
+            raise RuntimeError(f"{s.name}: {remaining} rows unsolved after {s.sweeps} sweeps")
+        s.sweeps += 1
+        ready = s.lown & ~solved[s.lr] & (cnt[s.lr] == s.indeg)
+        just = torch.zeros_like(solved)
+        just[s.lr] = ready
+        tmask = just[s.tcol]
+        if s.frontier:
+            n_ready, n_tiles = torch.stack([ready.sum(), tmask.sum()]).tolist()
+            # compact the ready rows in ascending local index, pad MLR -> row nb
+            mlr = s.iota_l.shape[0]
+            order = torch.sort(torch.where(ready, s.iota_l, mlr)).values[
+                :s.width(s.lad_s, n_ready)]
+            valid = order < mlr
+            rows = torch.where(valid, s.lr[torch.where(valid, order, 0)], nb)
+            xs = ops.batched_block_trsv(diag[rows], b_pad[rows] - acc[rows], backend=backend)
+            x[rows] = torch.where(ops.bcast_trailing(valid, xs), xs, x[rows])
+            solved |= just
+            if n_tiles:
+                # compact the tiles sourced at this frontier, pad -> the zero tile
+                mlt = s.iota_t.shape[0]
+                tid = torch.sort(torch.where(tmask, s.iota_t, mlt)).values[
+                    :s.width(s.lad_u, n_tiles)]
+                tvalid = tid < mlt
+                tid = torch.where(tvalid, tid, mlt - 1)
+                prods = ops.batched_block_gemv(tiles[tid], x[s.tcol[tid]], backend=backend,
+                                               group=group)
+                rd = s.trow[tid]
+                acc.index_add_(0, rd, torch.where(ops.bcast_trailing(tvalid, prods), prods, 0.0))
+                cnt.index_add_(0, rd, tvalid.to(torch.int32))
+        else:
+            n_ready = ready.sum()
+            xs = ops.batched_block_trsv(ldiag, lb - acc[s.lr], backend=backend)
+            x[s.lr] = torch.where(ops.bcast_trailing(ready, xs), xs, x[s.lr])
+            solved |= just
+            prods = ops.batched_block_gemv(tiles, x[s.tcol], backend=backend, group=group)
+            acc.index_add_(0, s.trow, torch.where(ops.bcast_trailing(tmask, prods), prods, 0.0))
+            cnt.index_add_(0, s.trow, tmask.to(torch.int32))
+            n_ready = int(n_ready)
+        s.host_reads += 1
+        if n_ready == 0:
+            raise RuntimeError(f"{s.name}: {remaining} rows unsolved and none ready "
+                               f"at sweep {s.sweeps}")
+        remaining -= n_ready
+    return x
+
+
 def _check_executable(plan: Plan) -> None:
     """Raise for plans whose executor is not ported yet."""
     if plan.n_devices != 1:
         raise NotImplementedError(
             f"multi-device execution (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
-    if plan.config.sched not in LEVELSET_SCHEDS:
-        raise NotImplementedError(f"sched {plan.config.sched!r} execution is {ops.NOT_PORTED}")
 
 
 def solve_local(plan: Plan, b_blocks: torch.Tensor) -> torch.Tensor:
@@ -697,11 +825,15 @@ class Solver:
     ``DistributedSolver`` with one device).
 
     Plan values and schedule live on ``device`` (``None`` means the card).
-    ``kernel_backend="fused"`` and ``"fused_streamed"`` run each solve as
-    one superstep megakernel launch, resident or streamed (the reference's
-    ``solve_local`` fused branch); the other backends run the per-level
-    switch executor. ``n_solves`` counts
-    invocations; a multi-RHS panel counts once.
+    Levelset and dagpart plans: ``kernel_backend="fused"`` and
+    ``"fused_streamed"`` run each solve as one superstep megakernel launch,
+    resident or streamed (the reference's ``solve_local`` fused branch); the
+    other backends run the per-level switch executor. Syncfree plans run the
+    syncfree executor: its dense scan under ``reference`` and ``cuda``, its
+    frontier-bucketed form under the fused backends, whose block ops resolve
+    by :func:`repro_torch.kernels.ops.per_op_backend` (the CUDA kernels on a
+    card). Multi-device plans raise. ``n_solves`` counts invocations; a
+    multi-RHS panel counts once.
     """
 
     def __init__(self, plan: Plan, device: str | torch.device | None = None):
@@ -710,11 +842,14 @@ class Solver:
         _check_executable(plan)
         self.plan = plan
         self.n_solves = 0
-        if self.backend in ops.FUSED_BACKENDS:
+        self._fused = self._sched = self._syncfree = None
+        if plan.config.sched == "syncfree":
+            self._syncfree = _SyncfreeSchedule(plan, self.device,
+                                               frontier=self.backend in ops.FUSED_BACKENDS)
+        elif self.backend in ops.FUSED_BACKENDS:
             self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan))
-            self._sched = None
         else:
-            self._fused, self._sched = None, _Schedule(plan, self.device)
+            self._sched = _Schedule(plan, self.device)
         self._load_values(plan)
 
     def _load_values(self, plan: Plan) -> None:
@@ -740,6 +875,7 @@ class Solver:
                 and np.array_equal(plan.lvl_off, old.lvl_off)
                 and np.array_equal(step_offsets(plan), step_offsets(old))
                 and np.array_equal(plan.local_rows, old.local_rows)
+                and np.array_equal(plan.indeg, old.indeg)
                 and np.array_equal(plan.tile_row, old.tile_row)):
             raise ValueError(
                 "refresh requires an identical symbolic schedule (same "
@@ -755,6 +891,10 @@ class Solver:
         b_pad = torch.cat([b_blocks, b_blocks.new_zeros((1,) + b_blocks.shape[1:])])
         if self._fused is not None:
             x = self._fused.run(self._diag, self._tiles, b_pad)
+        elif self._syncfree is not None:
+            x = _run_syncfree(self._syncfree, self._diag, self._tiles, b_pad,
+                              ops.per_op_backend(self.backend, self.device),
+                              self.plan.config.gemv_group)
         else:
             x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
                             self.backend, self.plan.config.gemv_group)

@@ -18,8 +18,11 @@ Backends (the reference package's names on the left):
 
 Per-op calls (:func:`batched_block_trsv`, :func:`batched_block_gemv`) under
 either fused backend raise: the fused executor makes none, and a caller that
-wants the per-op kernels beside a fused solve (the Krylov SpMV) resolves its
-own backend with :func:`per_op_backend`.
+wants the per-op kernels beside a fused solve resolves its own backend with
+:func:`per_op_backend`. Two callers do: the Krylov SpMV, and the syncfree
+executor's frontier-bucketed form, which the fused backends select and
+whose block ops launch the CUDA kernels on a card (the reference maps
+``fused`` to the platform default the same way).
 
 Every op accepts either a single right-hand side per tile (``(k, B)``) or a
 multi-RHS panel (``(k, B, R)``) and dispatches on that rank.

@@ -2,10 +2,14 @@
 iterative solves."""
 from repro_torch.krylov.api import (
     IC0Preconditioner,
+    ILU0Preconditioner,
     make_ic0_preconditioner,
+    make_ilu0_preconditioner,
     solve_cg,
     solve_ic0_pcg,
+    solve_ilu0_bicgstab,
 )
+from repro_torch.krylov.bicgstab import bicgstab
 from repro_torch.krylov.cg import KrylovResult, pcg
 from repro_torch.krylov.precond import (
     ic0,

@@ -10,7 +10,16 @@ executors — the L^T sweep is a lazy transpose extension of the same handle.
 Every result carries the live context and executors in ``result.info`` so
 callers can audit analysis and invocation counts.
 
-ILU(0)-BiCGStab is not ported yet (ROADMAP.md, Queue 1).
+``solve_ilu0_bicgstab(A, b, ...)`` runs BiCGStab with an ILU(0)
+preconditioner of the full symmetric expansion of ``A``: an L/U pair of
+solves per application, two applications per iteration. The U sweep is a
+transpose solve of the reversed ``U^T``, so every backend serves it as a
+lower solve.
+
+Preconditioners are durable objects: :class:`IC0Preconditioner` /
+:class:`ILU0Preconditioner` support ``refresh(new_matrix)``, which re-runs
+the numeric factorization on new values of the SAME pattern and re-arms the
+executors in place.
 """
 from __future__ import annotations
 
@@ -19,8 +28,9 @@ import torch
 
 from repro_torch.api import PlanOptions, SpTRSVContext, as_options
 from repro_torch.core.solver import SolverConfig
+from repro_torch.krylov.bicgstab import bicgstab
 from repro_torch.krylov.cg import KrylovResult, pcg
-from repro_torch.krylov.precond import ic0
+from repro_torch.krylov.precond import ic0, ilu0, symmetric_full_csr, upper_as_reversed_lower
 from repro_torch.krylov.spmv import SpMV
 from repro_torch.sparse.matrix import CSR
 
@@ -58,6 +68,40 @@ class IC0Preconditioner:
         return self.ctx.solve(self.handle, y, transpose=True)
 
 
+class ILU0Preconditioner:
+    """``M^{-1} r = U^-1 L^-1 r`` with ILU(0) factors of a full CSR.
+
+    The unit-lower factor lives on the strict-lower + diagonal pattern and
+    shares that pattern's symbolic analysis (tag ``"ilu0-L"``); the U sweep
+    runs as a transpose solve of the reversed ``U^T`` under tag ``"ilu0-U"``
+    — on a symmetric pattern that too shares the SAME analysis (``U^T`` has
+    L's pattern), so the whole L/U pair costs one partition.
+    """
+
+    def __init__(self, ctx: SpTRSVContext, a_full: CSR):
+        self.ctx = ctx
+        self._lower_handle = None
+        self._upper_handle = None
+        self._factorize(a_full)
+
+    def _factorize(self, a_full: CSR) -> None:
+        self.lower, self.upper = ilu0(a_full)
+        # after the first factorization, pass the handles explicitly so a
+        # pattern change raises instead of silently re-analysing
+        self._lower_handle = self.ctx.factorize(
+            self.lower, self._lower_handle, tag="ilu0-L")
+        self._upper_handle = self.ctx.factorize(
+            upper_as_reversed_lower(self.upper), self._upper_handle, tag="ilu0-U")
+
+    def refresh(self, a_full: CSR) -> "ILU0Preconditioner":
+        self._factorize(a_full)
+        return self
+
+    def __call__(self, r: np.ndarray) -> np.ndarray:
+        y = self.ctx.solve(self._lower_handle, r)
+        return self.ctx.solve(self._upper_handle, y, transpose=True)
+
+
 def make_ic0_preconditioner(
     a_lower: CSR, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None,
@@ -77,6 +121,27 @@ def make_ic0_preconditioner(
         "forward": ctx.executor(pre.handle),
         "backward": ctx.executor(pre.handle, transpose=True),
         "context": ctx, "handle": pre.handle, "preconditioner": pre,
+    }
+
+
+def make_ilu0_preconditioner(
+    a_full: CSR, *, device: str | torch.device | None = None,
+    config: SolverConfig | PlanOptions | None = None,
+    context: SpTRSVContext | None = None,
+) -> tuple:
+    """ILU(0)-factorize a full CSR and wire ``M^{-1} r = U^-1 L^-1 r``.
+
+    Returns ``(psolve, handles)``: ``psolve`` is an :class:`ILU0Preconditioner`;
+    ``handles`` holds the ``lower`` and ``upper`` factors, the ``forward`` (L)
+    and ``backward`` (U) executors, ``context`` and ``preconditioner``.
+    """
+    ctx = _context(device, config, context)
+    pre = ILU0Preconditioner(ctx, a_full)
+    return pre, {
+        "lower": pre.lower, "upper": pre.upper,
+        "forward": ctx.executor(pre._lower_handle),
+        "backward": ctx.executor(pre._upper_handle, transpose=True),
+        "context": ctx, "preconditioner": pre,
     }
 
 
@@ -110,5 +175,22 @@ def solve_ic0_pcg(
     spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device)
     psolve, handles = make_ic0_preconditioner(a_lower, context=ctx)
     res = pcg(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter)
+    res.info.update(spmv=spmv, **handles)
+    return res
+
+
+def solve_ilu0_bicgstab(
+    a_lower: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
+    config: SolverConfig | PlanOptions | None = None, tol: float = 1e-8,
+    maxiter: int = 2000, context: SpTRSVContext | None = None,
+) -> KrylovResult:
+    """BiCGStab with an ILU(0) preconditioner built from the full symmetric
+    expansion of ``a_lower``. The unit-lower factor shares ``a_lower``'s
+    pattern (and therefore its analysis); the reversed U's transpose plan
+    is a lazy extension of a handle on that same analysis."""
+    ctx = _context(device, config, context)
+    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device)
+    psolve, handles = make_ilu0_preconditioner(symmetric_full_csr(a_lower), context=ctx)
+    res = bicgstab(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter)
     res.info.update(spmv=spmv, **handles)
     return res

@@ -531,3 +531,100 @@ def test_partial_launch_with_carries_bit_identical_to_plain_version(cuda_device,
         outs[str(dev)] = [g.cpu().numpy() for g in got]
     np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
     np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
+
+
+# ---------------------------------------------------------------------------
+# the syncfree executor (dense scan under "cuda", frontier form under "fused")
+# and ILU(0)-BiCGStab
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_plain_block_ops(monkeypatch):
+    """Make the block ops' plain versions raise: a solve that takes them on
+    the card fails instead of falling back."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("block_trsv_ref", "block_gemv_ref", "block_trsv_panel_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+@pytest.mark.parametrize("B", [8, 16])
+def test_syncfree_dyadic_bit_equal_to_megakernel(cuda_device, kernel, B, no_plain_block_ops):
+    """Both syncfree forms on the card give the levelset megakernel's bits
+    on a dyadic problem (every intermediate exact), forward, transpose and
+    panel; each forward solve takes one block TRSV per level."""
+    a = _dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+    rng = np.random.default_rng(3)
+    b = rng.integers(-4, 5, a.n).astype(np.float32)
+    panel = rng.integers(-4, 5, (a.n, 3)).astype(np.float32)
+    sync = SpTRSVContext(options=PlanOptions(block_size=B, sched="syncfree", kernel=kernel))
+    mega = SpTRSVContext(options=PlanOptions(block_size=B, kernel="fused"))
+    hs, hm = sync.analyse(a), mega.analyse(a)
+    for rhs, transpose in ((b, False), (b, True), (panel, False)):
+        ops.reset_launch_counts()
+        x = sync.solve(hs, rhs, transpose=transpose)
+        counts = ops.launch_counts()
+        assert all(counts[k] == 0 for k in MEGAKERNELS), counts
+        if rhs is b and not transpose:
+            assert counts["block_trsv"] == sync.plan(hs).n_levels, counts
+        np.testing.assert_array_equal(x, mega.solve(hm, rhs, transpose=transpose))
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+def test_syncfree_real_values_within_tolerance_of_reference_backend(cuda_device, kernel):
+    a = suite.grid2d_factor(64, seed=6)
+    rng = np.random.default_rng(9)
+    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 4))
+    want_ctx = SpTRSVContext(options=PlanOptions(kernel="reference"))
+    want = {(transpose, r.ndim): want_ctx.solve(want_ctx.analyse(a), r, transpose=transpose)
+            for r, transpose in ((b, False), (b, True), (panel, False))}
+    ctx = SpTRSVContext(options=PlanOptions(sched="syncfree", kernel=kernel))
+    h = ctx.analyse(a)
+    for (transpose, ndim), w in want.items():
+        x = ctx.solve(h, panel if ndim == 2 else b, transpose=transpose)
+        np.testing.assert_allclose(x, w, rtol=2e-4, atol=2e-4)
+
+
+def test_syncfree_frontier_launch_counts(cuda_device, no_plain_block_ops):
+    """The frontier form launches the block TRSV (TRSM for a panel) once per
+    level and the GEMV (GEMM) once per level that sources tiles."""
+    from repro_torch.core.solver import level_widths
+
+    a = suite.grid2d_factor(64, seed=6)
+    ctx = SpTRSVContext(options=PlanOptions(sched="syncfree", kernel="fused"))
+    h = ctx.analyse(a)
+    plan = ctx.plan(h)
+    with_tiles = int((level_widths(plan)[:, 1] > 0).sum())
+    for rhs, solve_k, upd_k in ((np.ones(a.n), "block_trsv", "block_gemv"),
+                                (np.ones((a.n, 2)), "block_trsm", "block_gemm")):
+        ops.reset_launch_counts()
+        ctx.solve(h, rhs)
+        want = {**dict.fromkeys(ops.KERNELS, 0), solve_k: plan.n_levels, upd_k: with_tiles}
+        assert ops.launch_counts() == want
+    solver = ctx.executor(h)
+    assert solver._syncfree.sweeps == solver._syncfree.host_reads == plan.n_levels
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+def test_ilu0_bicgstab_on_the_card_matches_cpu(cuda_device, kernel):
+    from repro_torch.krylov import solve_ilu0_bicgstab
+
+    a = spd_lower_from_triangular(suite.grid2d_factor(24, seed=3))
+    b = np.random.default_rng(2).uniform(-1, 1, a.n)
+    opts = PlanOptions(block_size=16, kernel=kernel)
+    ops.reset_launch_counts()
+    on_card = solve_ilu0_bicgstab(a, b, config=opts, tol=1e-8)
+    counts = ops.launch_counts()
+    on_cpu = solve_ilu0_bicgstab(a, b, device="cpu", config=opts, tol=1e-8)
+    assert on_card.converged and on_card.n_iters == on_cpu.n_iters
+    np.testing.assert_allclose(on_card.history, on_cpu.history, rtol=1e-4, atol=1e-12)
+    n = on_card.n_iters
+    assert on_card.info["forward"].n_solves == on_card.info["backward"].n_solves == 2 * n
+    if kernel == "fused":
+        assert counts["superstep"] == 4 * n and counts["block_trsv"] == 0, counts
+    else:
+        assert counts["block_trsv"] > 0 and counts["superstep"] == 0, counts
+    assert counts["block_gemv"] > 0, counts

@@ -18,7 +18,7 @@ import torch
 import strategies
 from torch_parity import flatten_plan, to_torch_csr
 from repro import krylov as jkrylov
-from repro.core import SolverConfig, build_plan, solve_local
+from repro.core import DistributedSolver, SolverConfig, build_plan, solve_local
 from repro.core.blocking import pad_rhs
 from repro.core.solver import level_widths, step_offsets
 from repro.kernels.superstep import superstep_call as jax_superstep_call
@@ -413,8 +413,21 @@ def test_fused_single_row_block():
     ({"kernel_backend": "fused_streamed"}, 2),
 ])
 def test_unported_fused_forms_raise(kw, n_devices):
+    """Multi-device fused plans raise, naming ROADMAP. One-device syncfree
+    plans under a fused backend were refused the same way until the
+    syncfree executor was ported: they now run its frontier form and give
+    the reference's (its own frontier form) bit for bit."""
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, n_devices, tsolver.SolverConfig(block_size=8, **kw))
+    if n_devices == 1:
+        ref_plan = build_plan(strategies.EXACT_MATRICES["skewed"](), 1,
+                              SolverConfig(block_size=8, **kw))
+        b = _rhs(plan.bs.n, 3)
+        solver = tsolver.Solver(plan, "cpu")
+        assert solver._syncfree.frontier
+        np.testing.assert_array_equal(
+            solver.solve(b), DistributedSolver(ref_plan, strategies.mesh1()).solve(b))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolver.Solver(plan, "cpu")
 
