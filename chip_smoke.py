@@ -31,7 +31,9 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
 4. IC(0)-PCG (``solve_ic0_pcg``) on the SPD matrix of ``grid2d_factor(512)``
    to ``tol = 1e-6``: the true residual must be within 10 * tol and each
    triangular sweep must run once per iteration;
-5. the superstep megakernel (``PlanOptions(kernel="fused")``) on the same
+5. the superstep megakernel (``PlanOptions(kernel="fused")``, held resident:
+   ``REPRO_TORCH_STREAM_LIMIT`` above the plan's store for the phase, the
+   plan reporting ``streamed`` false) on the same
    factor: forward, transpose and (n, 8) panel solves each within 2e-4 of
    scipy, each exactly one megakernel launch and no per-level kernel
    launch, two forward solves bit-equal; the kernel against its plain
@@ -60,11 +62,39 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    panel column bit-equal to the vector kernel; syncfree IC(0)-PCG
    (frontier form) with its exact launch counts;
 8. ILU(0)-BiCGStab (``solve_ilu0_bicgstab``) on phase 4's system under
-   ``kernel="cuda"``, ``"fused"`` and ``"fused_streamed"``: converged, the
+   ``kernel="cuda"``, ``"fused"`` (held resident as in phase 5) and
+   ``"fused_streamed"``: converged, the
    true residual within 10 * tol, two L and two U solves per iteration, and
    exactly the backend's launches (one megakernel launch per triangular
    solve for the fused forms, one TRSV and GEMV per level with work for
-   ``cuda``; three GEMV launches per matvec).
+   ``cuda``; three GEMV launches per matvec);
+9. telemetry, calibration and auto (seconds per sub-step printed):
+   (a) a traced session (``obs.trace.trace_to``) over phase 3's factor —
+   analyse, solve, factorize, solve, transpose solve — whose spans include
+   ``sptrsv.analyse``, ``.partition``, ``.schedule``, ``.solve``,
+   ``.factorize`` and ``.refresh``, every parent present; dyadic solves
+   bit-equal with tracing on and off under ``cuda``, ``fused``,
+   ``fused_streamed`` and syncfree ``fused``; a ``torch.profiler`` capture
+   of a traced switch solve holding ``sptrsv.level_solve`` ranges; the
+   switch forward ms with tracing off and on (5 alternating pairs);
+   (b) that session's ``metrics_snapshot``: ``plan.*`` equal to
+   ``dispatch_stats`` and ``cut_stats``, ``session.solves`` and the
+   ``session.solve_us`` count equal to the solves made; (c) the measured
+   weights ``calibrate_weights(B, "cuda")`` at B = 16 and 32 (finite,
+   ``w_solve == 1``, tile weights >= 0, the measured ones); (d) the
+   resident/streamed table (``perf/stream_crossover.py`` at sides 32-256,
+   B = 16 and 32) beside phase 6's, and ``stream_limit()``; plain ``fused``
+   at full size on the dyadic twin takes the form the table finds faster
+   there, one launch of that kernel per solve, bit-equal to phase 7's
+   resident solve; where the table finds resident faster, plain ``fused``
+   stays resident; (e) ``PlanOptions(sched="auto", kernel="auto",
+   probe_solves=3)`` on phase 4's system, probed at R = 1 and R = 8 (the
+   stream limit above its store, so ``fused`` is probed resident beside
+   ``fused_streamed``): the winner the fastest probe, its solve within 2e-4
+   of scipy, one calibration sample per probed candidate, a calibrated
+   stream limit; the store saved to a file and reloaded into a fresh store,
+   a second session with ``probe_solves=0`` resolving ``modelled``, and
+   ``calibrate_weights`` then returning the fitted weights.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -81,9 +111,12 @@ it and a CUDA device; without either it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -494,9 +527,16 @@ def main() -> None:
     try:
         from repro_torch.api import PlanOptions, SpTRSVContext
         from repro_torch.core.blocking import pad_rhs
+        from repro_torch.core import costmodel
+        from repro_torch.core.costmodel import calibrate_weights
+        from repro_torch.core.partition import cut_stats
         from repro_torch.core.solver import (
-            SolverConfig, build_plan, refresh_plan, stream_dma_bytes_per_solve,
+            DEFAULT_STREAM_LIMIT, SolverConfig, build_plan, dispatch_stats, fused_streaming,
+            refresh_plan, stream_dma_bytes_per_solve, stream_limit,
         )
+        from repro_torch.obs import calibration as ocal
+        from repro_torch.obs import metrics as omet
+        from repro_torch.obs import trace as otr
         from repro_torch.kernels import extension, ref, superstep
         from repro_torch.kernels import ops as kops
         from repro_torch.krylov import (
@@ -506,6 +546,7 @@ def main() -> None:
         from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
         sys.path.insert(0, str(ROOT / "perf"))
         import chain_latency
+        import stream_crossover
     except ImportError as e:
         fail(f"the repro_torch package is not next to chip_smoke.py ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
@@ -641,11 +682,17 @@ def main() -> None:
 
     # 5. the superstep megakernel: each solve is one launch
     phase_start["5 megakernel"] = time.perf_counter()
+    # plain "fused" streams above the stream limit (0 on this card, phase 9):
+    # this phase holds the resident kernel, the limit above the plan's store
+    resident_env = stream_crossover.stream_limit_env(2 * (plan.diag.nbytes + plan.tiles.nbytes))
+    resident_env.__enter__()
     t0 = time.perf_counter()
     fctx = SpTRSVContext(options=PlanOptions(kernel="fused"))
     fh = fctx.analyse(a)
     fctx.executor(fh), fctx.executor(fh, transpose=True)  # plans, tables, upload
     torch.cuda.synchronize()
+    check(not fctx.dispatch_stats(fh)["streamed"] and fctx.executor(fh)._fused.layout is None,
+          "phase 5: plain fused did not stay resident under the raised stream limit")
     log(f"phase 5 fused analyse+plan+tables+upload (forward and transpose) "
         f"{time.perf_counter() - t0:.1f} s")
     one_launch = {**dict.fromkeys(kops.KERNELS, 0), "superstep": 1}
@@ -728,6 +775,7 @@ def main() -> None:
           f"fused PCG launches {fpcg_launches} for {fres.n_iters} iterations")
     log(f"phase 5 fused IC(0)-PCG: {fres.n_iters} iterations, {fpcg_s:.1f} s, true rel "
         f"residual {ftrue:.2e} (phase 4: {true_res:.2e}), launches {json.dumps(fpcg_launches)}")
+    resident_env.__exit__(None, None, None)
 
     # the megakernel's own times at full size, beside its plain version and
     # cuSPARSE; one ReadyFlags kept across the timed launches, as a Solver does
@@ -894,7 +942,7 @@ def main() -> None:
     log(f"phase 6 streamed megakernel {sms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) "
         f"panel {sms8:.3f} ms, 10 solves), plain version {splain_ms:.1f} ms; resident "
         f"(phase 5) {fms:.3f} / {fms8:.3f} ms")
-    cross = []
+    cross, cross_ratio = [], {}
     for side in (256, 512, SIDE):
         if side == SIDE:
             p_, tables, vecs, stp, table = fplan, ftab, fvec, fstp, ftable
@@ -919,6 +967,7 @@ def main() -> None:
         turns = [time_ms(fn, 10, warmup=2)
                  for fn in (resident_fn, streamed_fn, streamed_fn, resident_fn)]
         r_ms, s_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        cross_ratio[side] = s_ms / r_ms
         cross.append(f"side {side} (n={side * side}, {p_.n_levels} levels, diag+tiles "
                      f"{(p_.diag.nbytes + p_.tiles.nbytes) / 1e6:.1f} MB): resident "
                      f"{r_ms:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}), streamed {s_ms:.3f} ms "
@@ -1053,13 +1102,20 @@ def main() -> None:
     # transpose solve of the reversed U^T
     phase_start["8 bicgstab"] = time.perf_counter()
     path_launches8 = {}
+    spd_plan = build_plan(a_spd, 1, SolverConfig())
+    spd_store = spd_plan.diag.nbytes + spd_plan.tiles.nbytes
     for kernel in ("cuda", "fused", "fused_streamed"):
         kops.reset_launch_counts()
         t0 = time.perf_counter()
-        bres = solve_ilu0_bicgstab(a_spd, b_spd, tol=tol, maxiter=400,
-                                   config=PlanOptions(kernel=kernel))
+        with stream_crossover.stream_limit_env(2 * spd_store):  # "fused" held resident
+            bres = solve_ilu0_bicgstab(a_spd, b_spd, tol=tol, maxiter=400,
+                                       config=PlanOptions(kernel=kernel))
+            streamed = [dispatch_stats(bres.info[k].plan)["streamed"]
+                        for k in ("forward", "backward")]
         bsecs = time.perf_counter() - t0
         blaunch = kops.launch_counts()
+        check(streamed == [kernel == "fused_streamed"] * 2,
+              f"ILU(0)-BiCGStab ({kernel}): plans report streamed {streamed}")
         path_launches8[kernel] = blaunch
         btrue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, bres.x))
                       / np.linalg.norm(b_spd))
@@ -1087,6 +1143,219 @@ def main() -> None:
             f"{bsecs:.1f} s (analysis + ilu0 + iterations), true rel residual {btrue:.2e}, "
             f"{nfw} L + {nbw} U solves, launches "
             f"{json.dumps({k: v for k, v in blaunch.items() if v})}")
+
+    # 9. telemetry, calibration and auto
+    phase_start["9 telemetry"] = time.perf_counter()
+    sub_s = {}  # seconds per sub-step
+    path_launches9 = {}
+
+    # (a) a traced session over phase 3's factor
+    t0 = time.perf_counter()
+    reg = omet.MetricsRegistry()
+    kops.reset_launch_counts()
+    with otr.trace_to() as tracer:
+        tctx = SpTRSVContext(registry=reg)
+        th = tctx.analyse(a)
+        tctx.solve(th, b)
+        a2 = CSR(n=a.n, row_ptr=a.row_ptr, col_idx=a.col_idx,
+                 val=(a.val * (1.0 + 0.25 * np.sin(np.arange(a.nnz)))).astype(a.val.dtype))
+        tctx.factorize(a2, th)
+        x_traced = tctx.solve(th, b)
+        tctx.solve(th, b, transpose=True)
+        records = tracer.export()
+    path_launches9["traced_session"] = kops.launch_counts()
+    check(rel_err(x_traced, reference_solve(a2, b)) <= TOL_SOLVE,
+          "traced session: the solve after factorize disagrees with scipy on the new values")
+    spans = {r["id"]: r for r in records if r["type"] == "span"}
+    names = sorted({r["name"] for r in spans.values()})
+    want_spans = {"sptrsv.analyse", "sptrsv.partition", "sptrsv.schedule", "sptrsv.solve",
+                  "sptrsv.factorize", "sptrsv.refresh"}
+    check(want_spans <= set(names), f"traced session spans {names} lack "
+                                    f"{sorted(want_spans - set(names))}")
+    check(all(r["parent"] is None or r["parent"] in spans for r in spans.values()),
+          "traced session: a span names a parent that does not exist")
+    top = {r["name"]: round(r["dur_us"] / 1e3, 1) for r in spans.values() if r["parent"] is None}
+    log(f"phase 9a traced session: {len(spans)} spans, names {names}; top-level ms "
+        f"{json.dumps(top)}")
+    # dyadic solves bit-equal with tracing on and off, per backend
+    yctx = SpTRSVContext(options=PlanOptions(sched="syncfree", kernel="fused"))
+    yh = yctx.analyse(a_dy)
+    backends = {"cuda": (ctx, h), "fused": (fctx, fh), "fused_streamed": (sctx, sh),
+                "syncfree_fused": (yctx, yh)}
+    for name, (c_, h_) in backends.items():
+        if c_ is not yctx:
+            c_.factorize(a_dy, h_)
+        off = c_.solve(h_, b_dy)
+        with otr.trace_to():
+            on = c_.solve(h_, b_dy)
+        check(np.array_equal(off, on) and np.array_equal(off, x_int),
+              f"{name}: the dyadic solve differs with tracing on and off, or from x")
+    check(fctx.executor(fh)._fused.layout is None and sctx.executor(sh)._fused.layout is not None,
+          "phase 9a: phase 5's executor is not resident or phase 6's not streamed")
+    del yctx, yh
+    # one profiler capture of a traced switch solve holds the level ranges
+    with otr.trace_to(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ctx.solve(h, b_dy)
+    level_ranges = [e for e in prof.key_averages() if e.key == "sptrsv.level_solve"]
+    check(level_ranges and level_ranges[0].count == with_work(plan, 0),
+          f"profiler capture: sptrsv.level_solve ranges {[e.count for e in level_ranges]}, "
+          f"levels with rows {with_work(plan, 0)}")
+    # the switch forward solve with tracing off and on, in alternating pairs
+    pairs = {"off": [], "on": []}
+    for _ in range(5):
+        for mode in ("off", "on"):
+            tracing = otr.trace_to() if mode == "on" else contextlib.nullcontext()
+            with tracing:
+                t1 = time.perf_counter()
+                ctx.solve(h, b)
+                pairs[mode].append(1e3 * (time.perf_counter() - t1))
+    for mode in pairs:
+        pairs[mode].sort()
+    log("phase 9a dyadic solves bit-equal with tracing on and off (cuda, fused resident, "
+        "fused_streamed, syncfree fused) and equal to x; profiler capture of a traced switch "
+        f"solve: {level_ranges[0].count} sptrsv.level_solve ranges; switch forward ms, 5 "
+        "alternating pairs, median (min, max): " + ", ".join(
+            f"tracing {m} {v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})" for m, v in pairs.items())
+        + f"; on/off {pairs['on'][2] / pairs['off'][2]:.4f}")
+    sub_s["a tracing"] = time.perf_counter() - t0
+
+    # (b) the traced session's metrics
+    t0 = time.perf_counter()
+    snap = tctx.metrics_snapshot(th)
+    tplan = tctx.plan(th)
+    for k, v in dispatch_stats(tplan).items():
+        check(snap[f"plan.{k}"] == (int(v) if isinstance(v, bool) else v),
+              f"metrics plan.{k} = {snap[f'plan.{k}']} != dispatch_stats {v}")
+    cs = cut_stats(tplan.bs, tplan.part)
+    for f in dataclasses.fields(cs):
+        check(snap[f"plan.{f.name}"] == getattr(cs, f.name),
+              f"metrics plan.{f.name} != cut_stats")
+    made = tctx.stats()["solves"]
+    check(snap["session.solves"] == snap["session.solve_us"]["count"] == made == 3,
+          f"metrics: session.solves {snap['session.solves']}, solve_us count "
+          f"{snap['session.solve_us']['count']}, solves made {made}")
+    log(f"phase 9b metrics: plan.* equal to dispatch_stats and cut_stats; session.solves "
+        f"{snap['session.solves']}, solve_us {json.dumps(snap['session.solve_us'])}")
+    sub_s["b metrics"] = time.perf_counter() - t0
+
+    # (c) the weights measured on the card
+    t0 = time.perf_counter()
+    measured = {}
+    for Bw in (16, 32):
+        w = calibrate_weights(Bw, "cuda")
+        tile_ms = costmodel.measured_tile_ms(Bw, "cuda")
+        check(w == costmodel.measured_weights(Bw, "cuda") and w != costmodel.analytic_weights(Bw),
+              f"calibrate_weights({Bw}, 'cuda') on the card is not the measured weights")
+        check(all(np.isfinite(v) for v in w) and w[0] == 1.0 and w[1] >= 0 and w[2] >= 0,
+              f"measured weights at B={Bw} are not well formed: {w}")
+        measured[Bw] = w
+        log(f"phase 9c measured weights B={Bw}: {w} from device ms per tile "
+            f"{json.dumps(tile_ms)} ({costmodel.MEASURE_CALLS} calls of "
+            f"{costmodel.MEASURE_TILES} tiles each; analytic {costmodel.analytic_weights(Bw)})")
+    sub_s["c weights"] = time.perf_counter() - t0
+
+    # (d) the resident/streamed crossover, and plain fused at full size
+    t0 = time.perf_counter()
+    table = stream_crossover.measure()
+    for r in table:
+        log("phase 9d crossover " + stream_crossover.format_row(r))
+    log("phase 9d beside phase 6 (raw launches, B=32): " + "; ".join(cross))
+    limit = stream_limit()
+    log(f"phase 9d crossover_bytes of the table {stream_crossover.crossover_bytes(table)}, "
+        f"DEFAULT_STREAM_LIMIT {DEFAULT_STREAM_LIMIT}, stream_limit() {limit}")
+    faster_streamed = cross_ratio[SIDE] < 1.0
+    kops.reset_launch_counts()
+    pctx = SpTRSVContext(options=PlanOptions(kernel="fused"))
+    ph = pctx.analyse(a_dy)
+    check(pctx.dispatch_stats(ph)["streamed"] == faster_streamed,
+          f"plain fused at full size reports streamed={pctx.dispatch_stats(ph)['streamed']}, "
+          f"but phase 6 measured streamed/resident {cross_ratio[SIDE]:.4f}")
+    x_rule = pctx.solve(ph, b_dy)  # builds the executor
+    kops.reset_launch_counts()
+    x_rule2 = pctx.solve(ph, b_dy)
+    path_launches9["fused_by_rule"] = kops.launch_counts()
+    form = "superstep_streamed" if faster_streamed else "superstep"
+    check(path_launches9["fused_by_rule"] == {**dict.fromkeys(kops.KERNELS, 0), form: 1},
+          f"plain fused launched {path_launches9['fused_by_rule']}, not one {form}")
+    check(np.array_equal(x_rule, x_mega) and np.array_equal(x_rule2, x_mega),
+          "plain fused (by the rule) != phase 7's resident megakernel solve bit for bit")
+    del pctx, ph
+    resident_wins = [r for r in table if r["ratio"] > 1.0]
+    for r in resident_wins:
+        p_ = build_plan(suite.grid2d_factor(r["side"], seed=6), 1,
+                        SolverConfig(block_size=r["B"], kernel_backend="fused"))
+        check(not fused_streaming(p_), f"side {r['side']} B={r['B']}: resident won "
+                                       f"({r['ratio']:.4f}) but plain fused streams")
+    log(f"phase 9d plain fused at full size: {form} (one launch per solve), bit-equal to phase "
+        f"7's resident solve of the dyadic twin; resident faster at "
+        f"{[(r['side'], r['B']) for r in resident_wins] or 'no size measured'}")
+    sub_s["d crossover"] = time.perf_counter() - t0
+
+    # (e) auto on phase 4's system, probed at R = 1 and R = 8, with the stream
+    # limit above its store so "fused" is probed resident beside
+    # "fused_streamed"; then a probe-free session on the reloaded store
+    t0 = time.perf_counter()
+    ocal.set_store(ocal.CalibrationStore())
+    auto_opts = PlanOptions(sched="auto", kernel="auto", probe_solves=3)
+    with stream_crossover.stream_limit_env(2 * spd_store):
+        kops.reset_launch_counts()
+        actx = SpTRSVContext(options=auto_opts)
+        ah = actx.analyse(a_spd)
+        path_launches9["auto_probed"] = kops.launch_counts()
+        d = ah.auto
+        n_probed = ocal.get_store().n_samples()
+        d8 = SpTRSVContext(options=dataclasses.replace(auto_opts, rhs_hint=8)).analyse(
+            a_spd).auto
+    check(d.mode == "probed" and d.chosen == min(d.probe_us, key=d.probe_us.get),
+          f"auto: mode {d.mode}, chosen {d.chosen} is not the fastest probe {d.probe_us}")
+    check(n_probed == len(d.probe_us), f"auto: {n_probed} samples for {len(d.probe_us)} probes")
+    check(("levelset", "zerocopy", "fused_streamed") in d.probe_us,
+          "auto: fused_streamed was not probed beside the resident fused")
+    xa = actx.solve(ah, b_spd)
+    ea = rel_err(xa, reference_solve(a_spd, b_spd))
+    check(np.isfinite(ea) and ea <= TOL_SOLVE, f"auto solve rel err {ea:.3e} > {TOL_SOLVE}")
+    ratio = ocal.calibrated_stream_ratio()
+    cal_limit = ocal.calibrated_stream_limit()
+    check(cal_limit is not None, "auto: no paired fused/fused_streamed samples")
+    for dd, R in ((d, 1), (d8, 8)):
+        log(f"phase 9e auto (R={R}) chosen {'/'.join(dd.chosen)} ({dd.mode}); probe overhead "
+            f"{dd.probe_overhead_us / 1e6:.2f} s; probe_us / compile_us: " + "; ".join(
+                f"{'/'.join(c)} {dd.probe_us[c]:.0f} / {dd.compile_us[c]:.0f}"
+                for c in sorted(dd.probe_us, key=dd.probe_us.get)))
+    log(f"phase 9e auto solve rel err vs scipy {ea:.2e}; {n_probed} samples after the R=1 "
+        f"session, {ocal.get_store().n_samples()} after R=8; probed streamed/resident per "
+        f"work unit {ratio:.4f}, calibrated_stream_limit() {cal_limit}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "weights.json")
+        ocal.get_store().save(path)
+        reloaded = ocal.CalibrationStore(path=path)
+    check(reloaded.sample_groups() == ocal.get_store().sample_groups(),
+          "the calibration store did not round-trip through its file")
+    ocal.set_store(reloaded)
+    mctx = SpTRSVContext(options=dataclasses.replace(auto_opts, probe_solves=0))
+    mh = mctx.analyse(a_spd)
+    fitted = {}
+    for key in sorted(reloaded.sample_groups()):
+        backend, Bk = key.split(":", 1)[1].split("/B")
+        fit = reloaded.fitted_weights(int(Bk), backend, "cuda")
+        if fit is not None:
+            fitted[(backend, int(Bk))] = fit
+            check(calibrate_weights(int(Bk), backend) == fit
+                  and fit != costmodel.measured_weights(int(Bk), backend),
+                  f"calibrate_weights({Bk}, {backend!r}) is not the reloaded store's fit")
+    check(mh.auto.mode == "modelled" and fitted,
+          f"probe-free session: mode {mh.auto.mode}, fitted groups {sorted(fitted)}")
+    log(f"phase 9e reloaded store ({reloaded.n_samples()} samples): probe-free session "
+        f"{mh.auto.mode}, chosen {'/'.join(mh.auto.chosen)}; fitted weights (the ones "
+        f"calibrate_weights returns) " + "; ".join(
+            f"{k[0]}/B{k[1]} {v}" for k, v in fitted.items())
+        + f"; measured B=32 {measured[32]}")
+    ocal.set_store(None)
+    del actx, ah, mctx, mh
+    sub_s["e auto"] = time.perf_counter() - t0
+    log("phase 9 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
 
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
@@ -1164,8 +1433,7 @@ def main() -> None:
     log("kernel times at k=4096 tiles (device_ms from torch.profiler): " + "; ".join(wide))
     # the GEMV family at the tile count of phase 4's SpMV (every tile of the
     # n = PCG_SIDE^2 problem, B = 32), where the SpMV calls the GEMV
-    sp_tiles = torch.from_numpy(np.ascontiguousarray(
-        build_plan(a_spd, 1, SolverConfig()).tiles[0])).cuda()
+    sp_tiles = torch.from_numpy(np.ascontiguousarray(spd_plan.tiles[0])).cuda()
     m_sp = sp_tiles.shape[0]
     at_spmv = []
     for row in rows_out:
@@ -1219,7 +1487,8 @@ def main() -> None:
     # each later path's launches, counted from 0 around that path alone
     paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
              "syncfree_pcg": ypcg_launches,
-             **{f"bicgstab_{k}": v for k, v in path_launches8.items()}}
+             **{f"bicgstab_{k}": v for k, v in path_launches8.items()},
+             **path_launches9}
     for row in rows_out:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     torch.cuda.synchronize()

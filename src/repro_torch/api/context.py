@@ -15,25 +15,35 @@ as an object:
   sweep is a lazy transpose extension of the same handle.
 
 The session runs on one device, the card unless the caller passes
-``device="cpu"``. Auto-tuning, the persistent plan store and the metrics
-registry are not ported yet (ROADMAP.md).
+``device="cpu"``. Auto mode (:class:`repro_torch.api.options.PlanOptions`
+with ``sched``/``comm``/``kernel`` set to ``"auto"``) resolves the execution
+mode per matrix at analyse time (:mod:`repro_torch.api.autotune`); the
+decision is kept on the handle and reported by
+:meth:`SpTRSVContext.dispatch_stats`. The stages open ``sptrsv.*`` spans
+(:mod:`repro_torch.obs.trace`) and count into a metrics registry
+(:meth:`SpTRSVContext.metrics_snapshot`). The persistent plan store is not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import hashlib
+import time
 
 import numpy as np
 import torch
 
-from repro_torch.api.options import PlanOptions, as_options
+from repro_torch.api import autotune
+from repro_torch.api.options import KernelBackend, PlanOptions, as_options
 from repro_torch.core.blocking import BlockStructure, build_blocks
 from repro_torch.core.partition import Partition, make_partition
 from repro_torch.core.solver import (
     Plan, Solver, SolverConfig, build_plan, dispatch_stats, refresh_plan,
 )
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import MetricsRegistry, get_registry, record_plan_metrics
+from repro_torch.obs.trace import get_tracer
 from repro_torch.sparse.matrix import CSR
 
 
@@ -52,6 +62,9 @@ class _Symbolic:
 
     bs: BlockStructure
     part: Partition
+    # auto-tuning is a property of (pattern, options), not of the numeric
+    # content: one tuner pass serves every tagged handle on this analysis
+    tuned: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -59,17 +72,19 @@ class SpTRSVHandle:
     """One numeric factorization on one analysed pattern (opaque to callers).
 
     References the shared symbolic analysis and owns the current numeric
-    plans (forward; transpose built lazily) and their executors.
+    plans (forward; transpose built lazily), their executors and the
+    auto-tuning decision.
     """
 
     pattern: str
     tag: str
     options: PlanOptions
-    config: SolverConfig
+    config: SolverConfig  # resolved (post-auto) engine config
     matrix: CSR  # current numeric values on this pattern
     symbolic: _Symbolic
-    plan: Plan | None = None  # forward plan (lazy)
+    plan: Plan | None = None  # forward plan (lazy unless auto probing built it)
     tplan: Plan | None = None  # transpose plan (lazy)
+    auto: autotune.AutoDecision | None = None
     solvers: dict = dataclasses.field(default_factory=dict)  # transpose -> Solver
     shapes: set = dataclasses.field(default_factory=set)  # (transpose, R) served
     n_factorize: int = 0
@@ -93,16 +108,21 @@ class SpTRSVContext:
     (shared-pattern handles do NOT re-count), ``solves`` the executor
     invocations. ``cache_capacity`` bounds the handle cache LRU-style, counted
     under ``evictions``; the symbolic cache is kept, so an evicted pattern
-    re-enters without re-partitioning.
+    re-enters without re-partitioning. Every counter is mirrored as a
+    ``session.*`` counter of ``registry`` (default: the process-wide
+    :func:`repro_torch.obs.metrics.get_registry`), beside the
+    ``session.solve_us`` histogram.
     """
 
     n_devices = 1  # multi-device sessions are not ported yet
 
     def __init__(self, device: str | torch.device | None = None,
                  options: PlanOptions | SolverConfig | None = None,
-                 cache_capacity: int | None = None):
+                 cache_capacity: int | None = None,
+                 registry: MetricsRegistry | None = None):
         self.device = resolve_device(device)
         self.options = as_options(options)
+        self.registry = registry if registry is not None else get_registry()
         if cache_capacity is not None and cache_capacity < 1:
             raise ValueError("cache_capacity must be >= 1 (or None: unbounded)")
         self.cache_capacity = cache_capacity
@@ -111,26 +131,41 @@ class SpTRSVContext:
         self._symbolic: dict[tuple, _Symbolic] = {}
         self._counters: collections.Counter = collections.Counter()
 
+    def _count(self, name: str) -> None:
+        """One event: the session counter and its ``session.*`` mirror."""
+        self._counters[name] += 1
+        self.registry.counter(f"session.{name}").inc()
+
     def _evict(self) -> None:
         while (self.cache_capacity is not None
                and len(self._entries) > self.cache_capacity):
             self._entries.popitem(last=False)
-            self._counters["evictions"] += 1
+            self._count("evictions")
 
     # -- analyse ----------------------------------------------------------
 
     def _analyse_symbolic(self, a: CSR, pattern: str, opts: PlanOptions) -> _Symbolic:
-        # everything the partition construction reads
+        # everything the partition construction reads; the kernel backend
+        # only matters when it feeds calibrated malleable cost weights
         key = (pattern, opts.block_size, opts.partition.value,
-               opts.tasks_per_device, opts.rhs_hint)
+               opts.tasks_per_device, opts.rhs_hint, opts.calibrate_cost,
+               opts.kernel.value if opts.calibrate_cost else None)
         sym = self._symbolic.get(key)
         if sym is not None:
-            self._counters["symbolic_hits"] += 1
+            self._count("symbolic_hits")
             return sym
-        self._counters["analyses"] += 1
+        self._count("analyses")
         bs = build_blocks(a, opts.block_size)
+        cost_weights = None
+        if opts.calibrate_cost and opts.partition.value == "malleable":
+            from repro_torch.core.costmodel import calibrate_weights
+
+            backend = (None if opts.kernel in (KernelBackend.AUTO, KernelBackend.DEFAULT)
+                       else opts.kernel.value)
+            cost_weights = calibrate_weights(opts.block_size, backend, device=self.device)
         part = make_partition(bs, self.n_devices, opts.partition.value,
-                              opts.tasks_per_device, cost_R=opts.rhs_hint)
+                              opts.tasks_per_device, cost_weights=cost_weights,
+                              cost_R=opts.rhs_hint)
         sym = _Symbolic(bs=bs, part=part)
         self._symbolic[key] = sym
         return sym
@@ -140,24 +175,46 @@ class SpTRSVContext:
         """Symbolic analysis of ``a``'s sparsity pattern (cached).
 
         ``tag`` names the numeric content: handles with different tags on the
-        same pattern share the analysis but hold independent values. The
-        returned handle carries ``a``'s values until the next
-        :meth:`factorize`.
+        same pattern share the analysis but hold independent values. Under
+        auto options the tuner runs here, once per (analysis, options);
+        candidates share the one partition. The returned handle carries
+        ``a``'s values until the next :meth:`factorize`.
         """
         opts = as_options(options) if options is not None else self.options
         pat = pattern_key(a)
         key = (pat, opts, tag)
         hit = self._entries.get(key)
         if hit is not None:
-            self._counters["analysis_hits"] += 1
+            self._count("analysis_hits")
             self._entries.move_to_end(key)
             if hit.matrix is not a and not np.array_equal(hit.matrix.val, a.val):
                 # same pattern, new values: refresh so the handle never goes stale
                 self.factorize(a, hit)
             return hit
-        handle = SpTRSVHandle(pattern=pat, tag=tag, options=opts,
-                              config=opts.to_config(), matrix=a,
-                              symbolic=self._analyse_symbolic(a, pat, opts))
+        plan, decision, solver = None, None, None
+        with get_tracer().span("sptrsv.analyse", pattern=pat, tag=tag, n=int(a.n),
+                               n_devices=self.n_devices) as span:
+            sym = self._analyse_symbolic(a, pat, opts)
+            if opts.is_auto:
+                tuned = sym.tuned.get(opts)
+                if tuned is not None:
+                    # another handle on this analysis already paid the tuner
+                    # (candidate plans + probes): reuse its decision
+                    config, decision = tuned
+                    self._count("auto_reuses")
+                else:
+                    config, plan, decision, solver = autotune.tune(
+                        a, opts, self.device, bs=sym.bs, part=sym.part)
+                    sym.tuned[opts] = (config, decision)
+                span.set(sched=config.sched, comm=config.comm,
+                         kernel=config.kernel_backend or "default")
+            else:
+                config = opts.to_config()
+        handle = SpTRSVHandle(pattern=pat, tag=tag, options=opts, config=config,
+                              matrix=a, symbolic=sym, plan=plan, auto=decision)
+        if solver is not None:  # probing already built the winner's executor
+            handle.solvers[False] = solver
+            handle.shapes.add((False, opts.rhs_hint))
         self._entries[key] = handle
         self._evict()
         return handle
@@ -178,7 +235,7 @@ class SpTRSVContext:
             handle = self._entries.get((pattern_key(a), opts, tag))
             if handle is None:
                 handle = self.analyse(a, opts, tag=tag)
-                self._counters["factorizes"] += 1
+                self._count("factorizes")
                 handle.n_factorize += 1
                 return handle
         else:
@@ -198,17 +255,19 @@ class SpTRSVContext:
                     "one — numeric refresh requires an identical pattern; "
                     "call analyse() for a new pattern"
                 )
-        self._counters["factorizes"] += 1
+        self._count("factorizes")
         handle.n_factorize += 1
         handle.matrix = a
-        if handle.plan is not None:
-            handle.plan = refresh_plan(handle.plan, a)
-            if False in handle.solvers:
-                handle.solvers[False].refresh(handle.plan)
-        if handle.tplan is not None:
-            handle.tplan = refresh_plan(handle.tplan, a)
-            if True in handle.solvers:
-                handle.solvers[True].refresh(handle.tplan)
+        with get_tracer().span("sptrsv.factorize", pattern=handle.pattern,
+                               tag=handle.tag, n_factorize=handle.n_factorize):
+            if handle.plan is not None:
+                handle.plan = refresh_plan(handle.plan, a)
+                if False in handle.solvers:
+                    handle.solvers[False].refresh(handle.plan)
+            if handle.tplan is not None:
+                handle.tplan = refresh_plan(handle.tplan, a)
+                if True in handle.solvers:
+                    handle.solvers[True].refresh(handle.tplan)
         return handle
 
     # -- solve ------------------------------------------------------------
@@ -216,7 +275,9 @@ class SpTRSVContext:
     def solve(self, handle: SpTRSVHandle | CSR, b: np.ndarray, *,
               transpose: bool = False) -> np.ndarray:
         """Solve ``L x = b`` (or ``L^T x = b``) with the cached executor.
-        ``b`` is ``(n,)`` or an ``(n, R)`` panel; the result is numpy."""
+        ``b`` is ``(n,)`` or an ``(n, R)`` panel; the result is numpy, so the
+        ``sptrsv.solve`` span and the ``session.solve_us`` observation cover
+        the device's work too."""
         if isinstance(handle, CSR):
             handle = self.analyse(handle)
         key = (handle.pattern, handle.options, handle.tag)
@@ -224,14 +285,21 @@ class SpTRSVContext:
             self._entries.move_to_end(key)
         solver = self.executor(handle, transpose=transpose)
         b = np.asarray(b)
-        shape = (transpose, b.shape[1] if b.ndim == 2 else 1)
+        R = b.shape[1] if b.ndim == 2 else 1
+        shape = (transpose, R)
         if shape in handle.shapes:
-            self._counters["solve_cache_hits"] += 1
+            self._count("solve_cache_hits")
         else:
-            self._counters["solve_cache_misses"] += 1
+            self._count("solve_cache_misses")
             handle.shapes.add(shape)
-        self._counters["solves"] += 1
-        return solver.solve(b)
+        self._count("solves")
+        with get_tracer().span("sptrsv.solve", pattern=handle.pattern,
+                               tag=handle.tag, transpose=transpose, R=R):
+            t0 = time.perf_counter()
+            x = solver.solve(b)
+            self.registry.histogram("session.solve_us").observe(
+                (time.perf_counter() - t0) * 1e6)
+        return x
 
     def executor(self, handle: SpTRSVHandle, *, transpose: bool = False) -> Solver:
         """The :class:`Solver` for one sweep direction, built lazily (the
@@ -249,19 +317,29 @@ class SpTRSVContext:
         if transpose:
             if handle.tplan is None:
                 handle.tplan = build_plan(handle.matrix, self.n_devices,
-                                          handle.config, transpose=True)
-                self._counters["transpose_extensions"] += 1
+                                          handle.config, transpose=True, device=self.device)
+                self._count("transpose_extensions")
             return handle.tplan
         if handle.plan is None:
             handle.plan = build_plan(handle.matrix, self.n_devices,
-                                     handle.config, part=handle.part)
+                                     handle.config, part=handle.part, device=self.device)
         return handle.plan
 
     # -- introspection ----------------------------------------------------
 
     def dispatch_stats(self, handle: SpTRSVHandle) -> dict:
-        """Dispatch counts for the handle's forward plan."""
-        return dict(dispatch_stats(self.plan(handle)))
+        """Dispatch counts for the handle's forward plan, plus the recorded
+        auto-tuning decision (``"auto"``) when auto mode ran."""
+        stats = dict(dispatch_stats(self.plan(handle)))
+        if handle.auto is not None:
+            d = handle.auto
+            stats["auto"] = {
+                "chosen": d.chosen, "mode": d.mode,
+                "scores": dict(d.scores), "probe_us": dict(d.probe_us),
+                "compile_us": dict(d.compile_us),
+                "probe_overhead_us": d.probe_overhead_us,
+            }
+        return stats
 
     def stats(self) -> dict:
         """Counter snapshot incl. the cache hit rate over analyse + solve
@@ -272,3 +350,21 @@ class SpTRSVContext:
         misses = c.get("analyses", 0) + c.get("solve_cache_misses", 0)
         c["cache_hit_rate"] = hits / (hits + misses) if hits + misses else 0.0
         return c
+
+    def metrics_snapshot(self, handle: SpTRSVHandle | None = None) -> dict:
+        """One JSON-safe view over the session's registry: the ``session.*``
+        counters and the solve wall-clock histogram, the derived cache hit
+        rate, and — given a handle — that handle's plan-static ``plan.*``
+        gauges (``dispatch_stats``/``cut_stats``) plus the recorded auto
+        probe/build timings (``auto.*``)."""
+        self.registry.gauge("session.cache_hit_rate").set(self.stats()["cache_hit_rate"])
+        if handle is not None:
+            record_plan_metrics(self.registry, self.plan(handle))
+            if handle.auto is not None:
+                d = handle.auto
+                self.registry.gauge("auto.probe_overhead_us").set(d.probe_overhead_us)
+                for combo, us in d.probe_us.items():
+                    self.registry.gauge("auto.probe_us." + "/".join(combo)).set(us)
+                for combo, us in d.compile_us.items():
+                    self.registry.gauge("auto.compile_us." + "/".join(combo)).set(us)
+        return self.registry.snapshot()

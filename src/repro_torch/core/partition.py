@@ -30,6 +30,7 @@ import numpy as np
 
 from repro_torch.core.blocking import BlockStructure
 from repro_torch.core.costmodel import merge_cost_threshold
+from repro_torch.obs.trace import get_tracer
 
 STRATEGIES = ("contiguous", "taskpool", "malleable")
 
@@ -66,8 +67,8 @@ def block_row_cost(
         cost = w_solve·R + (w_tile_mem + w_tile_flop·R) · tiles_in_column
 
     The defaults reproduce the analytic 1:2 TRSV:GEMV ratio at R=1
-    (``1 + 2·tiles``). Calibrated weights are not ported yet; callers pass
-    explicit weights or take the defaults.
+    (``1 + 2·tiles``); ``SolverConfig(calibrate_cost=True)`` passes
+    ``costmodel.calibrate_weights`` instead.
     """
     w_solve, w_tile_mem, w_tile_flop = weights
     col_tiles = np.bincount(bs.off_cols, minlength=bs.nb)
@@ -156,7 +157,19 @@ def make_partition(
 ) -> Partition:
     """``cost_weights``/``cost_R`` feed the malleable strategy's cost model
     (calibrated TRSV:GEMV weights and the expected RHS panel width); the
-    row-count strategies ignore them."""
+    row-count strategies ignore them. Runs inside the ``sptrsv.partition``
+    span."""
+    with get_tracer().span("sptrsv.partition", strategy=strategy,
+                           n_devices=n_devices, nb=bs.nb) as span:
+        part = _make_partition(bs, n_devices, strategy, tasks_per_device,
+                               cost_weights=cost_weights, cost_R=cost_R)
+        span.set(boundary_rows=int(part.boundary.sum()))
+    return part
+
+
+def _make_partition(bs: BlockStructure, n_devices: int, strategy: str,
+                    tasks_per_device: int, *, cost_weights: tuple | None,
+                    cost_R: int) -> Partition:
     nb = bs.nb
     if strategy == "contiguous":
         per = -(-nb // n_devices)

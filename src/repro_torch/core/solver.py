@@ -26,13 +26,25 @@ GEMV over all tiles); ``fused`` and ``fused_streamed`` run its
 frontier-bucketed form (the ready rows and the tiles they source compacted
 each sweep, solved and applied at a width from :func:`_frontier_ladder`).
 
+``kernel_backend="fused"`` runs the resident megakernel up to a store size
+and the streamed one above it (:func:`fused_streaming`, the limit measured
+on the card, :data:`DEFAULT_STREAM_LIMIT`).
+
+Telemetry: :func:`build_plan` and :func:`refresh_plan` open the
+``sptrsv.schedule`` / ``sptrsv.refresh`` spans (:mod:`repro_torch.obs.trace`);
+the executors open ``torch.profiler.record_function`` ranges
+(``sptrsv.level_solve``, ``sptrsv.tile_update``, ``sptrsv.superstep``) only
+while a tracer is enabled or a profiler session records.
+
 Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
 exchange). Their plans build; executing one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -45,6 +57,7 @@ from repro_torch.core.partition import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, superstep
+from repro_torch.obs.trace import executor_scopes, get_tracer
 from repro_torch.sparse.matrix import CSR, reverse_transpose
 
 MAX_BUCKETS = 12  # cap on distinct (solve, update, exchange) width combos
@@ -80,6 +93,10 @@ class SolverConfig:
     # costmodel.merge_cost_threshold default)
     merge_width: int = 64
     merge_cost: float = 0.0
+    # price malleable placement and the dagpart merge threshold with
+    # costmodel.calibrate_weights (fitted, measured on the card, or analytic
+    # on the CPU) instead of the analytic (1, 1, 1)
+    calibrate_cost: bool = False
 
     def __post_init__(self):
         _check_choice("comm", self.comm, COMM_MODES)
@@ -216,14 +233,28 @@ def _tiles_by_device(bs: BlockStructure, part: Partition, D: int) -> list:
 
 def build_plan(
     a: CSR, n_devices: int, config: SolverConfig = SolverConfig(),
-    *, transpose: bool = False, part: Partition | None = None,
+    *, transpose: bool = False, part: Partition | None = None, device=None,
 ) -> Plan:
     """Build the execution plan of ``a`` for ``n_devices`` devices.
 
     ``part`` reuses an existing partition computed for the same sparsity
     (e.g. a zero-fill factor shares its matrix's pattern). Not applicable to
-    transpose plans, which are built on the reversed structure.
+    transpose plans, which are built on the reversed structure. ``device``
+    (``None``: the card) is read only with ``config.calibrate_cost``: the
+    device whose weights price the plan.
     """
+    with get_tracer().span("sptrsv.schedule", n_devices=n_devices,
+                           sched=config.sched, comm=config.comm,
+                           transpose=transpose) as span:
+        plan = _build_plan(a, n_devices, config, transpose=transpose, part=part,
+                           device=device)
+        span.set(n_levels=plan.n_levels, n_buckets=len(plan.buckets),
+                 comm_bytes_per_solve=plan.comm_bytes_per_solve)
+    return plan
+
+
+def _build_plan(a: CSR, n_devices: int, config: SolverConfig, *, transpose: bool,
+                part: Partition | None, device) -> Plan:
     if transpose:
         # Solve a^T x = b with the forward-substitution machinery: reverse row
         # and column order of a^T, which is lower-triangular again; rhs and
@@ -232,9 +263,18 @@ def build_plan(
             raise ValueError("partition reuse is not valid across reversal")
         a = reverse_transpose(a)
     bs = build_blocks(a, config.block_size)
+    cost_weights = None
+    if config.calibrate_cost and (config.partition == "malleable"
+                                  or config.sched == "dagpart"):
+        # calibrated weights drive malleable placement and/or the dagpart
+        # merge pass's narrow-level threshold
+        from repro_torch.core.costmodel import calibrate_weights
+
+        cost_weights = calibrate_weights(config.block_size, config.kernel_backend,
+                                         device=device)
     if part is None:
         part = make_partition(bs, n_devices, config.partition, config.tasks_per_device,
-                              cost_R=config.rhs_hint)
+                              cost_weights=cost_weights, cost_R=config.rhs_hint)
     elif part.owner.shape[0] != bs.nb:
         raise ValueError("partition/block-structure mismatch")
     nb, B, D = bs.nb, bs.B, n_devices
@@ -275,7 +315,8 @@ def build_plan(
     if config.sched == "dagpart":
         step_off = merge_levels(
             bs, part, merge_width=config.merge_width,
-            merge_cost=config.merge_cost, cost_R=config.rhs_hint,
+            merge_cost=config.merge_cost, cost_weights=cost_weights,
+            cost_R=config.rhs_hint,
         )
         ex_by_level = [np.zeros(0, dtype=b_rows.dtype) for _ in range(T)]
         for k in range(len(step_off) - 1):
@@ -339,15 +380,17 @@ def refresh_plan(plan: Plan, a: CSR) -> Plan:
     ``plan``'s exact pattern, partition and compacted schedules, bit-identical
     to what a fresh :func:`build_plan` on the same pattern would produce.
     Transpose plans refresh through the same reversal they were built with."""
-    if plan.transpose:
-        a = reverse_transpose(a)
-    bs = refresh_block_values(plan.bs, a)
-    B, D = bs.B, plan.n_devices
-    diag = np.concatenate([bs.diag, np.eye(B, dtype=np.float32)[None]], axis=0)
-    tiles = np.zeros_like(plan.tiles)
-    for d, ids in enumerate(_tiles_by_device(bs, plan.part, D)):
-        tiles[d, : ids.shape[0]] = bs.off_tiles[ids]
-    return dataclasses.replace(plan, bs=bs, diag=diag, tiles=tiles)
+    with get_tracer().span("sptrsv.refresh", transpose=plan.transpose,
+                           n_devices=plan.n_devices):
+        if plan.transpose:
+            a = reverse_transpose(a)
+        bs = refresh_block_values(plan.bs, a)
+        B, D = bs.B, plan.n_devices
+        diag = np.concatenate([bs.diag, np.eye(B, dtype=np.float32)[None]], axis=0)
+        tiles = np.zeros_like(plan.tiles)
+        for d, ids in enumerate(_tiles_by_device(bs, plan.part, D)):
+            tiles[d, : ids.shape[0]] = bs.off_tiles[ids]
+        return dataclasses.replace(plan, bs=bs, diag=diag, tiles=tiles)
 
 
 def plan_from_arrays(fields: dict) -> Plan:
@@ -442,15 +485,50 @@ def fused_segments(plan: Plan) -> np.ndarray:
     return np.stack([starts, his], axis=1)
 
 
-# The fused executor on Hopper. The reference's resident megakernel holds
-# the diag/tile stores in the TPU core's VMEM, so above a VMEM budget
-# (8 MiB by default) "fused" upgrades itself to streaming them. The port's
-# resident kernel reads the stores from HBM and keeps only a per-warp ring
-# of prefetched tile rows and three columns in shared memory, so its
-# on-chip footprint does not grow with the plan:
-# "fused" does not upgrade itself, and only kernel_backend="fused_streamed"
-# selects the streamed form. An automatic upgrade waits for the calibration
-# port and the crossover measured on the card (PERF.md).
+# ---------------------------------------------------------------------------
+# resident or streamed: kernel_backend="fused_streamed", or "fused" above the limit
+# ---------------------------------------------------------------------------
+
+# The reference's resident megakernel holds the diag/tile stores in a TPU
+# core's VMEM and streams them above a VMEM budget. The port's resident
+# kernel reads the stores from HBM (a per-warp prefetch ring in shared
+# memory), so nothing forces streaming on Hopper; the choice is speed alone.
+# The limit is in resident store bytes (resident_store_bytes), the quantity
+# that grows with the plan: the store of the smallest plan from which the
+# streamed form is no slower at every larger plan measured. Measured by
+# perf/stream_crossover.py (resident against streamed device ms per solve,
+# CUDA events, 20 solves, grid2d_factor(side, seed=6)) on an NVIDIA H100
+# 80GB HBM3 at 700.00 W: streamed / resident was 0.79-0.89 at every side
+# from 32 to 512 for B = 16 and B = 32 and at side 1024 for B = 32 (stores
+# of 0.16 MB to 398 MB). Resident won at no size, so the limit is 0: "fused"
+# streams every plan whose tile fits the streamed kernel (PERF.md section 6).
+DEFAULT_STREAM_LIMIT = 0
+ENV_STREAM_LIMIT = "REPRO_TORCH_STREAM_LIMIT"
+
+
+def stream_limit() -> int:
+    """Resident store bytes above which ``kernel_backend="fused"`` runs the
+    streamed megakernel.
+
+    Resolution order: the ``REPRO_TORCH_STREAM_LIMIT`` env override (an
+    int; raise it to keep ``fused`` resident, lower it to make it stream),
+    then the crossover calibrated from the card's probe solves
+    (:func:`repro_torch.obs.calibration.calibrated_stream_limit`: paired
+    ``fused`` / ``fused_streamed`` samples scale the default by their
+    measured time ratio), then :data:`DEFAULT_STREAM_LIMIT`."""
+    env = os.environ.get(ENV_STREAM_LIMIT)
+    if env is not None:
+        return int(env)
+    from repro_torch.obs.calibration import calibrated_stream_limit
+
+    lim = calibrated_stream_limit()
+    return DEFAULT_STREAM_LIMIT if lim is None else lim
+
+
+def resident_store_bytes(plan: Plan) -> int:
+    """Bytes of the ``diag`` and ``tiles`` stores the resident megakernel
+    reads (the reference's resident ``store`` term)."""
+    return int(plan.diag.nbytes + plan.tiles.nbytes)
 
 
 def stream_widths(plan: Plan) -> tuple[tuple, tuple]:
@@ -526,12 +604,23 @@ def stream_dma_bytes_per_solve(plan: Plan, R: int = 1, *,
     return R * entries * 4 * superstep.stream_tile_floats(plan.bs.B)
 
 
-def fused_streaming(plan: Plan) -> bool:
+def fused_streaming(plan: Plan, R: int | None = None) -> bool:
     """Whether ``plan``'s fused levelset executor uses the streamed store:
-    only when asked for by ``kernel_backend="fused_streamed"`` (see the rule
-    above)."""
-    return (plan.config.sched in LEVELSET_SCHEDS
-            and plan.config.kernel_backend == "fused_streamed")
+    always for ``kernel_backend="fused_streamed"``; for ``"fused"`` when
+    :func:`resident_store_bytes` exceeds :func:`stream_limit` and two stages
+    of one tile fit a CTA's shared memory (``B <= 169``; above it the plan
+    stays resident rather than raising).
+    Never for syncfree plans (the frontier form makes per-op calls). ``R``
+    is accepted for the reference's signature; the port's rule does not
+    depend on it (the stores do not grow with the panel width)."""
+    if plan.config.sched not in LEVELSET_SCHEDS:
+        return False
+    backend = plan.config.kernel_backend
+    if backend == "fused_streamed":
+        return True
+    return (backend == "fused"
+            and superstep.streamed_shared_bytes(plan.bs.B, 1) <= superstep.SHARED_LIMIT
+            and resident_store_bytes(plan) > stream_limit())
 
 
 def schedule_table_bytes(plan: Plan) -> int:
@@ -551,7 +640,7 @@ def dispatch_stats(plan: Plan) -> dict:
     (gather+TRSV and GEMV+scatter per level with work, plus exchanges);
     ``fused_launches`` the megakernel launches a fused plan makes;
     ``streamed``, ``fused_vmem_bytes`` and ``stream_dma_bytes`` follow the
-    port's Hopper rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`,
+    port's rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`,
     :func:`stream_dma_bytes_per_solve` for a vector solve), not the
     reference's VMEM budget. ``supersteps`` is the
     bulk-synchronous step count, ``supersteps_levelset`` the unmerged block
@@ -616,24 +705,46 @@ class _Schedule:
         ]
 
 
+def _level_solve(sched: _Schedule, diag, b_pad, acc, x, s0: int, w_s: int,
+                 backend: str) -> None:
+    safe = sched.safe[s0:s0 + w_s]
+    rhs = b_pad[safe] - acc[safe]
+    xs = ops.batched_block_trsv(diag[safe], rhs, backend=backend)
+    valid = ops.bcast_trailing(sched.valid[s0:s0 + w_s], xs)
+    x[safe] = torch.where(valid, xs, x[safe])
+
+
+def _tile_update(sched: _Schedule, tiles, acc, x, u0: int, w_u: int, backend: str,
+                 group: int) -> None:
+    tids = sched.ut[u0:u0 + w_u]
+    prods = ops.batched_block_gemv(tiles[tids], x[sched.ucol[u0:u0 + w_u]],
+                                   backend=backend, group=group)
+    acc.index_add_(0, sched.urow[u0:u0 + w_u], prods)
+
+
 def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
                 b_pad: torch.Tensor, backend: str, group: int) -> torch.Tensor:
     """The switch executor's level loop (``_compact_level_body`` of the
-    reference) on padded blocks ``b_pad`` (nb+1, B[, R]); returns ``x``."""
+    reference) on padded blocks ``b_pad`` (nb+1, B[, R]); returns ``x``.
+    Each level's solve and update run inside ``sptrsv.level_solve`` /
+    ``sptrsv.tile_update`` ranges only when :func:`executor_scopes` says so
+    (read once per solve)."""
     acc = torch.zeros_like(b_pad)
     x = torch.zeros_like(b_pad)
+    scoped = executor_scopes()
     for s0, w_s, u0, w_u in sched.levels:
         if w_s > 0:
-            safe = sched.safe[s0:s0 + w_s]
-            rhs = b_pad[safe] - acc[safe]
-            xs = ops.batched_block_trsv(diag[safe], rhs, backend=backend)
-            valid = ops.bcast_trailing(sched.valid[s0:s0 + w_s], xs)
-            x[safe] = torch.where(valid, xs, x[safe])
+            if scoped:
+                with torch.profiler.record_function("sptrsv.level_solve"):
+                    _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend)
+            else:
+                _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend)
         if w_u > 0:
-            tids = sched.ut[u0:u0 + w_u]
-            prods = ops.batched_block_gemv(tiles[tids], x[sched.ucol[u0:u0 + w_u]],
-                                           backend=backend, group=group)
-            acc.index_add_(0, sched.urow[u0:u0 + w_u], prods)
+            if scoped:
+                with torch.profiler.record_function("sptrsv.tile_update"):
+                    _tile_update(sched, tiles, acc, x, u0, w_u, backend, group)
+            else:
+                _tile_update(sched, tiles, acc, x, u0, w_u, backend, group)
     return x
 
 
@@ -675,13 +786,15 @@ class _FusedSchedule:
         """One megakernel launch over the whole schedule; returns ``x``
         (the streamed form reads only its store: ``diag``/``tiles`` unused)."""
         zeros = torch.zeros_like(b_pad)
-        if self.layout is not None:
-            _, x = superstep.superstep_streamed_call(*self.tables, self.values, b_pad, zeros,
-                                                     zeros, stp=self.stp, layout=self.layout,
-                                                     flags=self.flags)
-        else:
-            _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
-                                            stp=self.stp, table=self.table, flags=self.flags)
+        with (torch.profiler.record_function("sptrsv.superstep") if executor_scopes()
+              else contextlib.nullcontext()):
+            if self.layout is not None:
+                _, x = superstep.superstep_streamed_call(
+                    *self.tables, self.values, b_pad, zeros, zeros, stp=self.stp,
+                    layout=self.layout, flags=self.flags)
+            else:
+                _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
+                                                stp=self.stp, table=self.table, flags=self.flags)
         return x
 
 
@@ -751,7 +864,9 @@ def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
     incoming tile counted), then applies the tiles whose source row it
     solved and counts them at their destination. A sweep solves exactly one
     block level, so a solve takes ``n_levels`` sweeps; the host reads the
-    sweep's counts once (the frontier's widths, and whether rows remain)."""
+    sweep's counts once (the frontier's widths, and whether rows remain).
+    Each sweep runs inside a ``sptrsv.level_solve`` range when
+    :func:`executor_scopes` says so."""
     nb = s.nb
     acc, x = torch.zeros_like(b_pad), torch.zeros_like(b_pad)
     cnt = torch.zeros(nb + 1, dtype=torch.int32, device=b_pad.device)
@@ -759,46 +874,50 @@ def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
     if not s.frontier:
         ldiag, lb = diag[s.lr], b_pad[s.lr]
     remaining, s.sweeps, s.host_reads = s.n_owned, 0, 0
+    scoped = executor_scopes()  # read once per solve
     while remaining:
         if s.sweeps > nb:
             raise RuntimeError(f"{s.name}: {remaining} rows unsolved after {s.sweeps} sweeps")
         s.sweeps += 1
-        ready = s.lown & ~solved[s.lr] & (cnt[s.lr] == s.indeg)
-        just = torch.zeros_like(solved)
-        just[s.lr] = ready
-        tmask = just[s.tcol]
-        if s.frontier:
-            n_ready, n_tiles = torch.stack([ready.sum(), tmask.sum()]).tolist()
-            # compact the ready rows in ascending local index, pad MLR -> row nb
-            mlr = s.iota_l.shape[0]
-            order = torch.sort(torch.where(ready, s.iota_l, mlr)).values[
-                :s.width(s.lad_s, n_ready)]
-            valid = order < mlr
-            rows = torch.where(valid, s.lr[torch.where(valid, order, 0)], nb)
-            xs = ops.batched_block_trsv(diag[rows], b_pad[rows] - acc[rows], backend=backend)
-            x[rows] = torch.where(ops.bcast_trailing(valid, xs), xs, x[rows])
-            solved |= just
-            if n_tiles:
-                # compact the tiles sourced at this frontier, pad -> the zero tile
-                mlt = s.iota_t.shape[0]
-                tid = torch.sort(torch.where(tmask, s.iota_t, mlt)).values[
-                    :s.width(s.lad_u, n_tiles)]
-                tvalid = tid < mlt
-                tid = torch.where(tvalid, tid, mlt - 1)
-                prods = ops.batched_block_gemv(tiles[tid], x[s.tcol[tid]], backend=backend,
-                                               group=group)
-                rd = s.trow[tid]
-                acc.index_add_(0, rd, torch.where(ops.bcast_trailing(tvalid, prods), prods, 0.0))
-                cnt.index_add_(0, rd, tvalid.to(torch.int32))
-        else:
-            n_ready = ready.sum()
-            xs = ops.batched_block_trsv(ldiag, lb - acc[s.lr], backend=backend)
-            x[s.lr] = torch.where(ops.bcast_trailing(ready, xs), xs, x[s.lr])
-            solved |= just
-            prods = ops.batched_block_gemv(tiles, x[s.tcol], backend=backend, group=group)
-            acc.index_add_(0, s.trow, torch.where(ops.bcast_trailing(tmask, prods), prods, 0.0))
-            cnt.index_add_(0, s.trow, tmask.to(torch.int32))
-            n_ready = int(n_ready)
+        with (torch.profiler.record_function("sptrsv.level_solve") if scoped
+              else contextlib.nullcontext()):
+            ready = s.lown & ~solved[s.lr] & (cnt[s.lr] == s.indeg)
+            just = torch.zeros_like(solved)
+            just[s.lr] = ready
+            tmask = just[s.tcol]
+            if s.frontier:
+                n_ready, n_tiles = torch.stack([ready.sum(), tmask.sum()]).tolist()
+                # compact the ready rows in ascending local index, pad MLR -> row nb
+                mlr = s.iota_l.shape[0]
+                order = torch.sort(torch.where(ready, s.iota_l, mlr)).values[
+                    :s.width(s.lad_s, n_ready)]
+                valid = order < mlr
+                rows = torch.where(valid, s.lr[torch.where(valid, order, 0)], nb)
+                xs = ops.batched_block_trsv(diag[rows], b_pad[rows] - acc[rows], backend=backend)
+                x[rows] = torch.where(ops.bcast_trailing(valid, xs), xs, x[rows])
+                solved |= just
+                if n_tiles:
+                    # compact the tiles sourced at this frontier, pad -> the zero tile
+                    mlt = s.iota_t.shape[0]
+                    tid = torch.sort(torch.where(tmask, s.iota_t, mlt)).values[
+                        :s.width(s.lad_u, n_tiles)]
+                    tvalid = tid < mlt
+                    tid = torch.where(tvalid, tid, mlt - 1)
+                    prods = ops.batched_block_gemv(tiles[tid], x[s.tcol[tid]], backend=backend,
+                                                   group=group)
+                    rd = s.trow[tid]
+                    acc.index_add_(0, rd, torch.where(ops.bcast_trailing(tvalid, prods), prods,
+                                                      0.0))
+                    cnt.index_add_(0, rd, tvalid.to(torch.int32))
+            else:
+                n_ready = ready.sum()
+                xs = ops.batched_block_trsv(ldiag, lb - acc[s.lr], backend=backend)
+                x[s.lr] = torch.where(ops.bcast_trailing(ready, xs), xs, x[s.lr])
+                solved |= just
+                prods = ops.batched_block_gemv(tiles, x[s.tcol], backend=backend, group=group)
+                acc.index_add_(0, s.trow, torch.where(ops.bcast_trailing(tmask, prods), prods, 0.0))
+                cnt.index_add_(0, s.trow, tmask.to(torch.int32))
+                n_ready = int(n_ready)
         s.host_reads += 1
         if n_ready == 0:
             raise RuntimeError(f"{s.name}: {remaining} rows unsolved and none ready "

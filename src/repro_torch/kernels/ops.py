@@ -9,9 +9,11 @@ Backends (the reference package's names on the left):
   the default on a CUDA device. Given CPU tensors, their wrappers run the
   plain versions, so the same code path is testable without a card.
 * ``fused``     -> ``fused``: an *executor-level* backend. A single-device
-  levelset or dagpart solve is one launch of the resident superstep
-  megakernel (:mod:`~repro_torch.kernels.superstep`), which makes no per-op
-  call; on CPU tensors its wrapper runs the plain version.
+  levelset or dagpart solve is one launch of the superstep megakernel
+  (:mod:`~repro_torch.kernels.superstep`), which makes no per-op call:
+  resident up to the stream limit, streamed above it
+  (``core.solver.fused_streaming``); on CPU tensors its wrapper runs the
+  plain version.
 * ``fused_streamed`` -> ``fused_streamed``: the same, one launch of the
   streamed form, which copies each row's tiles from its own streamed store
   into shared memory by asynchronous bulk copies issued ahead of use.

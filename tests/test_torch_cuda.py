@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.api import PlanOptions, SpTRSVContext
+from repro_torch.core.solver import ENV_STREAM_LIMIT
 from repro_torch.kernels import ops, ref
 from repro_torch.krylov import solve_ic0_pcg, spd_lower_from_triangular
 from repro_torch.sparse import suite
@@ -22,6 +23,16 @@ pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-5, atol=2e-5)  # float32, different summation orders
 PER_OP_KERNELS = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 MEGAKERNELS = ("superstep", "superstep_streamed")
+
+
+@pytest.fixture(autouse=True)
+def _resident_fused(monkeypatch):
+    """``kernel_backend="fused"`` in this file means the resident megakernel.
+    The port's rule (``core.solver.fused_streaming``) streams a plan whose
+    resident store exceeds the stream limit, measured to be 0 on the card;
+    the limit is raised above every plan here, so "fused" stays resident
+    (the tests of the rule itself unset it)."""
+    monkeypatch.setenv(ENV_STREAM_LIMIT, str(2**62))
 
 
 @pytest.fixture
@@ -628,3 +639,63 @@ def test_ilu0_bicgstab_on_the_card_matches_cpu(cuda_device, kernel):
     else:
         assert counts["block_trsv"] > 0 and counts["superstep"] == 0, counts
     assert counts["block_gemv"] > 0, counts
+
+
+# ---------------------------------------------------------------------------
+# calibration and auto-tuning on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [16, 32])
+def test_measured_weights_are_well_formed(cuda_device, B):
+    """The card's weights come from timed kernels: finite, w_solve = 1,
+    tile weights >= 0, each per-tile time positive; never the CPU's
+    analytic counts."""
+    from repro_torch.core import costmodel
+
+    ms = costmodel.measured_tile_ms(B, "cuda", cuda_device)
+    assert set(ms) == {"trsv", "gemv", "gemm"}
+    assert all(np.isfinite(t) and t > 0 for t in ms.values()), ms
+    w = costmodel.calibrate_weights(B, "fused", device=cuda_device, feedback=False)
+    assert w == costmodel.measured_weights(B, "cuda", cuda_device)  # fused times "cuda"
+    assert w[0] == 1.0 and all(np.isfinite(v) and v >= 0 for v in w), w
+    assert w != costmodel.analytic_weights(B)
+
+
+def test_probed_tune_records_cuda_samples(cuda_device):
+    from repro_torch.api import autotune
+    from repro_torch.obs import calibration as cal
+
+    store = cal.CalibrationStore()
+    cal.set_store(store)
+    try:
+        a = _dyadic(suite.random_levelled(600, 8, 4.0, seed=3))
+        opts = PlanOptions(block_size=16, sched="auto", kernel="auto", probe_solves=2)
+        _, plan, d, solver = autotune.tune(a, opts, cuda_device)
+    finally:
+        cal.set_store(None)
+    assert d.mode == "probed" and d.chosen == min(d.probe_us, key=d.probe_us.get)
+    assert all(us > 0 for us in d.probe_us.values()) and solver.plan is plan
+    groups = store.sample_groups()
+    assert groups and all(k.startswith("cuda:") for k in groups)
+    assert sum(len(v) for v in groups.values()) == len(d.probe_us)
+    # fused resident (the fixture's limit) beside fused_streamed: paired samples
+    assert cal.calibrated_stream_limit(store) is not None
+
+
+def test_plain_fused_above_the_limit_launches_the_streamed_kernel(cuda_device, monkeypatch):
+    monkeypatch.delenv(ENV_STREAM_LIMIT)  # the measured default: every plan streams
+    a = _dyadic(suite.random_levelled(600, 8, 4.0, seed=3))
+    ctx = SpTRSVContext(options=PlanOptions(block_size=16, kernel="fused"))
+    h = ctx.analyse(a)
+    assert ctx.dispatch_stats(h)["streamed"]
+    b = np.random.default_rng(2).integers(-4, 5, a.n).astype(np.float32)
+    x = ctx.solve(h, b)  # builds the executor
+    ops.reset_launch_counts()
+    np.testing.assert_array_equal(ctx.solve(h, b), x)
+    counts = ops.launch_counts()
+    assert counts["superstep_streamed"] == 1 and sum(counts.values()) == 1, counts
+    monkeypatch.setenv(ENV_STREAM_LIMIT, str(2**62))
+    resident = SpTRSVContext(options=PlanOptions(block_size=16, kernel="fused"))
+    np.testing.assert_array_equal(resident.solve(resident.analyse(a), b), x)
+

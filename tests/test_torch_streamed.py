@@ -36,6 +36,15 @@ from repro_torch.krylov import solve_ic0_pcg
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
+@pytest.fixture(autouse=True)
+def _resident_fused(monkeypatch):
+    """``kernel_backend="fused"`` in this file means the resident megakernel.
+    The port's rule (``core.solver.fused_streaming``) streams a plan whose
+    resident store exceeds the stream limit, measured to be 0 on the card;
+    the limit is raised above every plan here, so "fused" stays resident."""
+    monkeypatch.setenv(tsolver.ENV_STREAM_LIMIT, str(2**62))
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_plan(matrix: str, B: int, sched: str, transpose: bool, kernel: str = "fused"):
     a = strategies.EXACT_MATRICES[matrix]()
