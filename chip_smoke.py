@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~3 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~5 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -94,7 +94,28 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    of scipy, one calibration sample per probed candidate, a calibrated
    stream limit; the store saved to a file and reloaded into a fresh store,
    a second session with ``probe_solves=0`` resolving ``modelled``, and
-   ``calibrate_weights`` then returning the fitted weights.
+   ``calibrate_weights`` then returning the fitted weights;
+10. the verifier, the plan store and the solve service (seconds per
+   sub-step printed): (a) ``verify_plan(level="strict")`` passes on every
+   plan the smoke built on the factor (phase 3's, 5's, 6's and 7's, forward
+   and transpose) and on a dagpart plan, host seconds each; a copy with the
+   solve slots of levels 1 and 2 swapped fails with ``hb.upd.src-before``
+   and ``hb.upd.dest-after``; (b) under ``kernel="cuda"`` and ``"fused"``
+   a cold session with a ``PlanStore`` analyses and saves, and a fresh one
+   on the store makes 0 analyses, 1 store hit (2 after its transpose solve)
+   and 0 rejections, its forward, transpose and (n, 8) solves of the
+   dyadic twin bit-equal to the cold session's; (c) under ``"cuda"`` and
+   plain ``"fused"``, ``launch/serve_solve.py`` serves 48 requests of 4
+   tenants (``max_batch`` 8; hot pattern ``grid2d_factor(SERVICE_SIDE)``,
+   n = 262,144, and a cold tail) cold on exact dyadic problems — every
+   ticket exact and bit-equal to a solo solve of its column, TRSV/TRSM and
+   GEMV/GEMM once per level with work per batch (``cuda``) or one
+   megakernel launch per batch (``fused``), no plain version — then warm
+   on real values (0 analyses, hit rate 1, every solution within 2e-4 of
+   scipy), then from the engine's background thread to 16 blocking
+   tenants with the cold run's bits; (d) ``launch/solve.py --matrix
+   webbase-1M --scale CLI_SCALE --verify`` (n = 996,000) exits 0 within
+   2e-4 of scipy.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -127,6 +148,10 @@ SIDE = 1024  # main-path factor: grid2d_factor(SIDE), n = SIDE^2, delaunay_n20 s
 # IC(0)-PCG and ILU(0)-BiCGStab system, cut from SIDE: the host-side ic0 and
 # ilu0 factorizations are Python loops
 PCG_SIDE = 512
+# phase 10: the served mix's hot pattern, grid2d_factor(SERVICE_SIDE) (the
+# size phase 9e probes), and launch/solve.py's webbase-1M at n ~ 1M
+SERVICE_SIDE = 512
+CLI_SCALE = 83
 SEED = 0  # right-hand sides and kernel-check inputs
 TOL_KERNEL = 2e-5
 TOL_SOLVE = 2e-4
@@ -485,20 +510,6 @@ class PlainCalls:
             setattr(self.ref, name, fn)
 
 
-def dyadic(a, seed: int = 0):
-    """Same sparsity, unit diagonal, +-2^-k off-diagonals: every intermediate
-    of a shallow forward substitution is exact in float32."""
-    import numpy as np
-
-    from repro_torch.sparse.matrix import CSR
-
-    rows = np.repeat(np.arange(a.n), np.diff(a.row_ptr))
-    signs = np.random.default_rng(seed).choice(
-        np.array([-0.5, -0.25, 0.25, 0.5], np.float32), size=a.val.shape)
-    return CSR(n=a.n, row_ptr=a.row_ptr, col_idx=a.col_idx,
-               val=np.where(a.col_idx == rows, 1.0, signs).astype(np.float32))
-
-
 def widths(plan, col: int):
     """Per-level bucket widths of schedule ``col`` (0 = solve rows, 1 =
     update tiles): the batch each level hands the kernels."""
@@ -512,6 +523,239 @@ def widest(plan, col: int) -> tuple[int, int]:
     w = widths(plan, col)
     t = int(w.argmax())
     return int(plan.lvl_off[t, col]), int(w[t])
+
+
+def phase_service(a, a_dy, x_int, plans: dict, rng) -> dict:
+    """Phase 10 on the n = SIDE^2 factor ``a`` and its dyadic twin ``a_dy``
+    (``x_int`` the integer solution of ``b = L x``): the verifier on
+    ``plans`` and a dagpart plan, the plan store cold and warm, the solve
+    service through ``launch/serve_solve.py``, and ``launch/solve.py`` at
+    n ~ 1M. Returns the kernel launches of the served runs."""
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import PlanOptions, SpTRSVContext, pattern_key
+    from repro_torch.core.solver import SolverConfig, build_plan, level_widths
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve_solve
+    from repro_torch.launch import solve as solve_cli
+    from repro_torch.obs import trace as otr
+    from repro_torch.service import PlanStore, SolveEngine
+    from repro_torch.sparse.matrix import to_scipy
+    from repro_torch.verify import verify_plan
+
+    sub_s = {}
+
+    def span_s(records) -> str:
+        """Seconds in the host spans of a served run, by name."""
+        tot = {}
+        for r in records:
+            if r.get("type") == "span" and r["name"] in (
+                    "service.batch", "sptrsv.analyse", "planstore.load", "sptrsv.verify",
+                    "sptrsv.schedule", "sptrsv.solve"):
+                tot[r["name"]] = tot.get(r["name"], 0.0) + r["dur_us"] / 1e6
+        return ", ".join(f"{k}={v:.2f}" for k, v in sorted(tot.items()))
+
+    # (a) strict verification of every plan the smoke built, and a dagpart plan
+    t0 = time.perf_counter()
+    plans = dict(plans)
+    t1 = time.perf_counter()
+    plans["dagpart forward"] = build_plan(a, 1, SolverConfig(sched="dagpart"))
+    dag_build_s = time.perf_counter() - t1
+    verify_s = {}
+    for name, p in plans.items():
+        t1 = time.perf_counter()
+        report = verify_plan(p, level="strict")
+        verify_s[name] = time.perf_counter() - t1
+        check(report.passed, f"phase 10a: {name} plan fails strict verification: "
+                              + "; ".join(str(f) for f in report.findings[:5]))
+        check(len(report.rules_checked) >= 11, f"phase 10a: {name}: {report.summary()}")
+    # one mutated copy: the solve slots of levels 1 and 2 swapped (the CPU
+    # test's mutation), which must break happens-before with its rules
+    p = plans["switch forward"]
+    sr = p.solve_rows.copy()
+    l1, l2 = int(p.lvl_off[1, 0]), int(p.lvl_off[2, 0])
+    sr[:, [l1, l2]] = sr[:, [l2, l1]]
+    bad = verify_plan(dataclasses.replace(p, solve_rows=sr), level="basic")
+    ids = sorted({f.rule for f in bad.findings})
+    check(not bad.passed and {"hb.upd.src-before", "hb.upd.dest-after"} <= set(ids)
+          and all(r.startswith("hb.") for r in ids),
+          f"phase 10a: the swapped-level copy gave {ids}")
+    log("phase 10a strict verify, host s per plan (n = "
+        f"{a.n}): " + ", ".join(f"{k}={v:.2f}" for k, v in verify_s.items())
+        + f" (dagpart plan built in {dag_build_s:.2f} s); swapped levels 1, 2 -> {ids}")
+    sub_s["a verify"] = time.perf_counter() - t0
+
+    # (b) the plan store: cold analyse + save, then a fresh warm session
+    t0 = time.perf_counter()
+    L = to_scipy(a_dy)
+    b_dy = (L @ x_int).astype(np.float32)
+    bt_dy = (L.T @ x_int).astype(np.float32)
+    X = rng.integers(-4, 5, (a.n, 8)).astype(np.float64)
+    p_dy = (L @ X).astype(np.float32)
+    for kernel in ("cuda", "fused"):
+        with tempfile.TemporaryDirectory() as root:
+            opts = PlanOptions(kernel=kernel)
+            t1 = time.perf_counter()
+            cold = SpTRSVContext(options=opts, plan_store=PlanStore(root))
+            ch = cold.analyse(a_dy)
+            cold.plan(ch), cold.plan(ch, transpose=True)
+            cold_s = time.perf_counter() - t1
+            xs = [cold.solve(ch, b_dy), cold.solve(ch, bt_dy, transpose=True),
+                  cold.solve(ch, p_dy)]
+            check(np.array_equal(xs[0], x_int) and np.array_equal(xs[1], x_int)
+                  and np.array_equal(xs[2], X), f"phase 10b {kernel}: cold solves not exact")
+            del cold, ch
+            store = PlanStore(root)
+            t1 = time.perf_counter()
+            warm = SpTRSVContext(options=opts, plan_store=store)
+            wh = warm.analyse(a_dy)
+            warm_s = time.perf_counter() - t1
+            s1 = dict(warm.stats())
+            check(s1.get("analyses", 0) == 0 and s1.get("plan_store_hits") == 1
+                  and store.stats.get("rejected", 0) == 0,
+                  f"phase 10b {kernel}: warm session {s1}, store {store.stats}")
+            t1 = time.perf_counter()
+            warm.plan(wh, transpose=True)
+            warm_t_s = time.perf_counter() - t1
+            ws = [warm.solve(wh, b_dy), warm.solve(wh, bt_dy, transpose=True),
+                  warm.solve(wh, p_dy)]
+            check(all(np.array_equal(w, c) for w, c in zip(ws, xs)),
+                  f"phase 10b {kernel}: warm solves differ from the cold session's bits")
+            s2 = warm.stats()
+            check(s2.get("analyses", 0) == 0 and s2.get("transpose_extensions", 0) == 0
+                  and s2["plan_store_hits"] == 2 and store.stats.get("rejected", 0) == 0,
+                  f"phase 10b {kernel}: after the transpose solve {s2}, store {store.stats}")
+            log(f"phase 10b plan store ({kernel}): cold analyse+plan+save (forward and "
+                f"transpose) {cold_s:.2f} s; warm load+refresh+strict verify {warm_s:.2f} s "
+                f"forward, {warm_t_s:.2f} s transpose; 0 analyses, store {store.stats}; "
+                f"forward, transpose and (n, 8) panel bit-equal to the cold session's")
+            del warm, wh
+    sub_s["b store"] = time.perf_counter() - t0
+
+    # (c) the service: a hot/cold mix through launch/serve_solve.py
+    t0 = time.perf_counter()
+    served = dict.fromkeys(kops.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            served[k] += v
+
+    for kernel in ("cuda", "fused"):
+        with tempfile.TemporaryDirectory() as root:
+            argv = ["--hot-side", str(SERVICE_SIDE), "--requests", "48", "--tenants", "4",
+                    "--max-batch", "8", "--kernel", kernel, "--plan-store", root,
+                    "--tol", str(TOL_SOLVE)]
+            kops.reset_launch_counts()
+            with PlainCalls(ref) as plain, otr.trace_to() as tracer:
+                run = serve_solve.serve(serve_solve.parse_args(argv + ["--dyadic"]))
+                batches = [r["attrs"] for r in tracer.export()
+                           if r.get("type") == "span" and r["name"] == "service.batch"]
+            counts = kops.launch_counts()
+            add(counts)
+            check(run.exit_code == 0, f"phase 10c {kernel}: the dyadic mix failed "
+                                      f"(exit {run.exit_code})")
+            check(plain.calls == 0, f"phase 10c {kernel}: {plain.calls} plain-version calls")
+            eng = run.engine
+            st = eng.stats()
+            check(st["requests"] == st["results"] == 48 and len(batches) == st["batches"],
+                  f"phase 10c {kernel}: {st}")
+            # launches: per batch, one TRSV/TRSM and one GEMV/GEMM a level with
+            # work (cuda), or one megakernel launch (fused)
+            plans_by = {pattern_key(m): eng.ctx.plan(eng.ctx.analyse(m)) for m in run.mats}
+            want = dict.fromkeys(kops.KERNELS, 0)
+            for bt in batches:
+                if kernel == "cuda":
+                    w = level_widths(plans_by[bt["pattern"]])
+                    wide = bt["padded_width"] > 1
+                    want["block_trsm" if wide else "block_trsv"] += int((w[:, 0] > 0).sum())
+                    want["block_gemm" if wide else "block_gemv"] += int((w[:, 1] > 0).sum())
+            if kernel == "fused":
+                mega = counts["superstep"] + counts["superstep_streamed"]
+                check(mega == len(batches) and sum(counts.values()) == mega,
+                      f"phase 10c fused: launches {counts} for {len(batches)} batches")
+            else:
+                check(counts == want, f"phase 10c cuda: launches {counts}, not {want}")
+            # every ticket bit-equal to a solo solve of its column
+            t1 = time.perf_counter()
+            with PlainCalls(ref) as plain:
+                for t in run.tickets:
+                    solo = eng.ctx.solve(eng.ctx.analyse(t.request.matrix), t.request.rhs)
+                    check(np.array_equal(solo, t.result(0)),
+                          f"phase 10c {kernel}: request {t.request.id} != its solo solve")
+            check(plain.calls == 0, f"phase 10c {kernel}: plain versions in the solo solves")
+            solo_s = time.perf_counter() - t1
+            per_batch = {k: round(v / len(batches), 2) for k, v in counts.items() if v}
+            width = st["coalesced_columns"] / st["batches"]
+            log(f"phase 10c service ({kernel}, cold, dyadic) seconds in spans: "
+                f"{span_s(tracer.export())}")
+            log(f"phase 10c service ({kernel}, cold, dyadic): {st['batches']} batches, "
+                f"{st['solves'] / run.wall_s:.2f} solves/s, {48 / run.wall_s:.2f} requests/s, "
+                f"coalesce width {width:.2f}, store hit rate "
+                f"{st['plan_store']['hit_rate']:.2f}; launches per batch {json.dumps(per_batch)}; "
+                f"every ticket exact and bit-equal to its solo solve ({solo_s:.1f} s)")
+            bits = {t.request.id: t.result(0) for t in run.tickets}
+            reqs = [(t.request.matrix, t.request.rhs, t.request.id) for t in run.tickets]
+            del run, eng, plans_by
+            # warm, on real values: zero analyses, every solution within TOL_SOLVE
+            kops.reset_launch_counts()
+            out = io.StringIO()
+            with PlainCalls(ref) as plain, contextlib.redirect_stdout(out), \
+                    otr.trace_to() as tracer:
+                code = serve_solve.main(argv + ["--assert-warm", "--assert-hit-rate", "1"])
+            add(kops.launch_counts())
+            for line in out.getvalue().splitlines():
+                log(f"phase 10c service ({kernel}, warm, real values): {line}")
+            log(f"phase 10c service ({kernel}, warm, real values) seconds in spans: "
+                f"{span_s(tracer.export())}")
+            check(code == 0 and plain.calls == 0,
+                  f"phase 10c {kernel}: warm run exit {code}, {plain.calls} plain calls")
+            # the background thread serving blocking tenants, on the engine's stream
+            kops.reset_launch_counts()
+            eng = SolveEngine(options=PlanOptions(kernel=kernel), plan_store=root,
+                              max_batch=8, max_wait_s=0.005)
+            got = {}
+
+            def tenant(m, rhs, rid):
+                got[rid] = eng.submit(f"tenant{rid % 4}", m, rhs).result(timeout=300)
+
+            t1 = time.perf_counter()
+            with eng:
+                threads = [threading.Thread(target=tenant, args=r) for r in reqs[:16]]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+            bg_s = time.perf_counter() - t1
+            add(kops.launch_counts())
+            check(len(got) == 16 and all(np.array_equal(got[r], bits[r]) for r in got),
+                  f"phase 10c {kernel}: the background engine's bits differ")
+            bst = eng.stats()
+            check(bst["session"].get("analyses", 0) == 0,
+                  f"phase 10c {kernel}: the background engine analysed {bst['session']}")
+            log(f"phase 10c service ({kernel}, background thread, 16 blocking tenants): "
+                f"{bst['batches']} batches in {bg_s:.2f} s on stream {eng.stream}, bit-equal "
+                "to the cold run; 0 analyses")
+            del eng
+    torch.cuda.synchronize()
+    sub_s["c service"] = time.perf_counter() - t0
+
+    # (d) launch/solve.py at n ~ 1M, verified
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = solve_cli.main(["--matrix", "webbase-1M", "--scale", str(CLI_SCALE), "--verify",
+                               "--repeats", "3", "--tol", str(TOL_SOLVE)])
+    for line in out.getvalue().splitlines():
+        log(f"phase 10d {line}")
+    check(code == 0, f"phase 10d: launch/solve.py exited {code}")
+    sub_s["d solve cli"] = time.perf_counter() - t0
+    log("phase 10 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
+    return served
 
 
 def main() -> None:
@@ -542,6 +786,7 @@ def main() -> None:
         from repro_torch.krylov import (
             matvec_lower, solve_ic0_pcg, solve_ilu0_bicgstab, spd_lower_from_triangular,
         )
+        from repro_torch.launch.serve_solve import dyadic
         from repro_torch.sparse import suite
         from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
         sys.path.insert(0, str(ROOT / "perf"))
@@ -994,7 +1239,7 @@ def main() -> None:
     x_mega, xt_mega = fctx.solve(fh, b_dy), fctx.solve(fh, bt_dy, transpose=True)
     check(np.array_equal(x_mega, x_int) and np.array_equal(xt_mega, x_int),
           "the megakernel's solve of the dyadic problem is not exact")
-    path_launches7, sf_ms, dense_in = {}, {}, {}
+    path_launches7, sf_ms, dense_in, sf_plans = {}, {}, {}, {}
     for kernel, name in (("cuda", "dense"), ("fused", "frontier")):
         t0 = time.perf_counter()
         yctx = SpTRSVContext(options=PlanOptions(sched="syncfree", kernel=kernel))
@@ -1003,6 +1248,7 @@ def main() -> None:
         torch.cuda.synchronize()
         y_an_s = time.perf_counter() - t0
         yplan, ytplan = yctx.plan(yh), yctx.plan(yh, transpose=True)
+        sf_plans[name] = (yplan, ytplan)
         check(ysolver._syncfree.frontier == (kernel == "fused"),
               f"syncfree kernel={kernel} did not select the {name} form")
 
@@ -1357,6 +1603,15 @@ def main() -> None:
     sub_s["e auto"] = time.perf_counter() - t0
     log("phase 9 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
 
+    # 10. the verifier, the plan store and the solve service
+    phase_start["10 service"] = time.perf_counter()
+    plans10 = {"switch forward": plan, "switch transpose": ctx.plan(h, transpose=True),
+               "resident forward": fctx.plan(fh), "resident transpose": fctx.plan(fh, transpose=True),
+               "streamed forward": splan, "streamed transpose": sctx.plan(sh, transpose=True),
+               **{f"syncfree {k} {d}": p for k, pair in sf_plans.items()
+                  for d, p in zip(("forward", "transpose"), pair)}}
+    service_launches = phase_service(a, a_dy, x_int, plans10, rng)
+
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
     s0, ws = widest(plan, 0)
@@ -1486,7 +1741,7 @@ def main() -> None:
     rows_out += [superstep_row, streamed_row]
     # each later path's launches, counted from 0 around that path alone
     paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
-             "syncfree_pcg": ypcg_launches,
+             "syncfree_pcg": ypcg_launches, "service": service_launches,
              **{f"bicgstab_{k}": v for k, v in path_launches8.items()},
              **path_launches9}
     for row in rows_out:

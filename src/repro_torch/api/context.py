@@ -21,8 +21,10 @@ mode per matrix at analyse time (:mod:`repro_torch.api.autotune`); the
 decision is kept on the handle and reported by
 :meth:`SpTRSVContext.dispatch_stats`. The stages open ``sptrsv.*`` spans
 (:mod:`repro_torch.obs.trace`) and count into a metrics registry
-(:meth:`SpTRSVContext.metrics_snapshot`). The persistent plan store is not
-ported yet (ROADMAP.md).
+(:meth:`SpTRSVContext.metrics_snapshot`). With a ``plan_store``
+(:class:`repro_torch.service.planstore.PlanStore`) the analysis persists
+across processes: ``analyse`` loads a stored plan, strict-verified, before it
+analyses, and every plan the session builds is saved.
 """
 from __future__ import annotations
 
@@ -88,6 +90,7 @@ class SpTRSVHandle:
     solvers: dict = dataclasses.field(default_factory=dict)  # transpose -> Solver
     shapes: set = dataclasses.field(default_factory=set)  # (transpose, R) served
     n_factorize: int = 0
+    plan_store_hit: bool = False  # the analysis came from the persistent store
 
     @property
     def part(self) -> Partition:
@@ -112,6 +115,13 @@ class SpTRSVContext:
     ``session.*`` counter of ``registry`` (default: the process-wide
     :func:`repro_torch.obs.metrics.get_registry`), beside the
     ``session.solve_us`` histogram.
+
+    ``plan_store`` (a :class:`repro_torch.service.planstore.PlanStore`,
+    duck-typed) makes ``analyse`` consult the persistent store before it
+    runs a symbolic analysis — a warm worker serves without one partition or
+    schedule construction (``plan_store_hits``, not ``analyses``) — and
+    saves every plan the session builds; a save that fails counts under
+    ``plan_store_save_errors`` and never fails a solve.
     """
 
     n_devices = 1  # multi-device sessions are not ported yet
@@ -119,10 +129,11 @@ class SpTRSVContext:
     def __init__(self, device: str | torch.device | None = None,
                  options: PlanOptions | SolverConfig | None = None,
                  cache_capacity: int | None = None,
-                 registry: MetricsRegistry | None = None):
+                 registry: MetricsRegistry | None = None, plan_store=None):
         self.device = resolve_device(device)
         self.options = as_options(options)
         self.registry = registry if registry is not None else get_registry()
+        self.plan_store = plan_store
         if cache_capacity is not None and cache_capacity < 1:
             raise ValueError("cache_capacity must be >= 1 (or None: unbounded)")
         self.cache_capacity = cache_capacity
@@ -142,14 +153,28 @@ class SpTRSVContext:
             self._entries.popitem(last=False)
             self._count("evictions")
 
+    def _store_save(self, handle: SpTRSVHandle, plan: Plan) -> None:
+        """Persist a freshly built plan; a read-only or full store degrades
+        to no persistence, never to a failed solve."""
+        if self.plan_store is None:
+            return
+        try:
+            self.plan_store.save(plan, pattern=handle.pattern, options=handle.options)
+        except Exception:
+            self._count("plan_store_save_errors")
+
     # -- analyse ----------------------------------------------------------
 
-    def _analyse_symbolic(self, a: CSR, pattern: str, opts: PlanOptions) -> _Symbolic:
+    @staticmethod
+    def _symbolic_key(pattern: str, opts: PlanOptions) -> tuple:
         # everything the partition construction reads; the kernel backend
         # only matters when it feeds calibrated malleable cost weights
-        key = (pattern, opts.block_size, opts.partition.value,
-               opts.tasks_per_device, opts.rhs_hint, opts.calibrate_cost,
-               opts.kernel.value if opts.calibrate_cost else None)
+        return (pattern, opts.block_size, opts.partition.value,
+                opts.tasks_per_device, opts.rhs_hint, opts.calibrate_cost,
+                opts.kernel.value if opts.calibrate_cost else None)
+
+    def _analyse_symbolic(self, a: CSR, pattern: str, opts: PlanOptions) -> _Symbolic:
+        key = self._symbolic_key(pattern, opts)
         sym = self._symbolic.get(key)
         if sym is not None:
             self._count("symbolic_hits")
@@ -177,8 +202,10 @@ class SpTRSVContext:
         ``tag`` names the numeric content: handles with different tags on the
         same pattern share the analysis but hold independent values. Under
         auto options the tuner runs here, once per (analysis, options);
-        candidates share the one partition. The returned handle carries
-        ``a``'s values until the next :meth:`factorize`.
+        candidates share the one partition. With a plan store, a stored plan
+        for (pattern, options) replaces the whole analysis (auto resolution
+        included). The returned handle carries ``a``'s values until the next
+        :meth:`factorize`.
         """
         opts = as_options(options) if options is not None else self.options
         pat = pattern_key(a)
@@ -194,8 +221,23 @@ class SpTRSVContext:
         plan, decision, solver = None, None, None
         with get_tracer().span("sptrsv.analyse", pattern=pat, tag=tag, n=int(a.n),
                                n_devices=self.n_devices) as span:
-            sym = self._analyse_symbolic(a, pat, opts)
-            if opts.is_auto:
+            if (self.plan_store is not None
+                    and self._symbolic_key(pat, opts) not in self._symbolic):
+                plan = self.plan_store.load(a, self.n_devices, opts)
+            stored = plan is not None
+            if stored:
+                # a store hit: the symbolic analysis and the resolved config
+                # (auto dimensions included) arrive built, hydrated with a's
+                # values and verified; no partition or schedule is built
+                sym = _Symbolic(bs=plan.bs, part=plan.part)
+                config = plan.config
+                if opts.is_auto:
+                    sym.tuned[opts] = (config, None)
+                self._symbolic[self._symbolic_key(pat, opts)] = sym
+                self._count("plan_store_hits")
+                span.set(plan_store_hit=True, sched=config.sched)
+            elif opts.is_auto:
+                sym = self._analyse_symbolic(a, pat, opts)
                 tuned = sym.tuned.get(opts)
                 if tuned is not None:
                     # another handle on this analysis already paid the tuner
@@ -209,12 +251,16 @@ class SpTRSVContext:
                 span.set(sched=config.sched, comm=config.comm,
                          kernel=config.kernel_backend or "default")
             else:
+                sym = self._analyse_symbolic(a, pat, opts)
                 config = opts.to_config()
         handle = SpTRSVHandle(pattern=pat, tag=tag, options=opts, config=config,
-                              matrix=a, symbolic=sym, plan=plan, auto=decision)
+                              matrix=a, symbolic=sym, plan=plan, auto=decision,
+                              plan_store_hit=stored)
         if solver is not None:  # probing already built the winner's executor
             handle.solvers[False] = solver
             handle.shapes.add((False, opts.rhs_hint))
+        if not stored and plan is not None:
+            self._store_save(handle, plan)  # the tuner built the winner already
         self._entries[key] = handle
         self._evict()
         return handle
@@ -316,13 +362,24 @@ class SpTRSVContext:
         once, lazily)."""
         if transpose:
             if handle.tplan is None:
-                handle.tplan = build_plan(handle.matrix, self.n_devices,
-                                          handle.config, transpose=True, device=self.device)
-                self._count("transpose_extensions")
+                if self.plan_store is not None:
+                    handle.tplan = self.plan_store.load(
+                        handle.matrix, self.n_devices, handle.options, transpose=True)
+                if handle.tplan is not None:
+                    self._count("plan_store_hits")
+                else:
+                    handle.tplan = build_plan(handle.matrix, self.n_devices,
+                                              handle.config, transpose=True,
+                                              device=self.device,
+                                              verify=handle.options.verify)
+                    self._count("transpose_extensions")
+                    self._store_save(handle, handle.tplan)
             return handle.tplan
         if handle.plan is None:
             handle.plan = build_plan(handle.matrix, self.n_devices,
-                                     handle.config, part=handle.part, device=self.device)
+                                     handle.config, part=handle.part, device=self.device,
+                                     verify=handle.options.verify)
+            self._store_save(handle, handle.plan)
         return handle.plan
 
     # -- introspection ----------------------------------------------------
@@ -331,6 +388,7 @@ class SpTRSVContext:
         """Dispatch counts for the handle's forward plan, plus the recorded
         auto-tuning decision (``"auto"``) when auto mode ran."""
         stats = dict(dispatch_stats(self.plan(handle)))
+        stats["plan_store_hit"] = handle.plan_store_hit
         if handle.auto is not None:
             d = handle.auto
             stats["auto"] = {
@@ -346,7 +404,7 @@ class SpTRSVContext:
         (symbolic-analysis reuse across handles counts as hits too)."""
         c = dict(self._counters)
         hits = (c.get("analysis_hits", 0) + c.get("solve_cache_hits", 0)
-                + c.get("symbolic_hits", 0))
+                + c.get("symbolic_hits", 0) + c.get("plan_store_hits", 0))
         misses = c.get("analyses", 0) + c.get("solve_cache_misses", 0)
         c["cache_hit_rate"] = hits / (hits + misses) if hits + misses else 0.0
         return c

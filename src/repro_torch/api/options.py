@@ -19,6 +19,7 @@ import enum
 from repro_torch.core.partition import STRATEGIES
 from repro_torch.core.solver import COMM_MODES, SCHED_MODES, SolverConfig
 from repro_torch.kernels.ops import BACKENDS
+from repro_torch.verify.report import LEVELS
 
 AUTO = "auto"
 
@@ -74,6 +75,9 @@ class PlanOptions:
     merge_cost: float = 0.0  # narrow-level cost cap; 0 = analytic threshold
     calibrate_cost: bool = False  # price placement with costmodel.calibrate_weights
     probe_solves: int = 0  # >0: time each auto candidate this many times
+    # static plan verification level ("basic"/"contracts"/"strict") applied to
+    # every plan this session builds; None defers to REPRO_TORCH_VERIFY
+    verify: str | None = None
 
     def __post_init__(self):
         for name, cls in (("sched", Sched), ("comm", Comm), ("kernel", KernelBackend)):
@@ -87,6 +91,10 @@ class PlanOptions:
                 raise ValueError(f"{name} must be >= {lo}, got {getattr(self, name)}")
         if float(self.merge_cost) < 0:
             raise ValueError(f"merge_cost must be >= 0, got {self.merge_cost}")
+        if self.verify is not None and self.verify not in LEVELS:
+            raise ValueError(
+                f"invalid verify: {self.verify!r} (valid choices: {', '.join(LEVELS)})"
+            )
 
     @property
     def is_auto(self) -> bool:

@@ -19,6 +19,7 @@ from repro_torch.core.solver import (
     refresh_plan,
     schedule_table_bytes,
     solve_local,
+    sptrsv,
     step_offsets,
     step_widths,
 )

@@ -37,7 +37,8 @@ the executors open ``torch.profiler.record_function`` ranges
 while a tracer is enabled or a profiler session records.
 
 Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
-exchange). Their plans build; executing one raises ``NotImplementedError``.
+exchange). Their plans build (and verify, :mod:`repro_torch.verify`);
+executing one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import bisect
 import contextlib
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -234,6 +236,7 @@ def _tiles_by_device(bs: BlockStructure, part: Partition, D: int) -> list:
 def build_plan(
     a: CSR, n_devices: int, config: SolverConfig = SolverConfig(),
     *, transpose: bool = False, part: Partition | None = None, device=None,
+    verify: str | None = None,
 ) -> Plan:
     """Build the execution plan of ``a`` for ``n_devices`` devices.
 
@@ -242,6 +245,14 @@ def build_plan(
     transpose plans, which are built on the reversed structure. ``device``
     (``None``: the card) is read only with ``config.calibrate_cost``: the
     device whose weights price the plan.
+
+    ``verify`` runs the static plan verifier (:mod:`repro_torch.verify`)
+    right after construction: a level name (``"basic"``/``"contracts"``/
+    ``"strict"``) runs :func:`repro_torch.verify.verify_plan` at that level
+    and raises :class:`repro_torch.verify.PlanVerificationError` on any
+    finding of error grade (any finding at all for ``"strict"``). ``None``
+    defers to the ``REPRO_TORCH_VERIFY`` environment variable (``1`` =
+    strict, unset = off).
     """
     with get_tracer().span("sptrsv.schedule", n_devices=n_devices,
                            sched=config.sched, comm=config.comm,
@@ -250,6 +261,12 @@ def build_plan(
                            device=device)
         span.set(n_levels=plan.n_levels, n_buckets=len(plan.buckets),
                  comm_bytes_per_solve=plan.comm_bytes_per_solve)
+    # late import: the verifier walks plans, so it imports this module
+    from repro_torch.verify import env_verify_level, verify_plan
+
+    level = env_verify_level() if verify is None else verify
+    if level is not None:
+        verify_plan(plan, level=level).raise_if_failed()
     return plan
 
 
@@ -1029,3 +1046,23 @@ class Solver:
         b_blocks = torch.from_numpy(pad_rhs(b, self.plan.bs))
         x = unpad_x(self.solve_blocks(b_blocks).cpu().numpy(), self.plan.bs)
         return x[::-1].copy() if self.plan.transpose else x
+
+
+def sptrsv(a: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
+           config: SolverConfig = SolverConfig(), transpose: bool = False) -> np.ndarray:
+    """Deprecated one-shot API: analyse, plan and solve ``L x = b`` (or
+    ``L^T x = b``) on ``device`` (``None``: the card).
+
+    A thin shim over :class:`repro_torch.api.SpTRSVContext`: it re-runs the
+    whole analysis on every call, the cost the session amortizes. Hold a
+    context and call ``ctx.solve(ctx.analyse(a), b)`` instead.
+    """
+    warnings.warn(
+        "repro_torch.core.solver.sptrsv is deprecated: use "
+        "repro_torch.api.SpTRSVContext (analyse once, factorize/solve many)",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.api import SpTRSVContext
+
+    ctx = SpTRSVContext(device=device, options=config)
+    return ctx.solve(ctx.analyse(a), b, transpose=transpose)

@@ -821,6 +821,14 @@ int repro_superstep_streamed_f32(const int* off, const int* wid, const int* sr,
   return launch<true>(a, warps, max_items, grid, stream);
 }
 
+// The dynamic shared memory a launch requests: the resident form's
+// (streamed == 0), or the streamed form's with `warps` per CTA and `cap`
+// entries per stage. The rule the launches above apply, for the host to
+// check its own copy of it against (repro_torch.verify, kc.scratch.shape).
+size_t repro_superstep_shared_bytes(int streamed, int warps, int cap, int B) {
+  return streamed ? streamed_bytes(warps, cap, B, (B * (B + 1) + 3) / 4 * 4) : shared_bytes(B);
+}
+
 // Weak: every source defines it, so the sources also link into one module.
 __attribute__((weak)) const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

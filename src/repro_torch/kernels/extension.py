@@ -61,6 +61,12 @@ SIGNATURES = {
 }
 
 
+# entry points that launch nothing: (argument types, result type)
+QUERIES = {
+    "superstep": {"repro_superstep_shared_bytes": ((_I,) * 4, ctypes.c_size_t)},
+}
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
     toolkit's default prefix."""
@@ -114,6 +120,9 @@ def library(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    for fn, (argtypes, restype) in QUERIES.get(name, {}).items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -129,6 +138,12 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} ({msg})")
+
+
+def query(name: str, fn: str, *args):
+    """Call entry point ``fn`` of library ``name`` that launches nothing
+    (:data:`QUERIES`) and return its result."""
+    return getattr(library(name), fn)(*args)
 
 
 def check_operands(fn: str, mat: torch.Tensor, vec: torch.Tensor) -> None:

@@ -135,6 +135,7 @@ def test_context_surfaces_the_decision():
     h = ctx.analyse(a)
     stats = ctx.dispatch_stats(h)
     auto = stats.pop("auto")
+    assert stats.pop("plan_store_hit") is False  # no plan store: analysed here
     assert auto["chosen"] == h.auto.chosen and auto["mode"] == "probed"
     assert h.config == ctx.options.to_config(sched=auto["chosen"][0], comm=auto["chosen"][1],
                                              kernel=auto["chosen"][2])

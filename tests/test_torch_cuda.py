@@ -16,7 +16,7 @@ from repro_torch.core.solver import ENV_STREAM_LIMIT
 from repro_torch.kernels import ops, ref
 from repro_torch.krylov import solve_ic0_pcg, spd_lower_from_triangular
 from repro_torch.sparse import suite
-from repro_torch.sparse.matrix import CSR
+from repro_torch.sparse.matrix import CSR, reference_solve
 
 pytestmark = pytest.mark.cuda
 
@@ -699,3 +699,170 @@ def test_plain_fused_above_the_limit_launches_the_streamed_kernel(cuda_device, m
     resident = SpTRSVContext(options=PlanOptions(block_size=16, kernel="fused"))
     np.testing.assert_array_equal(resident.solve(resident.analyse(a), b), x)
 
+
+
+# ---------------------------------------------------------------------------
+# the verifier, the plan store and the solve service on the card
+# ---------------------------------------------------------------------------
+
+
+def _exact_requests(mats, n_requests, seed=5):
+    """(matrix, b, x) triples: b = L x for a small-integer x, so every
+    partial sum of the solve is exact and any correct order gives x."""
+    from repro_torch.sparse.matrix import to_scipy
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_requests):
+        a = mats[0] if i % 3 or len(mats) == 1 else mats[1 + (i // 3) % (len(mats) - 1)]
+        x = rng.integers(-4, 5, a.n).astype(np.float64)
+        out.append((a, (to_scipy(a) @ x).astype(np.float32), x.astype(np.float32)))
+    return out
+
+
+def _service_mats():
+    return [_dyadic(suite.random_levelled(n, lv, 4.0, seed=s), seed=s)
+            for n, lv, s in ((700, 9, 3), (300, 6, 4), (200, 5, 5))]
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused", "fused_streamed"])
+def test_engine_coalesced_bit_equal_to_solo(cuda_device, kernel, no_plain_block_ops):
+    from repro_torch.api import pattern_key
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import trace_to
+    from repro_torch.service import SolveEngine
+
+    eng = SolveEngine(options=PlanOptions(block_size=16, kernel=kernel), max_batch=8,
+                      registry=MetricsRegistry())
+    reqs = _exact_requests(_service_mats(), 20)
+    ops.reset_launch_counts()
+    with trace_to() as tracer:
+        tickets = [eng.submit(f"t{i % 4}", a, b) for i, (a, b, _) in enumerate(reqs)]
+        assert eng.drain() == len(reqs)
+        batches = [r["attrs"] for r in tracer.export()
+                   if r.get("type") == "span" and r["name"] == "service.batch"]
+    counts = ops.launch_counts()
+    assert eng.stats()["batches"] == len(batches) < len(reqs)
+    plans = {pattern_key(a): eng.ctx.plan(eng.ctx.analyse(a)) for a, _, _ in reqs}
+    want = dict.fromkeys(counts, 0)
+    for bt in batches:
+        p = plans[bt["pattern"]]
+        if kernel == "cuda":
+            lv = tsolver_level_work(p)
+            panel = bt["padded_width"] > 1
+            want["block_trsm" if panel else "block_trsv"] += lv[0]
+            want["block_gemm" if panel else "block_gemv"] += lv[1]
+        else:
+            want["superstep" if kernel == "fused" else "superstep_streamed"] += 1
+    assert counts == want
+    for t, (a, b, x) in zip(tickets, reqs):
+        got = t.result(0)
+        np.testing.assert_array_equal(got, x)
+        np.testing.assert_array_equal(got, eng.ctx.solve(eng.ctx.analyse(a), b))
+
+
+def tsolver_level_work(plan):
+    """(levels with rows, levels with tiles): the switch executor's launches
+    of the solve and the update kernel per solve."""
+    from repro_torch.core.solver import level_widths
+
+    w = level_widths(plan)
+    return int((w[:, 0] > 0).sum()), int((w[:, 1] > 0).sum())
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+def test_plan_store_round_trip_on_the_card(cuda_device, kernel, tmp_path):
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.service import PlanStore
+
+    (a, b, x), = _exact_requests(_service_mats()[:1], 1)
+    panel = np.stack([b, 2 * b, -b], axis=1)
+    opts = PlanOptions(block_size=16, kernel=kernel)
+
+    def session():
+        store = PlanStore(str(tmp_path), registry=MetricsRegistry())
+        return SpTRSVContext(options=opts, plan_store=store, registry=MetricsRegistry())
+
+    cold = session()
+    h = cold.analyse(a)
+    got = [cold.solve(h, b), cold.solve(h, b, transpose=True), cold.solve(h, panel)]
+    np.testing.assert_array_equal(got[0], x)
+    warm = session()
+    h2 = warm.analyse(a)
+    for g, w in zip([warm.solve(h2, b), warm.solve(h2, b, transpose=True),
+                     warm.solve(h2, panel)], got):
+        np.testing.assert_array_equal(g, w)
+    s = warm.stats()
+    assert s.get("analyses", 0) == 0 and s["plan_store_hits"] == 2
+    assert warm.plan_store.stats.get("rejected", 0) == 0
+    assert warm.executor(h2).device.type == "cuda"
+
+
+def test_background_engine_launches_on_its_one_stream(cuda_device, monkeypatch):
+    from repro_torch.kernels import extension
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.service import SolveEngine
+
+    side = torch.cuda.Stream()
+    eng = SolveEngine(options=PlanOptions(block_size=16, kernel="fused"), max_batch=4,
+                      max_wait_s=0.005, registry=MetricsRegistry(), stream=side)
+    assert eng.stream is side
+    streams, real = [], extension.launch
+
+    def recording(name, fn, device, *args):
+        streams.append(torch.cuda.current_stream(device))
+        return real(name, fn, device, *args)
+
+    monkeypatch.setattr(extension, "launch", recording)
+    reqs = _exact_requests(_service_mats(), 12, seed=7)
+    results = {}
+
+    def tenant(i):
+        a, b, _ = reqs[i]
+        results[i] = eng.submit(f"t{i % 3}", a, b).result(timeout=120)
+
+    import threading
+
+    with eng:
+        threads = [threading.Thread(target=tenant, args=(i,)) for i in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    assert len(results) == len(reqs) and streams
+    assert all(s == side for s in streams), {str(s) for s in streams}
+    for i, (_, _, x) in enumerate(reqs):
+        np.testing.assert_array_equal(results[i], x)
+    # the same bits from a synchronous engine on the default stream
+    sync = SolveEngine(options=PlanOptions(block_size=16, kernel="fused"),
+                       registry=MetricsRegistry())
+    tickets = [sync.submit("t", a, b) for a, b, _ in reqs]
+    sync.drain()
+    for i, t in enumerate(tickets):
+        np.testing.assert_array_equal(t.result(0), results[i])
+
+
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_scratch_shape_rule_is_the_launchs(cuda_device, B):
+    """The verifier's kc.scratch.shape holds the host's copy of the shared
+    memory rule; the launch code's own (csrc/superstep.cu) agrees."""
+    from repro_torch.core import solver as tsolver
+    from repro_torch.kernels import extension, superstep
+    from repro_torch.verify import verify_plan
+
+    a = _dyadic(suite.random_levelled(800, 8, 4.0, seed=B))
+    for kernel in ("fused", "fused_streamed"):
+        plan = tsolver.build_plan(a, 1, tsolver.SolverConfig(block_size=B, kernel_backend=kernel))
+        report = verify_plan(plan, level="strict")
+        assert report.passed and "kc.scratch.shape" in report.rules_checked
+        layout = tsolver.fused_layouts(plan)[0]
+        warps, cap = superstep.streamed_shape(B, layout.max_item_tiles)
+        launch = extension.query("superstep", "repro_superstep_shared_bytes", 1, warps, cap, B)
+        assert tsolver.fused_vmem_bytes(plan, streamed=True) == launch
+        assert tsolver.fused_vmem_bytes(plan) == extension.query(
+            "superstep", "repro_superstep_shared_bytes", 0, 0, 0, B)
+        # and the launch runs with that much: a solve of the plan's own executor
+        ctx = SpTRSVContext(options=PlanOptions(block_size=B, kernel=kernel))
+        b = np.ones(a.n, np.float32)
+        np.testing.assert_allclose(ctx.solve(ctx.analyse(a), b), reference_solve(a, b),
+                                   rtol=2e-4, atol=2e-4)

@@ -235,7 +235,9 @@ def test_context_metrics_snapshot_mirrors_stats():
     assert snap["session.solves"] == snap["session.solve_us"]["count"] == 3
     assert snap["session.solve_us"]["min"] > 0
     plan = ctx.plan(h)
-    for k, v in ctx.dispatch_stats(h).items():
+    stats = ctx.dispatch_stats(h)
+    assert stats.pop("plan_store_hit") is False  # a handle's origin, not a plan gauge
+    for k, v in stats.items():
         assert snap[f"plan.{k}"] == (int(v) if isinstance(v, bool) else v), k
     cs = cut_stats(plan.bs, plan.part)
     assert snap["plan.boundary_rows"] == cs.boundary_rows

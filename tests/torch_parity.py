@@ -98,7 +98,23 @@ SHARED_LIMIT = 232_448  # bytes of dynamic shared memory one Hopper block may us
 #   streams above 8 MiB of VMEM;
 # - the auto-tuner's INTERPRET_PENALTY applies where the port runs a
 #   megakernel's plain version (fused levelset/dagpart on the CPU), where the
-#   reference applies it in Pallas interpret mode (test_torch_autotune.py).
+#   reference applies it in Pallas interpret mode (test_torch_autotune.py);
+# - the verifier's switch is REPRO_TORCH_VERIFY (the reference reads
+#   REPRO_VERIFY) (test_torch_verify.py);
+# - the verifier's kc.stream.slices, kc.stream.bytes, kc.scratch.shape and
+#   kc.carry.donation check the port's Hopper contracts (the streamed
+#   layout's work items, the bytes the streamed kernel copies per column,
+#   the shared memory a launch requests, the wrappers' fresh outputs) where
+#   the reference's check its TPU kernel's level-slice DMA bursts, VMEM
+#   scratch and input_output_aliases; they keep the reference's ids and fire
+#   on the same mutations of the plan (test_torch_verify.py);
+# - the verifier has one rule the reference lacks, kc.pull.wait (the
+#   resident kernel's pull table waits exactly on rows the launch solves),
+#   run after the streaming rules: PORT_ONLY_RULES (test_torch_verify.py);
+# - SpTRSVContext, SolveEngine and the CLIs take device= (the card unless
+#   "cpu"), where the reference's take mesh=; the engine launches on one CUDA
+#   stream of its own choosing (test_torch_service.py, test_torch_cuda.py).
+PORT_ONLY_RULES = ("kc.pull.wait",)
 
 
 def hopper_fused_stats(ref_plan) -> dict:
