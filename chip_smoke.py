@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~5 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~7 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -115,7 +115,28 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    scipy), then from the engine's background thread to 16 blocking
    tenants with the cold run's bits; (d) ``launch/solve.py --matrix
    webbase-1M --scale CLI_SCALE --verify`` (n = 996,000) exits 0 within
-   2e-4 of scipy.
+   2e-4 of scipy;
+11. multi-device ``comm="unified"`` (seconds per sub-step printed): (a)
+   ``UNIFIED_RANKS`` processes, one gloo group, all on ``cuda:0``, each
+   ``SpTRSVContext(device="cuda:0", group=...)`` on phase 3's factor (each
+   rank half the tiles; a non-empty cut), every plan strict-verified:
+   plain ``fused`` (the streamed split form) levelset forward and
+   transpose and dagpart forward, the resident split form
+   (``REPRO_TORCH_STREAM_LIMIT`` above the store) and ``kernel="cuda"``
+   (the block kernels once per level with work) forward, each within 2e-4
+   of scipy with exactly ``n_supersteps`` launches of the split form and
+   ``n_supersteps`` exchanges, as ``dispatch_stats`` says, and no plain
+   version; the dyadic twin under ``fused``, resident and ``cuda``, every
+   rank's ``x`` equal to ``x_int``; an (n, 8) panel of
+   ``grid2d_factor(PCG_SIDE)`` under ``fused``; ms per solve beside the
+   one-device megakernel's; (b) the split kernel, resident and streamed,
+   against its plain version on one launch of a dagpart merged step with
+   non-zero carries (bit-equal on a dyadic problem, within 2e-4 on the
+   factor's widest merged step, timed there); (c) ``launch/solve.py
+   --comm unified --dist-backend gloo --device cuda:0`` under
+   ``torch.distributed.run`` with ``UNIFIED_RANKS`` ranks exits 0. These
+   ranks share one card through gloo over host memory: no interconnect is
+   measured.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -135,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -168,6 +190,9 @@ KERNELS = {
     "block_gemv_grouped": ("src/repro/kernels/block_spmv.py:30", "block_spmv.cu"),
     "superstep": ("src/repro/kernels/superstep.py:146", "superstep.cu"),
     "superstep_streamed": ("src/repro/kernels/superstep.py:182", "superstep.cu"),
+    # split_delta=True (the carries at :163, the solve's rhs at :237)
+    "superstep_split": ("src/repro/kernels/superstep.py:163", "superstep.cu"),
+    "superstep_streamed_split": ("src/repro/kernels/superstep.py:237", "superstep.cu"),
 }
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 # the __global__ function that serves each block kernel at the timed shapes
@@ -186,6 +211,8 @@ ROW_SWEEPS = ("block_trsv", "block_trsm", "block_trsv_panel")  # rows with a cha
 PANEL_BP = ((8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32))  # panel oracle
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
 ORACLE_CHUNK = 4096  # tiles per host oracle call at the syncfree shapes
+UNIFIED_RANKS = 2  # phase 11: gloo ranks, all on cuda:0
+UNIFIED_TIMEOUT = 600  # seconds phase 11's ranks may take
 
 
 def fail(msg: str) -> None:
@@ -756,6 +783,365 @@ def phase_service(a, a_dy, x_int, plans: dict, rng) -> dict:
     sub_s["d solve cli"] = time.perf_counter() - t0
     log("phase 10 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
     return served
+
+
+# ---------------------------------------------------------------------------
+# phase 11: multi-device comm="unified", UNIFIED_RANKS gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+
+def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
+    """One rank of phase 11 (a process of its own, started by ``spawn``):
+    joins the gloo group, solves the n = SIDE^2 factor on ``cuda:0`` through
+    ``SpTRSVContext(group=...)`` with ``comm="unified"`` in each form, checks
+    each solve, and puts its results on ``out``. A failed check exits
+    non-zero, which fails the phase."""
+    import datetime
+    import os
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import PlanOptions, SpTRSVContext
+    from repro_torch.core.solver import dispatch_stats, level_widths
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve_solve import dyadic
+    from repro_torch.sparse import suite
+    from repro_torch.verify import verify_plan
+
+    sys.path.insert(0, str(ROOT / "perf"))
+    import stream_crossover
+
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=UNIFIED_RANKS, timeout=datetime.timedelta(seconds=300))
+    group = dist.group.WORLD
+    data = np.load(inputs)
+    a = suite.grid2d_factor(int(data["side"]), seed=6)
+    a_dy = dyadic(a, seed=SEED)
+    ctx = SpTRSVContext(device=str(data["device"]), group=group)
+    res = {"rank": rank, "forms": {}}
+
+    def one_solve(name, h, rhs, want=None, transpose=False):
+        """A solve after a barrier, its host-clock ms, launches, exchanges
+        and plain-version calls, checked against ``dispatch_stats``."""
+        solver = ctx.executor(h, transpose=transpose)
+        plan = solver.plan
+        torch.cuda.synchronize()
+        dist.barrier()
+        kops.reset_launch_counts()
+        with PlainCalls(ref) as plain:
+            t0 = time.perf_counter()
+            x = ctx.solve(h, rhs, transpose=transpose)
+            ms = 1e3 * (time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        stats = dispatch_stats(plan)
+        n_steps = plan.n_supersteps
+        check(plan.n_boundary_rows > 0, f"phase 11 {name}: the cut is empty")
+        check(solver.exchanges == stats["exchanges"] == n_steps,
+              f"phase 11 {name}: {solver.exchanges} exchanges, dispatch_stats "
+              f"{stats['exchanges']}, {n_steps} supersteps")
+        check(plain.calls == 0, f"phase 11 {name}: {plain.calls} plain-version calls")
+        if h.config.kernel_backend == "cuda":
+            w = level_widths(plan)
+            wide = np.ndim(rhs) == 2
+            want_counts = {**dict.fromkeys(counts, 0),
+                           "block_trsm" if wide else "block_trsv": int((w[:, 0] > 0).sum()),
+                           "block_gemm" if wide else "block_gemv": int((w[:, 1] > 0).sum())}
+        else:
+            split = "superstep_streamed_split" if stats["streamed"] else "superstep_split"
+            want_counts = {**dict.fromkeys(counts, 0), split: stats["fused_launches"]}
+            check(stats["fused_launches"] == n_steps,
+                  f"phase 11 {name}: dispatch_stats fused_launches {stats['fused_launches']}")
+        check(counts == want_counts, f"phase 11 {name}: launches {counts}, not {want_counts}")
+        row = {"ms": ms, "launches": counts, "exchanges": solver.exchanges,
+               "supersteps": n_steps, "levels": plan.n_levels, "streamed": stats["streamed"],
+               "boundary_rows": plan.n_boundary_rows}
+        if want is not None:
+            e = rel_err(x, want)
+            check(np.isfinite(e) and e <= TOL_SOLVE, f"phase 11 {name}: rel err {e:.3e}")
+            row["rel_err"] = e
+        res["forms"][name] = row
+        return x
+
+    def verified(h, transpose=False):
+        report = verify_plan(ctx.plan(h, transpose=transpose), level="strict")
+        check(report.passed, f"phase 11: rank {rank} plan fails strict verify: "
+                             f"{report.summary()}")
+
+    b, b_dy, x_int = data["b"], data["b_dy"], data["x_int"]
+    store = 2 * int(data["store_bytes"])
+    forms = {"fused": (PlanOptions(comm="unified", kernel="fused"), False),
+             "fused_dagpart": (PlanOptions(comm="unified", sched="dagpart", kernel="fused"),
+                               False),
+             "resident": (PlanOptions(comm="unified", kernel="fused"), True),
+             "cuda": (PlanOptions(comm="unified", kernel="cuda"), False)}
+    handles = {}
+    for name, (opts, resident) in forms.items():
+        with (stream_crossover.stream_limit_env(store) if resident
+              else contextlib.nullcontext()):
+            h = handles[name] = ctx.analyse(a, opts, tag=name)
+            verified(h)
+            ctx.executor(h)  # tables, layouts, stores, upload
+            check(ctx.dispatch_stats(h)["streamed"] == (name in ("fused", "fused_dagpart")),
+                  f"phase 11 {name}: streamed={ctx.dispatch_stats(h)['streamed']}")
+            one_solve(name, h, b, data["want_forward"])
+            if name == "fused":
+                verified(h, transpose=True)
+                one_solve("fused_transpose", h, b, data["want_transpose"], transpose=True)
+    # the dyadic twin: every rank's x is x_int bit for bit under each form
+    for name in ("fused", "resident", "cuda"):
+        with (stream_crossover.stream_limit_env(store) if name == "resident"
+              else contextlib.nullcontext()):
+            ctx.factorize(a_dy, handles[name])
+            x = one_solve(f"{name}_dyadic", handles[name], b_dy)
+        check(np.array_equal(x, x_int), f"phase 11 {name}: the dyadic twin's x != x_int "
+                                        f"on rank {rank}")
+    # an (n, 8) panel on the n = PCG_SIDE^2 factor under plain fused
+    a_p = suite.grid2d_factor(int(data["panel_side"]), seed=6)
+    hp = ctx.analyse(a_p, PlanOptions(comm="unified", kernel="fused"))
+    verified(hp)
+    ctx.executor(hp)
+    one_solve("fused_panel_r8", hp, data["panel_p"], data["want_panel_p"])
+    res["n_boundary_rows"] = ctx.plan(handles["fused"]).n_boundary_rows
+    res["n_tiles_here"] = int(ctx.executor(handles["cuda"])._tiles.shape[0])
+    out.put(res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def split_bound(plan, d: int, table, R: int) -> tuple[float, str]:
+    """Least time (ms) of one split launch of device ``d``'s ``table``
+    with these inputs: each solved
+    row's lower triangle and each pulled tile read once; per solved row b,
+    acc and delta read, delta and x written, per orphan its delta read and
+    written; the int32 tables it reads; float32 operations B^2 per solved
+    row and 2 B^2 per pulled tile, per column."""
+    import numpy as np
+
+    B = plan.bs.B
+    t_lo, t_hi = table.levels
+    off = plan.lvl_off.astype(np.int64)
+    slots = np.arange(off[t_lo, 0], table.n_solve_slots)
+    rows = int((plan.solve_rows[d][slots] >= 0).sum())
+    ptr = table.pull_ptr[table.ptr_at:]
+    tiles = int(ptr[table.n_solve_slots + table.n_orphans] - ptr[off[t_lo, 0]])
+    ints = slots.size + table.n_orphans + 1 + 2 * tiles
+    nbytes = 4 * (rows * B * (B + 1) // 2 + tiles * B * B
+                  + (5 * rows + 2 * table.n_orphans) * B * R + ints)
+    flops = R * (rows * B * B + tiles * 2 * B * B)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_kernel_rows(a, r0: dict, rng, device: str = "cuda:0") -> list:
+    """The split kernel, resident and streamed, against its plain version on
+    one launch of a dagpart merged step with non-zero carries: bit-equal on a
+    dyadic problem (the card tests' merged step), within TOL_SOLVE on ``a``'s
+    widest merged step (device 0 of UNIFIED_RANKS); there, its ms per launch
+    beside its bound and its plain version's. ``r0`` is rank 0's results
+    (launches per solve). Returns the two kernel rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solver import SolverConfig, build_plan, level_widths, step_offsets
+    from repro_torch.kernels import ref, superstep
+    from repro_torch.launch.serve_solve import dyadic
+    from repro_torch.sparse import suite
+
+    rows_out, err = [], {}
+    for values in ("dyadic", "real"):
+        # dyadic: the card tests' merged step (tests/test_torch_cuda.py, B = 16):
+        # device 1 of four, small-integer carries; real: the factor, device 0 of two
+        if values == "dyadic":
+            src, D, B, d, vrng = (dyadic(suite.random_levelled(1600, 12, 4.0, seed=6)), 4, 16,
+                                  1, np.random.default_rng(16))
+        else:
+            src, D, B, d, vrng = a, UNIFIED_RANKS, 32, 0, rng
+        plan = build_plan(src, D, SolverConfig(block_size=B, comm="unified", sched="dagpart"))
+        so = step_offsets(plan)
+        sw = level_widths(plan)[:, 0]
+        merged = np.nonzero(np.diff(so) > 1)[0]
+        steps = merged if merged.size else np.arange(plan.n_supersteps)
+        width = np.array([sw[so[s]:so[s + 1]].sum() for s in steps])
+        s = int(steps[np.argmax(width)]) if values == "real" else int(np.argmax(np.diff(so)))
+        host = [np.array([s, 1])] + [plan.lvl_off, level_widths(plan), plan.solve_rows[d],
+                                     plan.upd_tiles[d], plan.tile_row[d], plan.tile_col[d]]
+        tables = [torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(device)
+                  for t in host]
+        stp = torch.from_numpy(np.ascontiguousarray(so, dtype=np.int32)).to(device)
+        host_layout = superstep.segmented_layout(*host[1:], n_rows=plan.bs.nb + 1, stp=so,
+                                                 bounds=np.arange(len(so)))
+        layout = host_layout.to(device)
+        table = layout.segments[s]
+        shape = (plan.bs.nb + 1, plan.bs.B)
+        vecs = [(vrng.uniform(-1, 1, shape) if values == "real"
+                 else vrng.integers(-3, 4, shape)).astype(np.float32) for _ in range(4)]
+        for v in vecs:
+            v[-1] = 0
+        b_pad, acc, delta, x = (torch.from_numpy(v).to(device) for v in vecs)
+        diag = torch.from_numpy(plan.diag).to(device)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[d])).to(device)
+        values_ = superstep.streamed_values(layout, diag, tiles)
+        flags = superstep.ReadyFlags(shape[0], device)
+        plain = ref.superstep_ref(*tables, diag, tiles, b_pad, acc, x, stp, delta=delta)
+        if values == "dyadic":  # nothing rounds: float32 gives the float64 result
+            exact = ref.superstep_ref(*tables, diag.double(), tiles.double(), b_pad.double(),
+                                      acc.double(), x.double(), stp, delta=delta.double())
+            check(all(torch.equal(p_, e_.float()) for p_, e_ in zip(plain, exact)),
+                  "phase 11: the dyadic merged step rounds: no bit check possible")
+        for form in ("superstep_split", "superstep_streamed_split"):
+            d_, x_ = delta.clone(), x.clone()
+            if form == "superstep_split":
+                superstep.superstep_split_(*tables, diag, tiles, b_pad, acc, d_, x_, stp,
+                                           table=table, flags=flags)
+            else:
+                superstep.superstep_streamed_split_(*tables, values_, b_pad, acc, d_, x_, stp,
+                                                    layout=layout, table=table, flags=flags)
+            torch.cuda.synchronize()
+            got = (acc, d_, x_)
+            if values == "dyadic":
+                check(all(torch.equal(g, w) for g, w in zip(got, plain)),
+                      f"{form} != its plain version on the dyadic merged step")
+                continue
+            e = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+            scale = max(float(w.abs().max()) for w in plain)
+            check(e <= TOL_SOLVE * scale, f"{form} vs plain: max abs err {e:.3e}")
+            err[form] = e
+
+            def launch(form=form, d_=d_, x_=x_):
+                if form == "superstep_split":
+                    superstep.superstep_split_(*tables, diag, tiles, b_pad, acc, d_, x_, stp,
+                                               table=table, flags=flags)
+                else:
+                    superstep.superstep_streamed_split_(*tables, values_, b_pad, acc, d_, x_,
+                                                        stp, layout=layout, table=table,
+                                                        flags=flags)
+
+            bound_ms, bound_by = split_bound(plan, d, host_layout.segments[s], 1)
+            path = "fused" if form == "superstep_streamed_split" else "resident"
+            rows_out.append({
+                "name": form, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{KERNELS[form][1]}",
+                "replaces": KERNELS[form][0],
+                "launches": r0["forms"][path]["launches"][form], "max_abs_err": e,
+                "ms": time_ms(launch, 50),
+                "plain_ms": time_ms(lambda: ref.superstep_ref(
+                    *tables, diag, tiles, b_pad, acc, x, stp, delta=delta), 3, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "shape": [a.n, plan.bs.B, 1], "superstep": s,
+                "levels": [int(so[s]), int(so[s + 1])],
+                "launches_per_solve": r0["forms"][path]["supersteps"]})
+        log(f"phase 11 split kernels vs plain ({values}, {D} devices, B={B}, device {d}, "
+            f"superstep {s}: levels {int(so[s])}..{int(so[s + 1]) - 1}, "
+            f"{int(sw[so[s]:so[s + 1]].sum())} solve slots, "
+            f"{table.n_orphans} orphans): "
+            + ("bit-identical, resident and streamed" if values == "dyadic" else
+               ", ".join(f"{k} max abs {v:.2e}" for k, v in err.items())))
+    for row in rows_out:
+        log(f"phase 11 {row['name']}: {row['ms']:.4f} ms per launch (CUDA events, 50 "
+            f"launches) at superstep {row['superstep']}, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.2f} ms; "
+            f"{row['launches_per_solve']} launches per solve")
+    return rows_out
+
+
+def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: dict,
+                  rng, side: int = SIDE, panel_side: int = PCG_SIDE,
+                  device: str = "cuda:0") -> tuple:
+    """Phase 11 on ``a`` (``grid2d_factor(side, seed=6)``; ``b``, ``b_dy``,
+    ``x_int`` and ``want`` as in main): the ranks' solves
+    (:func:`unified_rank`), the split kernel against its plain version and
+    its times (:func:`split_kernel_rows`), and the CLI under
+    ``torch.distributed.run``. Returns the kernel rows of the split forms
+    and the launches of each rank-0 solve, by path."""
+    import multiprocessing
+    import queue
+
+    import numpy as np
+
+    from repro_torch.sparse import suite
+    from repro_torch.sparse.matrix import reference_solve
+
+    sub_s = {}
+    t0 = time.perf_counter()
+    a_p = suite.grid2d_factor(panel_side, seed=6)
+    panel_p = rng.uniform(-1, 1, (a_p.n, 8))
+    spawn = multiprocessing.get_context("spawn")
+    out = spawn.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = str(Path(tmp) / "inputs.npz")
+        np.savez(inputs, b=b, b_dy=b_dy, x_int=x_int, want_forward=want["forward"],
+                 want_transpose=want["transpose"], panel_p=panel_p,
+                 want_panel_p=reference_solve(a_p, panel_p), store_bytes=store_bytes,
+                 side=side, panel_side=panel_side, device=device)
+        procs = [spawn.Process(target=unified_rank,
+                               args=(r, inputs, str(Path(tmp) / "rendezvous"), out))
+                 for r in range(UNIFIED_RANKS)]
+        for p in procs:
+            p.start()
+        results = []
+        try:
+            deadline = time.perf_counter() + UNIFIED_TIMEOUT
+            while len(results) < UNIFIED_RANKS:
+                check(time.perf_counter() < deadline, "phase 11: the ranks timed out")
+                bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                check(not bad, f"phase 11: a rank exited {bad}")
+                with contextlib.suppress(queue.Empty):
+                    results.append(out.get(timeout=5))
+            for p in procs:
+                p.join(60)
+            check(all(p.exitcode == 0 for p in procs),
+                  f"phase 11: ranks exited {[p.exitcode for p in procs]}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+    sub_s["a ranks"] = time.perf_counter() - t0
+    results.sort(key=lambda r: r["rank"])
+    r0 = results[0]
+    for name, row in r0["forms"].items():
+        other = [r["forms"][name]["ms"] for r in results[1:]]
+        log(f"phase 11 {name}: {row['ms']:.1f} ms/solve on rank 0 (others {other}), "
+            f"{row['supersteps']} supersteps of {row['levels']} levels, {row['exchanges']} "
+            f"exchanges, launches {json.dumps({k: v for k, v in row['launches'].items() if v})}"
+            + (f", rel err {row['rel_err']:.2e}" if "rel_err" in row else ", bit-equal to x"))
+    log(f"phase 11 ({UNIFIED_RANKS} ranks sharing one card through gloo over host memory; "
+        f"no interconnect measured): boundary rows {r0['n_boundary_rows']}, tiles per rank "
+        f"{[r['n_tiles_here'] for r in results]}; ms/solve beside the one-device megakernel "
+        f"(phases 5 and 6, ctx.solve medians): fused {r0['forms']['fused']['ms']:.1f} vs "
+        f"streamed {one_device['streamed']:.2f}; resident {r0['forms']['resident']['ms']:.1f} "
+        f"vs {one_device['resident']:.2f}; cuda {r0['forms']['cuda']['ms']:.1f} vs the "
+        f"one-device switch {one_device['switch']:.2f}")
+
+    t0 = time.perf_counter()
+    rows_out = split_kernel_rows(a, r0, rng, device)
+    sub_s["b split kernels"] = time.perf_counter() - t0
+
+    # the CLI under torch.distributed.run, both ranks on this card (full
+    # option names only: torch.distributed.run reads an abbreviation of one
+    # of its own, such as --n, as its own)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(UNIFIED_RANKS), "-m", "repro_torch.launch.solve",
+           "--matrix", "webbase-1M", "--scale", "2", "--comm", "unified",
+           "--sched", "dagpart", "--kernel", "fused", "--dist-backend", "gloo",
+           "--device", device, "--repeats", "2", "--tol", str(TOL_SOLVE), "--verify"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    for line in run.stdout.splitlines():
+        if line.startswith("[solve]"):
+            log(f"phase 11 cli {line}")
+    check(run.returncode == 0, f"phase 11: the CLI under torch.distributed.run exited "
+                               f"{run.returncode}: {run.stderr[-2000:]}")
+    sub_s["c cli"] = time.perf_counter() - t0
+    log("phase 11 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
+    paths = {f"unified_{name}": {**dict.fromkeys(r0["forms"]["fused"]["launches"], 0),
+                                 **row["launches"]}
+             for name, row in r0["forms"].items()}
+    return rows_out, paths
 
 
 def main() -> None:
@@ -1612,6 +1998,13 @@ def main() -> None:
                   for d, p in zip(("forward", "transpose"), pair)}}
     service_launches = phase_service(a, a_dy, x_int, plans10, rng)
 
+    # 11. multi-device comm="unified": UNIFIED_RANKS gloo ranks on this card
+    phase_start["11 unified"] = time.perf_counter()
+    split_rows, unified_paths = phase_unified(
+        a, b, b_dy, x_int, want, plan.diag.nbytes + plan.tiles.nbytes,
+        {"streamed": stiming["forward"][2], "resident": ftiming["forward"][2],
+         "switch": timing["forward"][2]}, rng)
+
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
     s0, ws = widest(plan, 0)
@@ -1738,12 +2131,12 @@ def main() -> None:
     log("block kernels' device-only ms at the widest level (kernel / torch library call): "
         + ", ".join(f"{r['name']}={r['device_ms']} / {r['library_device_ms']}"
                     for r in rows_out))
-    rows_out += [superstep_row, streamed_row]
+    rows_out += [superstep_row, streamed_row] + split_rows
     # each later path's launches, counted from 0 around that path alone
     paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
              "syncfree_pcg": ypcg_launches, "service": service_launches,
              **{f"bicgstab_{k}": v for k, v in path_launches8.items()},
-             **path_launches9}
+             **path_launches9, **unified_paths}
     for row in rows_out:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     torch.cuda.synchronize()

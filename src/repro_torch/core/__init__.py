@@ -1,4 +1,4 @@
-"""Symbolic analysis, partitioning, plans and the single-device executor."""
+"""Symbolic analysis, partitioning, plans and their executors."""
 from repro_torch.core.analysis import in_degrees, level_sets, metrics
 from repro_torch.core.blocking import BlockStructure, build_blocks, pad_rhs, unpad_x
 from repro_torch.core.partition import (

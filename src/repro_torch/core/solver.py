@@ -1,4 +1,4 @@
-"""SpTRSV plans and the single-device executors.
+"""SpTRSV plans and their executors.
 
 Plan construction is host numpy and byte-identical to the reference
 package's: block rows are owned by a :class:`~repro_torch.core.partition.Partition`,
@@ -7,8 +7,8 @@ tiles live on the owner of their *column*, and every schedule is stored
 ``ex_rows``) plus per-level offsets (``lvl_off``), each level's slice padded
 only up to a *bucket width* from a small ladder (``Plan.buckets``).
 
-Execution (:class:`Solver`) runs on one device. ``sched="levelset"`` and
-``"dagpart"`` plans run on one of two executors:
+Execution (:class:`Solver`) runs on one device per process.
+``sched="levelset"`` and ``"dagpart"`` plans run on one of two executors:
 
 * the per-level switch executor (backends ``reference`` and ``cuda``): for
   each block level, gather the level's rows, solve their diagonal tiles
@@ -30,15 +30,31 @@ each sweep, solved and applied at a width from :func:`_frontier_ladder`).
 and the streamed one above it (:func:`fused_streaming`, the limit measured
 on the card, :data:`DEFAULT_STREAM_LIMIT`).
 
+A multi-device plan (``n_devices = D > 1``) with ``comm="unified"`` runs
+on ``D`` processes, one per device, each a rank of a ``torch.distributed``
+group (:mod:`repro_torch.core.comm`) executing its device's tables: the
+reference's ``shard_map`` executors, its ``psum`` an ``all_reduce``. Before
+each superstep the ranks sum their ``delta`` carries into ``acc``; within
+it tile updates land in ``delta`` and solves read ``(b - acc) - delta``
+(the reference's ``split_delta`` form). The switch executor runs the
+superstep's levels; the fused backends launch the megakernel's split form
+once per superstep (:func:`repro_torch.kernels.superstep.superstep_split_`,
+tables built once, :func:`~repro_torch.kernels.superstep.segmented_layout`).
+With an empty cut every update is local: no exchange, and a fused solve is
+one unsplit launch. Every rank ends with the whole ``x`` (an ``all_reduce``
+of each rank's own rows).
+
 Telemetry: :func:`build_plan` and :func:`refresh_plan` open the
 ``sptrsv.schedule`` / ``sptrsv.refresh`` spans (:mod:`repro_torch.obs.trace`);
 the executors open ``torch.profiler.record_function`` ranges
-(``sptrsv.level_solve``, ``sptrsv.tile_update``, ``sptrsv.superstep``) only
-while a tracer is enabled or a profiler session records.
+(``sptrsv.level_solve``, ``sptrsv.tile_update``, ``sptrsv.superstep``,
+``sptrsv.exchange``, ``sptrsv.gather``) only while a tracer is enabled or a
+profiler session records.
 
-Not ported yet (ROADMAP.md): multi-device executors (zerocopy/unified
-exchange). Their plans build (and verify, :mod:`repro_torch.verify`);
-executing one raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md): the other multi-device executors,
+``comm="zerocopy"`` and ``sched="syncfree"`` at ``D > 1``. Their plans
+build (and verify, :mod:`repro_torch.verify`); executing one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +67,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.blocking import (
     BlockStructure, build_blocks, pad_rhs, refresh_block_values, unpad_x,
 )
@@ -577,14 +594,18 @@ def streamed_stores(plan: Plan) -> tuple[np.ndarray, np.ndarray]:
     return diag_sched, tiles_sched
 
 
-def fused_layouts(plan: Plan) -> list:
-    """Per device, the streamed layout of the whole schedule as one launch
+def fused_layout(plan: Plan, d: int = 0) -> "superstep.StreamedLayout":
+    """Device ``d``'s streamed layout of the whole schedule as one launch
     (:func:`repro_torch.kernels.superstep.streamed_layout`)."""
-    host = ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan))
-    return [superstep.streamed_layout(*host, plan.solve_rows[d], plan.upd_tiles[d],
-                                      plan.tile_row[d], plan.tile_col[d],
-                                      n_rows=plan.bs.nb + 1, stp=step_offsets(plan))
-            for d in range(plan.n_devices)]
+    return superstep.streamed_layout(
+        [0, plan.n_supersteps], plan.lvl_off, level_widths(plan), plan.solve_rows[d],
+        plan.upd_tiles[d], plan.tile_row[d], plan.tile_col[d], n_rows=plan.bs.nb + 1,
+        stp=step_offsets(plan))
+
+
+def fused_layouts(plan: Plan) -> list:
+    """:func:`fused_layout` of every device."""
+    return [fused_layout(plan, d) for d in range(plan.n_devices)]
 
 
 def fused_vmem_bytes(plan: Plan, *, streamed: bool = False,
@@ -659,7 +680,9 @@ def dispatch_stats(plan: Plan) -> dict:
     ``streamed``, ``fused_vmem_bytes`` and ``stream_dma_bytes`` follow the
     port's rule (:func:`fused_streaming`, :func:`fused_vmem_bytes`,
     :func:`stream_dma_bytes_per_solve` for a vector solve), not the
-    reference's VMEM budget. ``supersteps`` is the
+    reference's VMEM budget; they describe the whole schedule as one launch
+    (a unified plan with a cut launches once per superstep and copies the
+    same entries; its widest work item is no wider). ``supersteps`` is the
     bulk-synchronous step count, ``supersteps_levelset`` the unmerged block
     level count, ``superstep_reduction`` their ratio.
     """
@@ -687,24 +710,37 @@ def dispatch_stats(plan: Plan) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# single-device switch executor
+# switch executor
 # ---------------------------------------------------------------------------
 
 
+def _unified_cut(plan: Plan) -> bool:
+    """Whether ``plan`` exchanges: unified, several devices, a non-empty
+    cut (the reference's gate; with an empty cut every update is local)."""
+    return plan.config.comm == "unified" and plan.n_devices > 1 and plan.n_boundary_rows > 0
+
+
+def _range(name: str, on: bool):
+    """A ``record_function`` range named ``name`` when ``on``, else none."""
+    return torch.profiler.record_function(name) if on else contextlib.nullcontext()
+
+
 class _Schedule:
-    """A plan's device-0 schedule as device tensors, built once per executor.
+    """A plan's schedule on device ``rank`` as device tensors, built once per
+    executor.
 
     ``safe`` maps pad rows (-1) to the pad slot ``nb`` and ``valid`` marks
     the real ones; ``urow``/``ucol`` are the update tiles' destination and
     source block rows. ``levels`` holds each level's (solve offset, solve
     width, update offset, update width) as Python ints, so the level loop
-    slices without reading anything back from the device.
+    slices without reading anything back from the device; ``steps`` each
+    superstep's level range.
     """
 
-    def __init__(self, plan: Plan, device: torch.device):
+    def __init__(self, plan: Plan, device: torch.device, rank: int = 0):
         nb = plan.bs.nb
-        sr = plan.solve_rows[0].astype(np.int64)
-        ut = plan.upd_tiles[0].astype(np.int64)
+        sr = plan.solve_rows[rank].astype(np.int64)
+        ut = plan.upd_tiles[rank].astype(np.int64)
 
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -712,20 +748,24 @@ class _Schedule:
         self.safe = dev(np.where(sr < 0, nb, sr))
         self.valid = dev(sr >= 0)
         self.ut = dev(ut)
-        self.urow = dev(plan.tile_row[0].astype(np.int64)[ut])
-        self.ucol = dev(plan.tile_col[0].astype(np.int64)[ut])
+        self.urow = dev(plan.tile_row[rank].astype(np.int64)[ut])
+        self.ucol = dev(plan.tile_col[rank].astype(np.int64)[ut])
         widths = level_widths(plan)
         self.levels = [
             (int(plan.lvl_off[t, 0]), int(widths[t, 0]),
              int(plan.lvl_off[t, 1]), int(widths[t, 1]))
             for t in range(plan.n_levels)
         ]
+        so = step_offsets(plan).tolist()
+        self.steps = list(zip(so[:-1], so[1:]))
 
 
 def _level_solve(sched: _Schedule, diag, b_pad, acc, x, s0: int, w_s: int,
-                 backend: str) -> None:
+                 backend: str, delta=None) -> None:
     safe = sched.safe[s0:s0 + w_s]
     rhs = b_pad[safe] - acc[safe]
+    if delta is not None:  # the reference's order: (b - acc) - delta
+        rhs = rhs - delta[safe]
     xs = ops.batched_block_trsv(diag[safe], rhs, backend=backend)
     valid = ops.bcast_trailing(sched.valid[s0:s0 + w_s], xs)
     x[safe] = torch.where(valid, xs, x[safe])
@@ -740,78 +780,127 @@ def _tile_update(sched: _Schedule, tiles, acc, x, u0: int, w_u: int, backend: st
 
 
 def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
-                b_pad: torch.Tensor, backend: str, group: int) -> torch.Tensor:
+                b_pad: torch.Tensor, backend: str, group: int,
+                exchange=None) -> torch.Tensor:
     """The switch executor's level loop (``_compact_level_body`` of the
     reference) on padded blocks ``b_pad`` (nb+1, B[, R]); returns ``x``.
-    Each level's solve and update run inside ``sptrsv.level_solve`` /
-    ``sptrsv.tile_update`` ranges only when :func:`executor_scopes` says so
-    (read once per solve)."""
+    With an ``exchange`` (the unified executor's, ``exchange(acc, delta)``)
+    it runs superstep by superstep, the exchange first, then the step's
+    levels with updates into ``delta`` and solves of ``(b - acc) - delta``
+    (the reference's ``_levelset_unified_device_fn``). Each level's solve
+    and update, and each exchange, run inside ``sptrsv.level_solve`` /
+    ``sptrsv.tile_update`` / ``sptrsv.exchange`` ranges only when
+    :func:`executor_scopes` says so (read once per solve)."""
     acc = torch.zeros_like(b_pad)
     x = torch.zeros_like(b_pad)
+    delta = None if exchange is None else torch.zeros_like(b_pad)
     scoped = executor_scopes()
-    for s0, w_s, u0, w_u in sched.levels:
-        if w_s > 0:
-            if scoped:
-                with torch.profiler.record_function("sptrsv.level_solve"):
-                    _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend)
-            else:
-                _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend)
-        if w_u > 0:
-            if scoped:
-                with torch.profiler.record_function("sptrsv.tile_update"):
-                    _tile_update(sched, tiles, acc, x, u0, w_u, backend, group)
-            else:
-                _tile_update(sched, tiles, acc, x, u0, w_u, backend, group)
+    for t0, t1 in (sched.steps if exchange else [(0, len(sched.levels))]):
+        if exchange is not None:
+            with _range("sptrsv.exchange", scoped):
+                exchange(acc, delta)
+        for s0, w_s, u0, w_u in sched.levels[t0:t1]:
+            if w_s > 0:
+                with _range("sptrsv.level_solve", scoped):
+                    _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend, delta)
+            if w_u > 0:
+                with _range("sptrsv.tile_update", scoped):
+                    _tile_update(sched, tiles, acc if delta is None else delta, x, u0, w_u,
+                                 backend, group)
     return x
 
 
 class _FusedSchedule:
-    """A plan's megakernel launch, built once per executor: the reference's
-    tables for the whole solve (``seg = [0, n_supersteps]``) as int32 device
-    tensors and, on a card, the resident kernel's pull table
-    (:func:`repro_torch.kernels.superstep.superstep_table`), or, for the
-    streamed form, its layout (:func:`~repro_torch.kernels.superstep.streamed_layout`)
-    and, once values are loaded, the streamed store; and the launch's
+    """A plan's megakernel launches on device ``rank``, built once per
+    executor: the reference's tables for the whole solve (``seg = [0,
+    n_supersteps]``) as int32 device tensors and, on a card, the resident
+    kernel's pull table (:func:`repro_torch.kernels.superstep.superstep_table`),
+    or, for the streamed form, its layout
+    (:func:`~repro_torch.kernels.superstep.streamed_layout`) and, once values
+    are loaded, the streamed store; and the launches'
     :class:`~repro_torch.kernels.superstep.ReadyFlags` scratch, allocated
-    once and kept from solve to solve."""
+    once and kept from solve to solve.
 
-    def __init__(self, plan: Plan, device: torch.device, streamed: bool):
+    ``split`` (a unified plan with a cut) launches the split form once per
+    superstep instead: ``segs[s]`` is superstep ``s``'s ``seg`` and the
+    layout a :func:`~repro_torch.kernels.superstep.segmented_layout` of
+    the whole solve (built on the CPU only for the streamed store)."""
+
+    def __init__(self, plan: Plan, device: torch.device, streamed: bool, rank: int = 0,
+                 split: bool = False):
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
         host = ([0, plan.n_supersteps], plan.lvl_off, level_widths(plan),
-                plan.solve_rows[0], plan.upd_tiles[0], plan.tile_row[0], plan.tile_col[0])
+                plan.solve_rows[rank], plan.upd_tiles[rank], plan.tile_row[rank],
+                plan.tile_col[rank])
+        so = step_offsets(plan)
         self.tables = tuple(dev(t) for t in host)
-        self.stp = dev(step_offsets(plan))
+        self.stp = dev(so)
+        self.split = split
         self.table = self.layout = self.values = None
         self.flags = superstep.ReadyFlags(plan.bs.nb + 1, device)
-        if streamed:
-            layout = fused_layouts(plan)[0]
+        if split:
+            steps = np.arange(plan.n_supersteps)
+            self.segs = dev(np.stack([steps, np.ones_like(steps)], axis=1))
+            if streamed or device.type == "cuda":
+                layout = superstep.segmented_layout(
+                    *host[1:], n_rows=plan.bs.nb + 1, stp=so,
+                    bounds=np.arange(plan.n_supersteps + 1))
+                if streamed:
+                    superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
+                self.layout = layout.to(device)
+        elif streamed:
+            layout = fused_layout(plan, rank)
             superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
             self.layout = layout.to(device)
         elif device.type == "cuda":
             self.table = superstep.superstep_table(
-                *host, n_rows=plan.bs.nb + 1, stp=step_offsets(plan)).to(device)
+                *host, n_rows=plan.bs.nb + 1, stp=so).to(device)
+        self.streamed = streamed
 
     def load(self, diag: torch.Tensor, tiles: torch.Tensor) -> None:
         """(Re)build the streamed store from new values."""
-        if self.layout is not None:
+        if self.streamed:
             self.values = superstep.streamed_values(self.layout, diag, tiles)
 
     def run(self, diag: torch.Tensor | None, tiles: torch.Tensor | None,
-            b_pad: torch.Tensor) -> torch.Tensor:
-        """One megakernel launch over the whole schedule; returns ``x``
-        (the streamed form reads only its store: ``diag``/``tiles`` unused)."""
+            b_pad: torch.Tensor, exchange=None) -> torch.Tensor:
+        """One megakernel launch over the whole schedule, or, split, one per
+        superstep, each after ``exchange(acc, delta)``; returns ``x`` (the
+        streamed form reads only its store: ``diag``/``tiles`` unused)."""
+        scoped = executor_scopes()
+        if self.split:
+            return self._run_split(diag, tiles, b_pad, exchange, scoped)
         zeros = torch.zeros_like(b_pad)
-        with (torch.profiler.record_function("sptrsv.superstep") if executor_scopes()
-              else contextlib.nullcontext()):
-            if self.layout is not None:
+        with _range("sptrsv.superstep", scoped):
+            if self.streamed:
                 _, x = superstep.superstep_streamed_call(
                     *self.tables, self.values, b_pad, zeros, zeros, stp=self.stp,
                     layout=self.layout, flags=self.flags)
             else:
                 _, x = superstep.superstep_call(*self.tables, diag, tiles, b_pad, zeros, zeros,
                                                 stp=self.stp, table=self.table, flags=self.flags)
+        return x
+
+    def _run_split(self, diag, tiles, b_pad, exchange, scoped: bool) -> torch.Tensor:
+        """The unified fused executor: per superstep the exchange, then one
+        split launch on the carries, which stay in place."""
+        acc, delta, x = (torch.zeros_like(b_pad) for _ in range(3))
+        rest = self.tables[1:]
+        for s in range(self.segs.shape[0]):
+            with _range("sptrsv.exchange", scoped):
+                exchange(acc, delta)
+            table = None if self.layout is None else self.layout.segments[s]
+            with _range("sptrsv.superstep", scoped):
+                if self.streamed:
+                    superstep.superstep_streamed_split_(
+                        self.segs[s], *rest, self.values, b_pad, acc, delta, x, self.stp,
+                        layout=self.layout, table=table, flags=self.flags)
+                else:
+                    superstep.superstep_split_(self.segs[s], *rest, diag, tiles, b_pad, acc,
+                                               delta, x, self.stp, table=table,
+                                               flags=self.flags)
         return x
 
 
@@ -943,11 +1032,25 @@ def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
     return x
 
 
-def _check_executable(plan: Plan) -> None:
-    """Raise for plans whose executor is not ported yet."""
-    if plan.n_devices != 1:
+def _check_executable(plan: Plan, group) -> int:
+    """This process's device index in ``plan``. Raises, in this order, for
+    plans whose executor is not ported yet (``NotImplementedError``) and for
+    a multi-device plan without a ``group`` of ``n_devices`` ranks
+    (``ValueError``)."""
+    D = plan.n_devices
+    if D > 1 and (plan.config.comm == "zerocopy" or plan.config.sched == "syncfree"):
         raise NotImplementedError(
-            f"multi-device execution (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
+            f"multi-device execution (n_devices={D}) with comm={plan.config.comm!r}, "
+            f"sched={plan.config.sched!r} is {ops.NOT_PORTED}")
+    if group is None:
+        if D > 1:
+            raise ValueError(f"a {D}-device plan runs on a torch.distributed group of {D} "
+                             f"ranks, one per device: pass group=")
+        return 0
+    if comm.size(group) != D:
+        raise ValueError(f"a {D}-device plan needs a group of {D} ranks, got "
+                         f"{comm.size(group)}")
+    return comm.rank(group)
 
 
 def solve_local(plan: Plan, b_blocks: torch.Tensor) -> torch.Tensor:
@@ -957,8 +1060,8 @@ def solve_local(plan: Plan, b_blocks: torch.Tensor) -> torch.Tensor:
 
 
 class Solver:
-    """Single-device SpTRSV executor for one plan (the reference's
-    ``DistributedSolver`` with one device).
+    """SpTRSV executor for one plan on one device (the reference's
+    ``DistributedSolver``, one process per device).
 
     Plan values and schedule live on ``device`` (``None`` means the card).
     Levelset and dagpart plans: ``kernel_backend="fused"`` and
@@ -968,30 +1071,64 @@ class Solver:
     syncfree executor: its dense scan under ``reference`` and ``cuda``, its
     frontier-bucketed form under the fused backends, whose block ops resolve
     by :func:`repro_torch.kernels.ops.per_op_backend` (the CUDA kernels on a
-    card). Multi-device plans raise. ``n_solves`` counts invocations; a
-    multi-RHS panel counts once.
+    card).
+
+    A multi-device plan (``n_devices = D``) with ``comm="unified"`` runs on
+    a ``torch.distributed`` ``group`` of ``D`` ranks, one process per
+    device: each rank builds this executor on its own device with the same
+    plan and runs device ``rank``'s tables, all ranks solve together, and
+    each returns the whole ``x``. Its switch executor exchanges once per
+    superstep, its fused backends launch the megakernel's split form once
+    per superstep; with an empty cut neither exchanges. ``exchanges``
+    counts the last solve's exchanges; with a ``group`` every solve ends
+    with one more ``all_reduce``, the gather. Multi-device ``zerocopy`` and
+    ``syncfree`` plans raise ``NotImplementedError``, a multi-device plan
+    without a group of ``D`` ranks ``ValueError``. ``n_solves`` counts
+    invocations; a multi-RHS panel counts once.
     """
 
-    def __init__(self, plan: Plan, device: str | torch.device | None = None):
+    def __init__(self, plan: Plan, device: str | torch.device | None = None, group=None):
         self.device = resolve_device(device)
         self.backend = ops.executor_backend(plan.config.kernel_backend, self.device)
-        _check_executable(plan)
+        self.rank = _check_executable(plan, group)
+        self.group = group
         self.plan = plan
-        self.n_solves = 0
+        self.n_solves = self.exchanges = 0
         self._fused = self._sched = self._syncfree = None
+        split = _unified_cut(plan)
         if plan.config.sched == "syncfree":
             self._syncfree = _SyncfreeSchedule(plan, self.device,
                                                frontier=self.backend in ops.FUSED_BACKENDS)
         elif self.backend in ops.FUSED_BACKENDS:
-            self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan))
+            self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan), self.rank,
+                                         split=split)
         else:
-            self._sched = _Schedule(plan, self.device)
+            self._sched = _Schedule(plan, self.device, self.rank)
+        self._exchange = self._exchange_delta if split else None
+        if plan.n_devices > 1:
+            mask = (plan.owner == self.rank).astype(np.float32)  # this rank's rows, pad 0
+            self._owner_mask = torch.from_numpy(mask).to(self.device)
         self._load_values(plan)
+
+    def _exchange_delta(self, acc: torch.Tensor, delta: torch.Tensor) -> None:
+        """The unified exchange: ``acc += all_reduce(delta)``, then
+        ``delta = 0`` (the reference's ``psum`` of the split carry)."""
+        acc += comm.all_reduce_sum_(delta, self.group)
+        delta.zero_()
+        self.exchanges += 1
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's own rows of ``x``, summed over the group: the whole
+        ``x`` on every rank (the reference's ``psum(x * owner_mask)``)."""
+        with _range("sptrsv.gather", executor_scopes()):
+            if self.plan.n_devices > 1:
+                x = x * ops.bcast_trailing(self._owner_mask, x)
+            return comm.all_reduce_sum_(x, self.group)
 
     def _load_values(self, plan: Plan) -> None:
         diag = torch.from_numpy(plan.diag).to(self.device)
-        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(self.device)
-        if self._fused is not None and self._fused.layout is not None:
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[self.rank])).to(self.device)
+        if self._fused is not None and self._fused.streamed:
             # the streamed kernel reads only its store: keep no second copy
             self._fused.load(diag, tiles)
             self._diag = self._tiles = None
@@ -1001,7 +1138,8 @@ class Solver:
     def refresh(self, plan: Plan) -> None:
         """Swap in a numerically refreshed plan (:func:`refresh_plan`): the
         schedule tensors stay, only ``diag``/``tiles`` (or the streamed
-        store built from them) are replaced."""
+        store built from them) are replaced, this rank's on a multi-device
+        plan."""
         old = self.plan
         # a structurally different plan would pair new values with the old
         # schedule — reject it (never an assert: -O must not disable this)
@@ -1023,17 +1161,20 @@ class Solver:
     def solve_blocks(self, b_blocks: torch.Tensor) -> torch.Tensor:
         """b_blocks: (nb, B) or a multi-RHS panel (nb, B, R) -> same shape."""
         self.n_solves += 1
+        self.exchanges = 0
         b_blocks = b_blocks.to(self.device, torch.float32)
         b_pad = torch.cat([b_blocks, b_blocks.new_zeros((1,) + b_blocks.shape[1:])])
         if self._fused is not None:
-            x = self._fused.run(self._diag, self._tiles, b_pad)
+            x = self._fused.run(self._diag, self._tiles, b_pad, self._exchange)
         elif self._syncfree is not None:
             x = _run_syncfree(self._syncfree, self._diag, self._tiles, b_pad,
                               ops.per_op_backend(self.backend, self.device),
                               self.plan.config.gemv_group)
         else:
             x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
-                            self.backend, self.plan.config.gemv_group)
+                            self.backend, self.plan.config.gemv_group, self._exchange)
+        if self.group is not None:
+            x = self._gather(x)
         return x[: self.plan.bs.nb]
 
     def solve(self, b: np.ndarray) -> np.ndarray:
@@ -1049,9 +1190,11 @@ class Solver:
 
 
 def sptrsv(a: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
-           config: SolverConfig = SolverConfig(), transpose: bool = False) -> np.ndarray:
+           config: SolverConfig = SolverConfig(), transpose: bool = False,
+           group=None) -> np.ndarray:
     """Deprecated one-shot API: analyse, plan and solve ``L x = b`` (or
-    ``L^T x = b``) on ``device`` (``None``: the card).
+    ``L^T x = b``) on ``device`` (``None``: the card), on the ranks of
+    ``group`` if one is given (a multi-device plan, one device per rank).
 
     A thin shim over :class:`repro_torch.api.SpTRSVContext`: it re-runs the
     whole analysis on every call, the cost the session amortizes. Hold a
@@ -1064,5 +1207,5 @@ def sptrsv(a: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
     )
     from repro_torch.api import SpTRSVContext
 
-    ctx = SpTRSVContext(device=device, options=config)
+    ctx = SpTRSVContext(device=device, options=config, group=group)
     return ctx.solve(ctx.analyse(a), b, transpose=transpose)

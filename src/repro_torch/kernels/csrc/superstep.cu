@@ -1,13 +1,19 @@
 // The superstep megakernel for Hopper, resident and streamed: a whole
-// single-device solve in one cooperative launch.
+// single-device solve in one cooperative launch, or one superstep of a
+// multi-device solve with comm="unified".
 //
 // Replaces src/repro/kernels/superstep.py::_superstep_kernel in its resident
-// form (superstep_call(stream=False), split_delta=False) and in its
-// streamed form (stream=True, _step_copies), as two instantiations of one
-// kernel (superstep_kernel<kStream>) that share every arithmetic step. For
-// each level of the launch's superstep range, in order, the reference solves
-// the level's rows with rhs = b - acc, then applies the level's tile updates
-// acc[trow] += tile @ x[tcol]. It is correct on the TPU because the grid
+// form (superstep_call(stream=False)) and in its streamed form (stream=True,
+// _step_copies), each with split_delta=False and split_delta=True, as four
+// instantiations of one kernel (superstep_kernel<kStream, kSplit>) that share
+// every arithmetic step. For each level of the launch's superstep range, in
+// order, the reference solves the level's rows with rhs = b - acc, then
+// applies the level's tile updates acc[trow] += tile @ x[tcol]. The split
+// form (kSplit; the unified executor's, core/solver.py) moves the
+// accumulator's role to a third carry: tile updates land in delta, solves
+// read rhs = (b - acc) - delta in that order, and acc (the sum of every
+// device's earlier supersteps, all-reduced between launches) is only read.
+// It is correct on the TPU because the grid
 // programs run one after another on one core; CUDA blocks do not, so the
 // port is one persistent, cooperative kernel:
 //
@@ -18,8 +24,9 @@
 // * Pull, not push: the host builds, once per plan, each solved row's list
 //   of incoming tiles in the order the reference adds them (level, then
 //   position in the flat update schedule; kernels/superstep.py::
-//   superstep_table). The warp that solves row r sums them into acc[r],
-//   starting from the incoming carry, right before it solves. No
+//   superstep_table). The warp that solves row r sums them into acc[r]
+//   (delta[r] in the split form), starting from the incoming carry, right
+//   before it solves. No
 //   floating-point atomics: a real-valued solve gives the same bits run
 //   after run. Rows that receive updates but are not solved in the launch
 //   ("orphans") are summed after the last level. Updates into the pad row
@@ -146,7 +153,8 @@ struct Args {
   const float* b;
   const float* acc_in;
   const float* x_in;
-  float* acc;
+  float* acc;             // unsplit: written; split: null (acc_in is read only)
+  float* delta;           // split: the carry the pulls sum into, in place
   float* x;
   int* flags;             // (n_rows R,) per-row ready flags
   int t_lo, t_hi;  // level range of the launch
@@ -257,21 +265,42 @@ __device__ void gather_sources(const Args& a, int p, int n, int c, float* xcs, i
 // The incoming carry and b of the row a lane owns in the sweep (row `lane`),
 // loaded into registers when the item starts, before any wait, and used
 // after it. Rows from 32 on (B > 32) take the carry into s at once and b
-// when it is used.
+// when it is used. The split form's carry is delta, and its b is b - acc,
+// rounded once, as the reference forms it before it subtracts delta.
 struct Carry {
   float acc, b;
 };
 
+// The split form updates delta in place. Each element of delta is read by
+// one warp only, the one whose item targets that row and column, once, when
+// the item starts, and written by the same warp after its pulls; no element
+// is read after it is written in the launch, so no warp can find a stale
+// line in a cache. The reads still go through L2 (__ldcg), not the
+// read-only path. acc_in, in the split form the same buffer as the caller's
+// acc, is not written at all in the launch.
+template <bool kSplit>
+__device__ __forceinline__ float carry_in(const Args& a, size_t at) {
+  if constexpr (kSplit) return __ldcg(a.delta + at);
+  return __ldg(a.acc_in + at);
+}
+
+template <bool kSplit>
+__device__ __forceinline__ float rhs_base(const Args& a, size_t at) {
+  if constexpr (kSplit) return __ldg(a.b + at) - __ldg(a.acc_in + at);
+  return __ldg(a.b + at);
+}
+
+template <bool kSplit>
 __device__ __forceinline__ Carry item_inputs(const Args& a, int row, int c, bool slot,
                                              float* s, int lane) {
   Carry in{0.f, 0.f};
   for (int j = lane; j < a.B; j += kWarp) {
     const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
     if (j == lane) {
-      in.acc = __ldg(a.acc_in + at);
-      if (slot) in.b = __ldg(a.b + at);
+      in.acc = carry_in<kSplit>(a, at);
+      if (slot) in.b = rhs_base<kSplit>(a, at);
     } else {
-      s[j] = __ldg(a.acc_in + at);
+      s[j] = carry_in<kSplit>(a, at);
     }
   }
   return in;
@@ -283,14 +312,19 @@ __device__ __forceinline__ void place(const Carry& in, float* s, int B, int lane
 }
 
 // After the pulls: acc = s, and, for a solve slot, s = b - acc, the
-// sweep's right-hand side.
+// sweep's right-hand side; in the split form delta = s and
+// s = (b - acc) - delta.
+template <bool kSplit>
 __device__ __forceinline__ void store_sum(const Args& a, int row, int c, bool slot,
                                           const Carry& in, float* s, int lane) {
   __syncwarp();
   for (int j = lane; j < a.B; j += kWarp) {
     const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
-    a.acc[at] = s[j];
-    if (slot) s[j] = (j == lane ? in.b : __ldg(a.b + at)) - s[j];
+    if constexpr (kSplit)
+      a.delta[at] = s[j];
+    else
+      a.acc[at] = s[j];
+    if (slot) s[j] = (j == lane ? in.b : rhs_base<kSplit>(a, at)) - s[j];
   }
   __syncwarp();
 }
@@ -430,10 +464,11 @@ __device__ __forceinline__ void ring_release(Ring& rg) {
 // column sweep, x and the flag. Each group of sources is awaited after the
 // piece of its first tile is acquired, so the ring's look-ahead is issued
 // before the wait.
+template <bool kSplit>
 __device__ void resident_item(const Args& a, Ring& rg, int gwarp, int n_warps, int target,
                               int row, int c, bool slot, float* s, float* xcs, int lane) {
   const int B = a.B, chunk = a.chunk;
-  const Carry in = item_inputs(a, row, c, slot, s, lane);
+  const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
   const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
   if (p0 == p1) place(in, s, B, lane);
   for (int pg = p0; pg < p1; pg += kGather) {
@@ -449,7 +484,7 @@ __device__ void resident_item(const Args& a, Ring& rg, int gwarp, int n_warps, i
       }
     }
   }
-  store_sum(a, row, c, slot, in, s, lane);
+  store_sum<kSplit>(a, row, c, slot, in, s, lane);
   if (!slot) return;
   for (int i0 = 0; i0 < B; i0 += chunk) {
     const float* buf = ring_acquire(a, rg, gwarp, n_warps, lane);
@@ -577,10 +612,11 @@ struct StreamedEntries {
 // One streamed work item: resident_item's steps, operation for operation,
 // on whole tiles as they arrive: the same tile_rows() and column_sweep()
 // on the same values in the same order, so both forms give the same bits.
+template <bool kSplit>
 __device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
                               int row, int c, bool slot, float* s, float* xcs, int lane) {
   const int B = a.B;
-  const Carry in = item_inputs(a, row, c, slot, s, lane);
+  const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
   const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
   const int n_ent = p1 - p0 + (slot ? 1 : 0);
   StreamedEntries ent;
@@ -595,7 +631,7 @@ __device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps,
       tile_rows(T, B + 1, 0, B, xcs + g * B, s, B, lane);
     }
   }
-  store_sum(a, row, c, slot, in, s, lane);
+  store_sum<kSplit>(a, row, c, slot, in, s, lane);
   if (slot) {
     const float* T = ent.tile(a, st, gwarp, n_warps, p1 - p0, n_ent, lane);
     for (int i0 = 0; i0 < B; i0 += kWarp)
@@ -606,10 +642,9 @@ __device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps,
   release(st);
 }
 
-template <bool kStream>
+template <bool kStream, bool kSplit>
 __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
@@ -634,31 +669,36 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
 
   // rows the launch does not solve keep the incoming x (and, unless they
   // are orphans, the incoming acc); solved rows are written when solved.
-  // kCopy elements per thread per pass, all loads before the stores.
+  // kCopy elements per thread per pass, all loads before the stores. The
+  // split form updates its carries in place: it copies nothing and needs no
+  // grid barrier (a copy row's x is where it was before the launch).
   constexpr int kCopy = 8;
-  const size_t n_el = static_cast<size_t>(a.n_copy) * row_el;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t e0 = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e0 < n_el;
-       e0 += kCopy * stride) {
-    size_t at[kCopy];
-    float va[kCopy], vx[kCopy];
+  if constexpr (!kSplit) {
+    const size_t n_el = static_cast<size_t>(a.n_copy) * row_el;
+    const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+    for (size_t e0 = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e0 < n_el;
+         e0 += kCopy * stride) {
+      size_t at[kCopy];
+      float va[kCopy], vx[kCopy];
 #pragma unroll
-    for (int u = 0; u < kCopy; ++u) {
-      const size_t e = e0 + u * stride;
-      at[u] = e < n_el ? static_cast<size_t>(__ldg(a.copy_row + e / row_el)) * row_el + e % row_el
-                       : 0;
-      va[u] = e < n_el ? __ldg(a.acc_in + at[u]) : 0.f;
-      vx[u] = e < n_el ? __ldg(a.x_in + at[u]) : 0.f;
-    }
+      for (int u = 0; u < kCopy; ++u) {
+        const size_t e = e0 + u * stride;
+        at[u] = e < n_el
+                    ? static_cast<size_t>(__ldg(a.copy_row + e / row_el)) * row_el + e % row_el
+                    : 0;
+        va[u] = e < n_el ? __ldg(a.acc_in + at[u]) : 0.f;
+        vx[u] = e < n_el ? __ldg(a.x_in + at[u]) : 0.f;
+      }
 #pragma unroll
-    for (int u = 0; u < kCopy; ++u) {
-      if (e0 + u * stride < n_el) {
-        a.acc[at[u]] = va[u];
-        a.x[at[u]] = vx[u];
+      for (int u = 0; u < kCopy; ++u) {
+        if (e0 + u * stride < n_el) {
+          a.acc[at[u]] = va[u];
+          a.x[at[u]] = vx[u];
+        }
       }
     }
+    cg::this_grid().sync();  // the copy rows' x, read without waiting, is in place
   }
-  grid.sync();  // the copy rows' x, read without waiting, is in place
 
   // the level walk: each level's offset and width are loaded one level
   // ahead, so the walk adds no load latency between two items
@@ -678,9 +718,9 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
       const int row = __ldg(a.sr + k);
       if (row < 0) continue;  // pad slot
       if constexpr (kStream)
-        streamed_item(a, st, gwarp, n_warps, k, row, c, true, s, xcs, lane);
+        streamed_item<kSplit>(a, st, gwarp, n_warps, k, row, c, true, s, xcs, lane);
       else
-        resident_item(a, rg, gwarp, n_warps, k, row, c, true, s, xcs, lane);
+        resident_item<kSplit>(a, rg, gwarp, n_warps, k, row, c, true, s, xcs, lane);
     }
     o = o_next;
     w = w_next;
@@ -689,20 +729,20 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
   for (int item = gwarp; item < a.n_orphans * R; item += n_warps) {
     const int q = item / R, row = __ldg(a.orphan_row + q);
     if constexpr (kStream)
-      streamed_item(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
+      streamed_item<kSplit>(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
     else
-      resident_item(a, rg, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
+      resident_item<kSplit>(a, rg, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
   }
   if constexpr (!kStream) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Opts the kernel in to `bytes` of dynamic shared memory. A refusal is
 // returned and cleared, so the next launch does not report it.
-template <bool kStream>
+template <bool kStream, bool kSplit>
 cudaError_t allow_shared(size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      superstep_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      superstep_kernel<kStream, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) cudaGetLastError();
   return err;
@@ -710,17 +750,17 @@ cudaError_t allow_shared(size_t bytes) {
 
 // CTAs of this kernel that can be resident at once on the current device;
 // an error if the device has no cooperative launch.
-template <bool kStream>
+template <bool kStream, bool kSplit>
 cudaError_t resident_ctas(int threads, size_t smem, int* out) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = allow_shared<kStream>(smem);
+  if (err == cudaSuccess) err = allow_shared<kStream, kSplit>(smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, superstep_kernel<kStream>,
-                                                        threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, superstep_kernel<kStream, kSplit>, threads, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
@@ -729,21 +769,21 @@ cudaError_t resident_ctas(int threads, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-template <bool kStream>
+template <bool kStream, bool kSplit>
 int launch(Args a, int warps, int max_items, int grid, void* stream) {
   if (a.epoch == 0) return cudaErrorInvalidValue;  // 0 is the value of a fresh flag
   const size_t smem = kStream ? streamed_bytes(warps, a.cap, a.B, a.stride) : shared_bytes(a.B);
   int resident = 0;
-  cudaError_t err = resident_ctas<kStream>(warps * kWarp, smem, &resident);
+  cudaError_t err = resident_ctas<kStream, kSplit>(warps * kWarp, smem, &resident);
   if (err != cudaSuccess) return err;
   if (grid <= 0) {  // enough warps for the widest level, no more than fit at once
     const int need = (max_items * a.R + warps - 1) / warps;
     grid = need < 1 ? 1 : (need < resident ? need : resident);
   }
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(superstep_kernel<kStream>),
-                                    dim3(grid), dim3(warps * kWarp), params, smem,
-                                    static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(superstep_kernel<kStream, kSplit>), dim3(grid),
+      dim3(warps * kWarp), params, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the refusal, or the next launch would report it
     return err;
@@ -759,11 +799,39 @@ int launch_resident(const int* off, const int* wid, const int* sr, const int* pu
                     int n_orphans, int n_copy, int max_items, int grid, int epoch, void* stream) {
   if (B < 1 || B >= kStage || R < 1) return cudaErrorInvalidValue;
   const int chunk = kStage / (B + 1) < B ? kStage / (B + 1) : B;  // at most 32 rows
-  Args a{off,   wid,  sr,     pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, copy_row,
-         diag,  tiles, nullptr, b,      acc_in,    x_in,     acc,       x,          flags,
-         t_lo,  t_hi, B,      R,        S,         n_orphans, n_copy,   0,          0,
-         chunk, epoch};
-  return launch<false>(a, kWarpsPerCta, max_items, grid, stream);
+  Args a{off,   wid,   sr,      pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, copy_row,
+         diag,  tiles, nullptr, b,        acc_in,    x_in,     acc,       nullptr,    x,
+         flags, t_lo,  t_hi,    B,        R,         S,        n_orphans, n_copy,     0,
+         0,     chunk, epoch};
+  return launch<false, false>(a, kWarpsPerCta, max_items, grid, stream);
+}
+
+// The split form of either store, in place: acc is read, delta and x are
+// updated where they lie, nothing is copied.
+template <bool kStream>
+int launch_split(const int* off, const int* wid, const int* sr, const int* pull_ptr,
+                 const int* pull_tile, const int* pull_col, const int* pull_wait,
+                 const int* orphan_row, const float* diag, const float* tiles,
+                 const float* store, const float* b, const float* acc, float* delta, float* x,
+                 int* flags, int t_lo, int t_hi, int B, int R, int S, int n_orphans,
+                 int max_items, int grid, int warps, int cap, int epoch, void* stream) {
+  const int stride = (B * (B + 1) + 3) / 4 * 4;
+  const int chunk = kStage / (B + 1) < B ? kStage / (B + 1) : B;
+  if (B < 1 || R < 1) return cudaErrorInvalidValue;
+  if (kStream ? (warps < 1 || warps > kWarpsPerCta || cap < 1 ||
+                 streamed_bytes(warps, cap, B, stride) > kSharedLimit)
+              : B >= kStage)
+    return cudaErrorInvalidValue;
+  if (kStream && reinterpret_cast<uintptr_t>(store) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  if (delta == x || static_cast<const float*>(delta) == acc ||
+      static_cast<const float*>(x) == acc)
+    return cudaErrorInvalidValue;  // three carries, three buffers
+  Args a{off,   wid,   sr,    pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, nullptr,
+         diag,  tiles, store, b,        acc,       x,        nullptr,   delta,      x,
+         flags, t_lo,  t_hi,  B,        R,         S,        n_orphans, 0,          cap,
+         stride, chunk, epoch};
+  return launch<kStream, true>(a, kStream ? warps : kWarpsPerCta, max_items, grid, stream);
 }
 
 }  // namespace
@@ -814,11 +882,42 @@ int repro_superstep_streamed_f32(const int* off, const int* wid, const int* sr,
       streamed_bytes(warps, cap, B, stride) > kSharedLimit)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(store) % 16 != 0) return cudaErrorMisalignedAddress;
-  Args a{off,    wid,     sr,    pull_ptr, nullptr, pull_col, pull_wait, orphan_row, copy_row,
-         nullptr, nullptr, store, b,       acc_in,  x_in,     acc,       x,          flags,
-         t_lo,   t_hi,    B,     R,        S,       n_orphans, n_copy,   cap,        stride,
-         0,      epoch};
-  return launch<true>(a, warps, max_items, grid, stream);
+  Args a{off,   wid,     sr,      pull_ptr, nullptr, pull_col, pull_wait, orphan_row, copy_row,
+         nullptr, nullptr, store,   b,       acc_in,  x_in,     acc,       nullptr,    x,
+         flags, t_lo,    t_hi,    B,       R,       S,        n_orphans, n_copy,     cap,
+         stride, 0,       epoch};
+  return launch<true, false>(a, warps, max_items, grid, stream);
+}
+
+// The split form (superstep_split_ in kernels/superstep.py), resident
+// (diag, tiles) or streamed (store; warps and cap as above), vectors and
+// (n, R) panels alike. It updates its carries in place: b and acc are read,
+// delta (the pulls' sums) and x (the solved rows) are written where they
+// lie, and no other row is touched. S is the end of the launch's solve
+// slots: orphan q is target S + q. pull_ptr is indexed by target, so the
+// caller passes it offset to the launch's part of a longer table.
+int repro_superstep_split_f32(const int* off, const int* wid, const int* sr,
+                              const int* pull_ptr, const int* pull_tile, const int* pull_col,
+                              const int* pull_wait, const int* orphan_row, const float* diag,
+                              const float* tiles, const float* b, const float* acc,
+                              float* delta, float* x, int* flags, int t_lo, int t_hi, int B,
+                              int R, int S, int n_orphans, int max_items, int grid, int epoch,
+                              void* stream) {
+  return launch_split<false>(off, wid, sr, pull_ptr, pull_tile, pull_col, pull_wait, orphan_row,
+                             diag, tiles, nullptr, b, acc, delta, x, flags, t_lo, t_hi, B, R, S,
+                             n_orphans, max_items, grid, kWarpsPerCta, 0, epoch, stream);
+}
+
+int repro_superstep_streamed_split_f32(const int* off, const int* wid, const int* sr,
+                                       const int* pull_ptr, const int* pull_col,
+                                       const int* pull_wait, const int* orphan_row,
+                                       const float* store, const float* b, const float* acc,
+                                       float* delta, float* x, int* flags, int t_lo, int t_hi,
+                                       int B, int R, int S, int n_orphans, int max_items,
+                                       int grid, int warps, int cap, int epoch, void* stream) {
+  return launch_split<true>(off, wid, sr, pull_ptr, nullptr, pull_col, pull_wait, orphan_row,
+                            nullptr, nullptr, store, b, acc, delta, x, flags, t_lo, t_hi, B, R, S,
+                            n_orphans, max_items, grid, warps, cap, epoch, stream);
 }
 
 // The dynamic shared memory a launch requests: the resident form's

@@ -18,6 +18,11 @@ Backends (the reference package's names on the left):
   streamed form, which copies each row's tiles from its own streamed store
   into shared memory by asynchronous bulk copies issued ahead of use.
 
+A multi-device ``comm="unified"`` plan with a cut runs either fused backend
+as one launch of the megakernel's split form per superstep
+(``superstep_split``, ``superstep_streamed_split``), with the exchange
+between launches.
+
 Per-op calls (:func:`batched_block_trsv`, :func:`batched_block_gemv`) under
 either fused backend raise: the fused executor makes none, and a caller that
 wants the per-op kernels beside a fused solve resolves its own backend with
@@ -36,7 +41,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_spmv import block_gemm, block_gemv, block_gemv_grouped
 from repro_torch.kernels.block_trsv import block_trsm, block_trsv, block_trsv_panel
-from repro_torch.kernels.superstep import superstep_call, superstep_streamed_call
+from repro_torch.kernels.superstep import (
+    superstep_call, superstep_split_, superstep_streamed_call, superstep_streamed_split_,
+)
 
 BACKENDS = ("reference", "cuda", "fused", "fused_streamed")
 FUSED_BACKENDS = ("fused", "fused_streamed")
@@ -44,7 +51,9 @@ TRSV_ALGORITHMS = ("rowsweep", "panel")
 KERNELS = {"block_trsv": block_trsv, "block_trsm": block_trsm,
            "block_gemv": block_gemv, "block_gemm": block_gemm,
            "block_trsv_panel": block_trsv_panel, "block_gemv_grouped": block_gemv_grouped,
-           "superstep": superstep_call, "superstep_streamed": superstep_streamed_call}
+           "superstep": superstep_call, "superstep_streamed": superstep_streamed_call,
+           "superstep_split": superstep_split_,
+           "superstep_streamed_split": superstep_streamed_split_}
 
 NOT_PORTED = "not ported to the PyTorch/CUDA package yet (see ROADMAP.md, Queues 1 and 2)"
 

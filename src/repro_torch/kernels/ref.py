@@ -137,7 +137,8 @@ def panel_bits_ref(diag: torch.Tensor, rhs: torch.Tensor, panel: int = 8) -> tor
     return x
 
 
-def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x, stp=None):
+def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x, stp=None,
+                  delta=None):
     """The resident superstep megakernel's function, level by level: for
     each superstep ``seg[0] <= s < seg[0] + seg[1]`` and each of its levels
     ``stp[s] <= t < stp[s+1]`` in order, solve the level's rows
@@ -147,10 +148,18 @@ def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x,
     ``ut[off[t,1]:][:wid[t,1]]``, in schedule order. ``stp=None`` means one
     level per superstep. Returns new ``(acc, x)``; the carries passed in are
     not modified. ``b_pad``/``acc``/``x`` are ``(nb+1, B)`` or ``(nb+1, B, R)``.
+
+    With a ``delta`` carry (the reference's ``split_delta`` form, the
+    unified executor's) the tile updates land in ``delta`` instead, solves
+    read ``rhs = (b - acc) - delta``, ``acc`` passes through unchanged, and
+    the result is ``(acc, delta, x)``.
     """
+    split = delta is not None
     acc, x = acc.clone(), x.clone()
+    if split:
+        delta = delta.clone()
     if off.shape[0] == 0:
-        return acc, x
+        return (acc, delta, x) if split else (acc, x)
     off_h, wid_h = off.tolist(), wid.tolist()
     s0, n_steps = (int(v) for v in seg.tolist())
     stp_h = list(range(off.shape[0] + 1)) if stp is None else stp.tolist()
@@ -160,11 +169,20 @@ def superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x,
         rows = sr[o:o + w]
         rows = rows[rows >= 0]
         if rows.numel():
-            x[rows] = block_trsv_ref(diag[rows], b_pad[rows] - acc[rows])
+            rhs = b_pad[rows] - acc[rows]
+            if split:  # the reference's order: (b - acc) - delta
+                rhs = rhs - delta[rows]
+            x[rows] = block_trsv_ref(diag[rows], rhs)
         o, w = off_h[t][1], wid_h[t][1]
         if w:
             tids = ut[o:o + w]
-            acc.index_add_(0, trow[tids], block_gemv_ref(tiles[tids], x[tcol[tids]]))
+            prods = block_gemv_ref(tiles[tids], x[tcol[tids]])
+            if split:  # the tile updates land in delta
+                delta.index_add_(0, trow[tids], prods)
+            else:
+                acc.index_add_(0, trow[tids], prods)
+    if split:
+        return acc, delta, x
     return acc, x
 
 
@@ -177,16 +195,20 @@ def stream_tiles(values: torch.Tensor, entries: torch.Tensor, B: int) -> torch.T
 
 
 def superstep_streamed_ref(seg, off, wid, sr, ut, trow, tcol, values, diag_entry, tile_entry,
-                           b_pad, acc, x, stp=None):
+                           b_pad, acc, x, stp=None, delta=None):
     """:func:`superstep_ref` reading every tile from the streamed store
     ``values`` that the streamed kernel reads: slot ``k``'s diagonal tile at
     entry ``diag_entry[k]``, the tile of flat update position ``j`` at
     ``tile_entry[j]`` (``-1``: an update into the pad row, left out of the
     store, whose tile is the zero pad tile). It hands the same tensors to the
-    same operations as :func:`superstep_ref`, so it gives its bits."""
+    same operations as :func:`superstep_ref`, so it gives its bits; with a
+    ``delta`` carry, the split form, as there."""
+    split = delta is not None
     acc, x = acc.clone(), x.clone()
+    if split:
+        delta = delta.clone()
     if off.shape[0] == 0:
-        return acc, x
+        return (acc, delta, x) if split else (acc, x)
     B = b_pad.shape[1]
     off_h, wid_h = off.tolist(), wid.tolist()
     s0, n_steps = (int(v) for v in seg.tolist())
@@ -199,11 +221,20 @@ def superstep_streamed_ref(seg, off, wid, sr, ut, trow, tcol, values, diag_entry
         rows = sr[o:o + w][live]
         if rows.numel():
             L = stream_tiles(values, diag_entry[o:o + w][live], B)
-            x[rows] = block_trsv_ref(L, b_pad[rows] - acc[rows])
+            rhs = b_pad[rows] - acc[rows]
+            if split:
+                rhs = rhs - delta[rows]
+            x[rows] = block_trsv_ref(L, rhs)
         o, w = off_h[t][1], wid_h[t][1]
         if w:
             tids, ent = ut[o:o + w], tile_entry[o:o + w]
             tiles = stream_tiles(values, ent.clamp(min=0), B)
             tiles[ent < 0] = 0.0
-            acc.index_add_(0, trow[tids], block_gemv_ref(tiles, x[tcol[tids]]))
+            prods = block_gemv_ref(tiles, x[tcol[tids]])
+            if split:
+                delta.index_add_(0, trow[tids], prods)
+            else:
+                acc.index_add_(0, trow[tids], prods)
+    if split:
+        return acc, delta, x
     return acc, x

@@ -1,4 +1,5 @@
-"""The superstep megakernel: a whole single-device solve in one launch,
+"""The superstep megakernel: a whole single-device solve in one launch, or
+one superstep of a multi-device ``comm="unified"`` solve (the split form),
 resident or streamed.
 
 Wrapper over ``csrc/superstep.cu`` (which says what it replaces, how rows
@@ -10,8 +11,13 @@ one cooperative launch on the current stream or raises.
 :func:`superstep_streamed_call` is the same function with every tile read
 from the streamed store (:func:`streamed_layout`, :func:`streamed_values`),
 which the kernel copies into shared memory with asynchronous bulk copies
-issued ahead of use. ``launches`` on each wrapper counts kernel launches,
-and nothing else.
+issued ahead of use. Given a ``delta`` carry, both run the split form (the
+reference's ``split_delta=True``: updates into ``delta``, solves with
+``(b - acc) - delta``) on copies of the carries; :func:`superstep_split_`
+and :func:`superstep_streamed_split_` launch it in place, as the unified
+executor does once per superstep, each solve's tables built once
+(:func:`segmented_layout`). ``launches`` on each of the four counts its
+kernel launches, and nothing else.
 
 The kernel pulls each row's tile updates right before it solves the row, so
 it needs, besides the reference's tables, the host-built
@@ -97,6 +103,12 @@ class SuperstepTable:
     the launch does not solve, whose ``x`` (and, but for orphans, ``acc``)
     the kernel copies from the carries passed in. ``max_items`` is the most work items (solve
     slots or orphans) of any phase, which sizes the grid.
+
+    A launch that is one segment of a longer solve (:class:`SegmentedLayout`)
+    shares its arrays with the other segments: target ``k``'s first pull is
+    ``pull_ptr[ptr_at + k]`` and orphan ``q``'s row ``orphan_row[orphan_at +
+    q]``; ``n_solve_slots`` is the end of the segment's solve slots, and it
+    copies nothing (the split form updates its carries in place).
     """
 
     levels: tuple
@@ -110,6 +122,8 @@ class SuperstepTable:
     n_orphans: int
     n_copy: int
     max_items: int
+    ptr_at: int = 0
+    orphan_at: int = 0
 
     def to(self, device) -> "SuperstepTable":
         """The same table with its arrays as int32 tensors on ``device``
@@ -134,23 +148,14 @@ def _ranges(starts: np.ndarray, widths: np.ndarray) -> tuple[np.ndarray, np.ndar
     return np.repeat(starts, widths) + np.arange(owner.shape[0]) - first[owner], owner
 
 
-def _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows: int, stp=None) -> dict:
-    """The pull order of one launch, from host copies of the tables (see
-    :func:`superstep_table`, which raises what this raises)."""
-    seg, off, wid, sr, ut, trow, tcol = (np.asarray(v, np.int64)
-                                         for v in (seg, off, wid, sr, ut, trow, tcol))
-    T = off.shape[0]
-    stp = np.arange(T + 1) if stp is None else np.asarray(stp, np.int64)
-    s0, n_steps = int(seg[0]), int(seg[1])
-    if T == 0:
-        t_lo = t_hi = 0
-    elif 0 <= s0 and 0 <= n_steps and s0 + n_steps < stp.shape[0]:
-        t_lo, t_hi = int(stp[s0]), int(stp[s0 + n_steps])
-    else:
-        raise ValueError(f"seg {seg.tolist()} is outside the {stp.shape[0] - 1} supersteps")
-    levels = np.arange(t_lo, t_hi)
+def _updates(off, wid, sr, ut, trow, tcol, n_rows: int, levels: np.ndarray) -> dict:
+    """The solves and tile updates of ``levels`` (int64 host tables), with
+    the checks :func:`superstep_table` documents: every live solve slot
+    (``slot``, its ``row`` and level), the row's solve level
+    (``solve_level``, -1 if not solved there) and slot, and every update into
+    a real row (flat position ``pos``, tile ``tid``, ``dest`` row, source
+    level ``u_lvl``), in flat order."""
     pad = n_rows - 1
-
     slot, s_lvl = _ranges(off[levels, 0], wid[levels, 0])
     rows = sr[slot]
     live = rows >= 0
@@ -173,6 +178,28 @@ def _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows: int, stp=None) -> dic
     d_lvl = solve_level[dest]
     if np.any((d_lvl >= 0) & (d_lvl <= u_lvl)):
         raise ValueError("a row receives a tile update at or after its own level")
+    return dict(slot=slot, rows=rows, solve_level=solve_level, slot_of_row=slot_of_row,
+                pos=pos, tid=tid, dest=dest, u_lvl=u_lvl, d_lvl=d_lvl)
+
+
+def _pull_order(seg, off, wid, sr, ut, trow, tcol, n_rows: int, stp=None) -> dict:
+    """The pull order of one launch, from host copies of the tables (see
+    :func:`superstep_table`, which raises what this raises)."""
+    seg, off, wid, sr, ut, trow, tcol = (np.asarray(v, np.int64)
+                                         for v in (seg, off, wid, sr, ut, trow, tcol))
+    T = off.shape[0]
+    stp = np.arange(T + 1) if stp is None else np.asarray(stp, np.int64)
+    s0, n_steps = int(seg[0]), int(seg[1])
+    if T == 0:
+        t_lo = t_hi = 0
+    elif 0 <= s0 and 0 <= n_steps and s0 + n_steps < stp.shape[0]:
+        t_lo, t_hi = int(stp[s0]), int(stp[s0 + n_steps])
+    else:
+        raise ValueError(f"seg {seg.tolist()} is outside the {stp.shape[0] - 1} supersteps")
+    levels = np.arange(t_lo, t_hi)
+    u = _updates(off, wid, sr, ut, trow, tcol, n_rows, levels)
+    slot, solve_level, slot_of_row = u["slot"], u["solve_level"], u["slot_of_row"]
+    pos, tid, dest, d_lvl = u["pos"], u["tid"], u["dest"], u["d_lvl"]
 
     S = sr.shape[0]
     orphan_row = np.unique(dest[d_lvl < 0])
@@ -336,6 +363,139 @@ def streamed_values(layout: StreamedLayout, diag: torch.Tensor,
     return values
 
 
+# ---------------------------------------------------------------------------
+# a solve in several launches: the unified executor's, one per superstep
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentedLayout:
+    """The pull tables and the streamed store of a solve made of several
+    launches, built once per device from one pull order.
+
+    The multi-device unified executor launches once per superstep and
+    exchanges between launches, so each launch pulls only the updates its
+    own levels source: into the rows it solves (its solve slots) and, as
+    orphans, into every other row (rows solved by a later launch or owned by
+    another device). Every live tile update of the schedule so belongs to
+    exactly one launch, and the launches' tables are consecutive slices of
+    one set of arrays: ``segments[l]`` is a :class:`SuperstepTable` view of
+    launch ``l`` (``ptr_at``/``orphan_at`` into the shared ``pull_ptr`` and
+    ``orphan_row``), in the reference's push order per target. The streamed
+    store holds, launch after launch, each solve slot's incoming tiles and
+    its diagonal tile, then each orphan's tiles, so the kernel's entry rule
+    (target ``k`` from ``pull_ptr[k] + min(k, S)``) holds in every launch.
+    ``source``, ``diag_entry``, ``tile_entry``, ``max_item_tiles`` and
+    ``copied_entries`` are as in :class:`StreamedLayout`, over the whole
+    solve (``max_item_tiles`` sizes every launch alike). Host work and
+    table size are O(rows + schedule) per device, once, not per launch.
+    """
+
+    segments: tuple
+    source: np.ndarray | torch.Tensor
+    diag_entry: np.ndarray | torch.Tensor
+    tile_entry: np.ndarray | torch.Tensor
+    max_item_tiles: int
+    copied_entries: int
+
+    def to(self, device) -> "SegmentedLayout":
+        """Every array on ``device``, each moved once (the segments keep
+        sharing them)."""
+        def dev(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+        views = ()
+        if self.segments:
+            flat = self.segments[0].to(device)
+            views = tuple(dataclasses.replace(
+                seg, pull_ptr=flat.pull_ptr, pull_tile=flat.pull_tile,
+                pull_col=flat.pull_col, pull_wait=flat.pull_wait,
+                orphan_row=flat.orphan_row, copy_row=flat.copy_row)
+                for seg in self.segments)
+        return dataclasses.replace(self, segments=views, source=dev(self.source),
+                                   diag_entry=dev(self.diag_entry),
+                                   tile_entry=dev(self.tile_entry))
+
+
+def segmented_layout(off, wid, sr, ut, trow, tcol, n_rows: int, stp=None, *,
+                     bounds) -> SegmentedLayout:
+    """The launches ``bounds[l] <= s < bounds[l+1]`` (superstep offsets,
+    increasing from 0) of one solve, from host copies of the reference's
+    tables, whose level slices must lie end to end from slot 0 (as a plan's
+    do). Raises what :func:`superstep_table` raises, for the solve as a
+    whole: a row solved twice, an update that reads a row solved at a later
+    level, or one into a row at or after that row's level."""
+    off, wid, sr, ut, trow, tcol = (np.asarray(v, np.int64)
+                                    for v in (off, wid, sr, ut, trow, tcol))
+    T = off.shape[0]
+    stp = np.arange(T + 1) if stp is None else np.asarray(stp, np.int64)
+    bounds = np.asarray(bounds, np.int64)
+    if (bounds.ndim != 1 or bounds.size < 1 or bounds[0] != 0 or np.any(np.diff(bounds) < 0)
+            or bounds[-1] >= stp.shape[0]):
+        raise ValueError(f"launch bounds {bounds.tolist()} are not supersteps increasing "
+                         f"from 0 of the {stp.shape[0] - 1}")
+    slot_at = (np.concatenate([off[:, 0], off[-1:, 0] + wid[-1:, 0]]) if T
+               else np.zeros(1, np.int64))
+    if T and (off[0, 0] != 0 or np.any(np.diff(slot_at) != wid[:, 0])):
+        raise ValueError("segmented tables need the levels' solve slices end to end from 0")
+    n_launch = bounds.shape[0] - 1
+    lvl_b = stp[bounds] if T else np.zeros(n_launch + 1, np.int64)
+    sb = slot_at[lvl_b]  # each launch's first solve slot, then the end
+    launch_of = np.searchsorted(lvl_b, np.arange(T), side="right") - 1
+    u = _updates(off, wid, sr, ut, trow, tcol, n_rows, np.arange(lvl_b[-1]))
+    tid, dest, d_lvl = u["tid"], u["dest"], u["d_lvl"]
+    l_u = launch_of[u["u_lvl"]]
+    to_slot = (d_lvl >= 0) & (launch_of[np.maximum(d_lvl, 0)] == l_u)
+    key = l_u * n_rows + dest  # an orphan is a row the launch updates but does not solve
+    orphan_key = np.unique(key[~to_slot])
+    n_orph = np.bincount(orphan_key // n_rows, minlength=n_launch)
+    orph_first = np.cumsum(n_orph) - n_orph
+    n_slots = np.diff(sb)
+    block = n_slots + n_orph + 1  # each launch's pointers: its slots, its orphans, the end
+    block_at = np.cumsum(block) - block
+    target = np.where(to_slot, block_at[l_u] + u["slot_of_row"][dest] - sb[l_u],
+                      block_at[l_u] + n_slots[l_u]
+                      + np.searchsorted(orphan_key, key) - orph_first[l_u])
+    cnt = np.bincount(target, minlength=int(block.sum()))
+    pull_ptr = np.cumsum(cnt) - cnt
+    order = np.argsort(target, kind="stable")  # keeps the reference's order per target
+    src_lvl = u["solve_level"][tcol[tid]]
+    wait = (src_lvl >= 0) & (launch_of[np.maximum(src_lvl, 0)] == l_u)
+    pull_tile, pull_target = tid[order], target[order]
+
+    # the streamed store: a slot's pulls follow the diagonal entries of
+    # every earlier slot; launch l's orphans those of all its slots too
+    tgt_launch = np.searchsorted(block_at, pull_target, side="right") - 1
+    local = pull_target - block_at[tgt_launch]
+    pull_entry = np.arange(order.shape[0]) + np.where(
+        local < n_slots[tgt_launch], sb[tgt_launch] + local, sb[tgt_launch + 1])
+    slots = np.arange(sb[-1])
+    slot_ptr = slots + (block_at - sb[:-1])[np.searchsorted(sb, slots, side="right") - 1]
+    diag_entry = pull_ptr[slot_ptr] + cnt[slot_ptr] + slots
+    live_sr = sr[:sb[-1]]
+    source = np.full(max(1, order.shape[0] + int(sb[-1])), n_rows - 1, np.int64)
+    source[diag_entry] = np.where(live_sr < 0, n_rows - 1, live_sr)
+    source[pull_entry] = n_rows + pull_tile
+    tile_entry = np.full(ut.shape[0], -1, np.int64)
+    tile_entry[u["pos"][order]] = pull_entry
+    orphan_ptr, _ = _ranges(block_at + n_slots, n_orph)
+    items = np.concatenate([cnt[slot_ptr][live_sr >= 0] + 1, cnt[orphan_ptr]])
+
+    flat = SuperstepTable(
+        levels=(0, 0), pull_ptr=pull_ptr.astype(np.int32), pull_tile=pull_tile.astype(np.int32),
+        pull_col=tcol[pull_tile].astype(np.int32), pull_wait=wait[order].astype(np.int32),
+        orphan_row=(orphan_key % n_rows).astype(np.int32), copy_row=np.zeros(0, np.int32),
+        n_solve_slots=0, n_orphans=0, n_copy=0, max_items=0)
+    segments = tuple(dataclasses.replace(
+        flat, levels=(int(lvl_b[l]), int(lvl_b[l + 1])), n_solve_slots=int(sb[l + 1]),
+        n_orphans=int(n_orph[l]),
+        max_items=max(int(wid[lvl_b[l]:lvl_b[l + 1], 0].max(initial=0)), int(n_orph[l])),
+        ptr_at=int(block_at[l] - sb[l]), orphan_at=int(orph_first[l])) for l in range(n_launch))
+    return SegmentedLayout(segments=segments, source=source, diag_entry=diag_entry,
+                           tile_entry=tile_entry, max_item_tiles=int(items.max(initial=0)),
+                           copied_entries=int(items.sum()))
+
+
 def _check(diag, tiles, b_pad, acc, x, tables) -> None:
     vecs = (b_pad, acc, x)
     if any(v.dtype != torch.float32 for v in (diag, tiles) + vecs):
@@ -371,12 +531,32 @@ def _check_flags(fn: str, flags: ReadyFlags, n_rows: int, device) -> None:
                          f"operands have {n_rows} rows on {device}")
 
 
+def _check_split(fn: str, acc, delta, x) -> None:
+    """The split form's third carry: like ``acc``, and no two carries in
+    one buffer (the kernel reads ``acc`` and writes ``delta`` and ``x``)."""
+    if delta.dtype != torch.float32 or delta.shape != acc.shape or delta.device != acc.device:
+        raise ValueError(f"{fn}: delta must be float32 {tuple(acc.shape)} on {acc.device}, got "
+                         f"{delta.dtype} {tuple(delta.shape)} on {delta.device}")
+    if not delta.is_contiguous():
+        raise ValueError(f"{fn}: operands must be contiguous")
+    ptrs = {v.untyped_storage().data_ptr() for v in (acc, delta, x)}
+    if len(ptrs) != 3:
+        raise ValueError(f"{fn}: acc, delta and x must be three tensors of their own")
+
+
+def _at(t: torch.Tensor, k: int) -> int:
+    """The device address of element ``k`` of ``t``."""
+    return t.data_ptr() + k * t.element_size()
+
+
 def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x,
                    stp=None, *, grid: int = 0, table: SuperstepTable | None = None,
-                   flags: ReadyFlags):
+                   flags: ReadyFlags, delta=None):
     """Run supersteps ``seg[0] .. seg[0] + seg[1] - 1`` of the schedule in
     one launch; returns new ``(acc, x)``, leaving the carries passed in as
-    they were.
+    they were. With a ``delta`` carry, the split form (the reference's
+    ``split_delta=True``, :func:`superstep_split_` on copies of the carries):
+    returns new ``(acc, delta, x)``.
 
     The tables are the reference's (``kernels/superstep.py::superstep_call``
     in the JAX package), as int32 tensors on the operands' device; ``stp``
@@ -390,6 +570,10 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
     device, kept from launch to launch (the plain version on the CPU does
     not touch it). A launch with no level makes no kernel launch.
     """
+    if delta is not None:
+        acc_out, delta_out, x_out = acc.clone(), delta.clone(), x.clone()
+        return superstep_split_(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc_out,
+                                delta_out, x_out, stp, grid=grid, table=table, flags=flags)
     tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
     _check(diag, tiles, b_pad, acc, x, tables)
     _check_flags("superstep_call", flags, diag.shape[0], diag.device)
@@ -422,7 +606,61 @@ def superstep_call(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, x
 superstep_call.launches = 0
 
 
-def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> None:
+def superstep_split_(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad, acc, delta, x,
+                     stp=None, *, grid: int = 0, table: SuperstepTable | None = None,
+                     flags: ReadyFlags):
+    """The split form of :func:`superstep_call`, in place: supersteps
+    ``seg[0] .. seg[0] + seg[1] - 1`` with the tile updates summed into
+    ``delta`` and each row solved with ``rhs = (b - acc) - delta``; ``acc``
+    is only read. ``delta`` and ``x`` are updated where they lie (the rows
+    the launch solves, the rows it pulls into), nothing else is written, and
+    the three carries are returned. They must be three tensors of their
+    own. This is the unified executor's launch, one per superstep, with the
+    exchange between launches (``core/solver.py``).
+
+    ``table`` is :func:`superstep_table` of the launch, or one of the
+    ``segments`` of a :class:`SegmentedLayout`; ``None`` builds the first
+    from host copies. On the card, one cooperative launch of the split
+    entry point, counted in ``superstep_split_.launches``; given CPU
+    tensors, the plain version (:func:`repro_torch.kernels.ref.superstep_ref`
+    with ``delta``), its result copied into the carries.
+    """
+    tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
+    _check(diag, tiles, b_pad, acc, x, tables)
+    _check_split("superstep_split_", acc, delta, x)
+    _check_flags("superstep_split_", flags, diag.shape[0], diag.device)
+    if diag.device.type == "cpu":
+        _, d, xs = ref.superstep_ref(seg, off, wid, sr, ut, trow, tcol, diag, tiles, b_pad,
+                                     acc, x, stp, delta=delta)
+        delta.copy_(d)
+        x.copy_(xs)
+        return acc, delta, x
+    if table is None:
+        host = [t.cpu().numpy() for t in (seg, off, wid, sr, ut, trow, tcol)]
+        table = superstep_table(*host, n_rows=diag.shape[0],
+                                stp=None if stp is None else stp.cpu().numpy()).to(diag.device)
+    t_lo, t_hi = table.levels
+    if t_hi == t_lo:
+        return acc, delta, x
+    B = diag.shape[1]
+    R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
+    ready, epoch = flags.next(R)
+    ptrs = [t.data_ptr() for t in (off, wid, sr)]
+    ptrs += [_at(table.pull_ptr, table.ptr_at)]
+    ptrs += [t.data_ptr() for t in (table.pull_tile, table.pull_col, table.pull_wait)]
+    ptrs += [_at(table.orphan_row, table.orphan_at)]
+    ptrs += [t.data_ptr() for t in (diag, tiles, b_pad, acc, delta, x, ready)]
+    sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.max_items, grid,
+             epoch]
+    extension.launch("superstep", "repro_superstep_split_f32", diag.device, *ptrs, *sizes)
+    superstep_split_.launches += 1
+    return acc, delta, x
+
+
+superstep_split_.launches = 0
+
+
+def _check_streamed(values, b_pad, acc, x, tables, layout, table: SuperstepTable) -> None:
     vecs = (values, b_pad, acc, x)
     if any(v.dtype != torch.float32 for v in vecs):
         raise TypeError("superstep_streamed_call: float32 values, b_pad, acc and x required")
@@ -447,8 +685,8 @@ def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> No
         raise ValueError("superstep_streamed_call: operands must be contiguous")
     if values.device.type == "cuda" and any(
             not isinstance(t, torch.Tensor) or t.device != values.device
-            for t in (layout.table.pull_ptr, layout.table.pull_col, layout.table.pull_wait,
-                      layout.table.orphan_row, layout.table.copy_row)):
+            for t in (table.pull_ptr, table.pull_col, table.pull_wait, table.orphan_row,
+                      table.copy_row)):
         raise ValueError("superstep_streamed_call: layout must be on the operands' device "
                          "(StreamedLayout.to)")
     check_streamed_fits(B, layout.max_item_tiles)
@@ -456,7 +694,7 @@ def _check_streamed(values, b_pad, acc, x, tables, layout: StreamedLayout) -> No
 
 def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, acc, x,
                             stp=None, *, layout: StreamedLayout, grid: int = 0,
-                            flags: ReadyFlags):
+                            flags: ReadyFlags, delta=None):
     """:func:`superstep_call` with the streamed store: the same function of
     the same tables, with every tile read from ``values``
     (:func:`streamed_values` of ``layout``, the launch's
@@ -467,9 +705,16 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     (:func:`repro_torch.kernels.ref.superstep_streamed_ref`). ``layout`` must
     be on the operands' device for a launch; ``flags`` as for
     :func:`superstep_call`, for ``b_pad.shape[0]`` rows. Raises for a block
-    size whose tile does not fit two stages of shared memory."""
+    size whose tile does not fit two stages of shared memory. With a
+    ``delta`` carry, the split form (:func:`superstep_streamed_split_` on
+    copies of the carries), which returns new ``(acc, delta, x)``."""
+    if delta is not None:
+        acc_out, delta_out, x_out = acc.clone(), delta.clone(), x.clone()
+        return superstep_streamed_split_(seg, off, wid, sr, ut, trow, tcol, values, b_pad,
+                                         acc_out, delta_out, x_out, stp, layout=layout,
+                                         grid=grid, flags=flags)
     tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
-    _check_streamed(values, b_pad, acc, x, tables, layout)
+    _check_streamed(values, b_pad, acc, x, tables, layout, layout.table)
     _check_flags("superstep_streamed_call", flags, b_pad.shape[0], values.device)
     if values.device.type == "cpu":
         return ref.superstep_streamed_ref(
@@ -495,3 +740,48 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
 
 
 superstep_streamed_call.launches = 0
+
+
+def superstep_streamed_split_(seg, off, wid, sr, ut, trow, tcol, values, b_pad, acc, delta, x,
+                              stp=None, *, layout, table: SuperstepTable | None = None,
+                              grid: int = 0, flags: ReadyFlags):
+    """:func:`superstep_split_` with the streamed store: ``values`` is
+    :func:`streamed_values` of ``layout``, a :class:`StreamedLayout` of the
+    launch (``table`` then defaults to its own) or a :class:`SegmentedLayout`
+    of the whole solve with ``table`` one of its ``segments``. In place, as
+    there; on the card one launch of the streamed split entry point, counted
+    in ``superstep_streamed_split_.launches``; given CPU tensors, the plain
+    version (:func:`repro_torch.kernels.ref.superstep_streamed_ref` with
+    ``delta``)."""
+    table = layout.table if table is None else table
+    tables = tuple(t for t in (seg, off, wid, sr, ut, trow, tcol, stp) if t is not None)
+    _check_streamed(values, b_pad, acc, x, tables, layout, table)
+    _check_split("superstep_streamed_split_", acc, delta, x)
+    _check_flags("superstep_streamed_split_", flags, b_pad.shape[0], values.device)
+    if values.device.type == "cpu":
+        _, d, xs = ref.superstep_streamed_ref(
+            seg, off, wid, sr, ut, trow, tcol, values, torch.as_tensor(layout.diag_entry),
+            torch.as_tensor(layout.tile_entry), b_pad, acc, x, stp, delta=delta)
+        delta.copy_(d)
+        x.copy_(xs)
+        return acc, delta, x
+    t_lo, t_hi = table.levels
+    if t_hi == t_lo:
+        return acc, delta, x
+    B = b_pad.shape[1]
+    R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
+    warps, cap = streamed_shape(B, layout.max_item_tiles)
+    ready, epoch = flags.next(R)
+    ptrs = [t.data_ptr() for t in (off, wid, sr)]
+    ptrs += [_at(table.pull_ptr, table.ptr_at), table.pull_col.data_ptr(),
+             table.pull_wait.data_ptr(), _at(table.orphan_row, table.orphan_at)]
+    ptrs += [t.data_ptr() for t in (values, b_pad, acc, delta, x, ready)]
+    sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.max_items, grid,
+             warps, cap, epoch]
+    extension.launch("superstep", "repro_superstep_streamed_split_f32", values.device, *ptrs,
+                     *sizes)
+    superstep_streamed_split_.launches += 1
+    return acc, delta, x
+
+
+superstep_streamed_split_.launches = 0

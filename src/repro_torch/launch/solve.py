@@ -8,6 +8,19 @@ Runs through the session API (:class:`repro_torch.api.SpTRSVContext`); pass
 ``auto`` for ``--sched``/``--comm``/``--kernel`` to let the cost model (plus
 ``--probe N`` timed probe solves) pick the execution mode.
 
+Multi-device (``--comm unified`` on D devices, one process each) runs
+under ``torch.distributed.run``::
+
+    python -m torch.distributed.run --nproc-per-node D \
+        -m repro_torch.launch.solve --comm unified [...]
+
+With ``WORLD_SIZE > 1`` in the environment every rank joins one process
+group (``--dist-backend``: ``nccl`` where each rank has a card of its own,
+``gloo`` for ranks sharing one card or the CPU), runs on
+``cuda:{LOCAL_RANK}`` unless ``--device`` says otherwise, and solves its
+device's share; rank 0 builds the CUDA kernels before the others load
+them, and prints the report.
+
 Exit status: 0; 2 when ``--verify`` finds the plan at fault; 1 when
 ``--tol`` is given and the relative error exceeds it.
 """
@@ -39,7 +52,11 @@ def parse_args(argv: list | None = None) -> argparse.Namespace:
     ap.add_argument("--n", type=int, default=2000, help="rows of --matrix random")
     ap.add_argument("--levels", type=int, default=64, help="levels of --matrix random")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' runs the plain versions)")
+                    help="torch device (default: the card, cuda:{LOCAL_RANK} under "
+                         "torch.distributed.run; 'cpu' runs the plain versions)")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend when WORLD_SIZE > 1: nccl (one card "
+                         "per rank) or gloo (ranks sharing a card, or the CPU)")
     ap.add_argument("--comm", default="zerocopy", choices=["zerocopy", "unified", "auto"])
     ap.add_argument("--sched", default="levelset",
                     choices=["levelset", "dagpart", "syncfree", "auto"],
@@ -87,8 +104,45 @@ def parse_args(argv: list | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _join_group(args) -> tuple:
+    """The process group (``None`` for one process) and this rank, from the
+    environment ``torch.distributed.run`` sets; rank 0 builds the kernels
+    first when the ranks run on a card."""
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, 0
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if args.device is None:
+        args.device = f"cuda:{local}"
+    dist.init_process_group(args.dist_backend, init_method="env://")
+    rank = dist.get_rank()
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(torch.device(args.device))
+        if rank == 0:
+            from repro_torch.kernels import extension
+
+            extension.build()
+    dist.barrier()
+    return dist.group.WORLD, rank
+
+
 def main(argv: list | None = None) -> int:
     args = parse_args(argv)
+    group, rank = _join_group(args)
+    try:
+        return _main(args, group, rank)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, group, rank: int) -> int:
+    say = print if rank == 0 else (lambda *a, **k: None)  # the report comes from rank 0
+
     if args.trace:
         obs_trace.configure_tracing(args.trace)
 
@@ -98,7 +152,7 @@ def main(argv: list | None = None) -> int:
         entry = {e.name: e for e in suite.table1_suite(args.scale)}[args.matrix]
         a = entry.build()
     m = metrics(a, level_sets(a))
-    print(f"[solve] {args.matrix}: n={m.n} nnz={m.nnz} levels={m.n_levels} "
+    say(f"[solve] {args.matrix}: n={m.n} nnz={m.nnz} levels={m.n_levels} "
           f"dependency={m.dependency:.2f} parallelism={m.parallelism:.0f}")
 
     opts = PlanOptions(
@@ -113,7 +167,7 @@ def main(argv: list | None = None) -> int:
         from repro_torch.service import PlanStore
 
         store = PlanStore(args.plan_store)
-    ctx = SpTRSVContext(device=args.device, options=opts, plan_store=store)
+    ctx = SpTRSVContext(device=args.device, options=opts, plan_store=store, group=group)
     handle = ctx.analyse(a)
     plan = ctx.plan(handle)
     if args.verify:
@@ -121,13 +175,13 @@ def main(argv: list | None = None) -> int:
 
         t0 = time.perf_counter()
         report = verify_plan(plan, level=args.verify)
-        print(f"[solve] {report.summary()} in {time.perf_counter() - t0:.2f} s (host)")
+        say(f"[solve] {report.summary()} in {time.perf_counter() - t0:.2f} s (host)")
         for f in report.findings:
-            print(f"[solve]   {f}")
+            say(f"[solve]   {f}")
         if not report.passed:
             return 2
     cs = cut_stats(plan.bs, plan.part)
-    print(f"[solve] device={ctx.device} D={ctx.n_devices} block={plan.bs.B} "
+    say(f"[solve] device={ctx.device} D={ctx.n_devices} block={plan.bs.B} "
           f"block-levels={plan.n_levels} boundary={cs.boundary_fraction:.0%} "
           f"comm/solve={plan.comm_bytes_per_solve/1e3:.0f}KB "
           f"level-imbalance={cs.level_imbalance:.2f} "
@@ -135,7 +189,7 @@ def main(argv: list | None = None) -> int:
     ds = ctx.dispatch_stats(handle)
     if store is not None:
         ps = store.stats
-        print(f"[solve] plan-store: hit={ds['plan_store_hit']} "
+        say(f"[solve] plan-store: hit={ds['plan_store_hit']} "
               f"(hits={ps.get('hits', 0)} misses={ps.get('misses', 0)} "
               f"rejected={ps.get('rejected', 0)} saves={ps.get('saves', 0)}) "
               f"root={store.root}")
@@ -143,7 +197,7 @@ def main(argv: list | None = None) -> int:
     backend = ops.executor_backend(cfg.kernel_backend, ctx.device)
     if handle.auto is not None:
         sched, comm, kernel = handle.auto.chosen
-        print(f"[solve] auto: sched={sched} comm={comm} kernel={kernel} "
+        say(f"[solve] auto: sched={sched} comm={comm} kernel={kernel} "
               f"({handle.auto.mode}, probe-overhead "
               f"{handle.auto.probe_overhead_us/1e3:.1f}ms)")
     if cfg.sched in ("levelset", "dagpart"):
@@ -154,7 +208,7 @@ def main(argv: list | None = None) -> int:
             merge_note = (f" supersteps={ds['supersteps']}"
                           f"/{ds['supersteps_levelset']} "
                           f"({ds['superstep_reduction']:.1f}x fewer)")
-        print(f"[solve] kernel={backend} "
+        say(f"[solve] kernel={backend} "
               f"fused-launches={ds['fused_launches']} "
               f"switch-dispatches={ds['switch_dispatches']} "
               f"exchanges={ds['exchanges']} "
@@ -163,7 +217,7 @@ def main(argv: list | None = None) -> int:
               f"sched-table={ds['schedule_table_bytes']/1e3:.1f}KB"
               f"{stream_note}{merge_note}")
     else:
-        print(f"[solve] kernel={backend} frontier-caps={plan.frontier_caps}")
+        say(f"[solve] kernel={backend} frontier-caps={plan.frontier_caps}")
 
     rng = np.random.default_rng(0)
     b = rng.uniform(-1, 1, a.n)
@@ -174,7 +228,7 @@ def main(argv: list | None = None) -> int:
     dt = (time.perf_counter() - t0) / max(1, args.repeats)
     err = float(np.abs(x - reference_solve(a, b)).max() / np.abs(x).max())
     st = ctx.stats()
-    print(f"[solve] {dt*1e3:.2f} ms/solve over {args.repeats} runs, rel.err {err:.2e} "
+    say(f"[solve] {dt*1e3:.2f} ms/solve over {args.repeats} runs, rel.err {err:.2e} "
           f"(cache hit rate {st['cache_hit_rate']:.0%})")
     tracer = obs_trace.get_tracer()
     if tracer.enabled:
@@ -183,11 +237,11 @@ def main(argv: list | None = None) -> int:
         snap = ctx.metrics_snapshot(handle)
         tracer.write({"type": "metrics", "metrics": snap})
         names = sorted({r["name"] for r in tracer.export() if r.get("type") == "span"})
-        print(f"[solve] trace: {len(tracer.export())} records -> {tracer.path} "
+        say(f"[solve] trace: {len(tracer.export())} records -> {tracer.path} "
               f"(spans: {', '.join(names)})")
         tracer.close()
     if args.tol is not None and not err <= args.tol:
-        print(f"[solve] FAIL: rel.err {err:.2e} > --tol {args.tol}")
+        say(f"[solve] FAIL: rel.err {err:.2e} > --tol {args.tol}")
         return 1
     return 0
 

@@ -50,10 +50,14 @@ Rule catalogue (``kc.*``; all errors):
   plan runs that form. The streamed form fails here at ``B > 169``.
 * ``kc.carry.donation`` (*port*) — the megakernel wrappers
   (``superstep_call``, ``superstep_streamed_call``) and their plain
-  versions return fresh ``acc``/``x`` tensors and never write into the
-  carries passed in: the fused executor passes one ``zeros`` tensor as both
-  carries, so an in-place write to one would corrupt the other. Linted on
-  the functions' source (:func:`carry_donation_findings`).
+  versions return fresh ``acc``/``x`` (and, split, ``delta``) tensors and
+  never write into the carries passed in: the fused executor passes one
+  ``zeros`` tensor as both carries, so an in-place write to one would
+  corrupt the other. Linted on the functions' source
+  (:func:`carry_donation_findings`). The split form's in-place launchers
+  (``superstep_split_``, ``superstep_streamed_split_``, the unified
+  executor's) are not linted: they update their carries by design, and
+  refuse carries that share a buffer when called.
 * ``kc.pull.wait`` (*port*) — the resident kernel's pull table
   (``kernels.superstep.SuperstepTable``, one per device): ``pull_wait`` is 1
   exactly where the pulled tile's source row is solved in the launch (the
@@ -259,7 +263,7 @@ def _check_pad_inert(plan: "Plan", sink: RuleSink) -> None:
 # kc.carry.donation: a lint of the megakernel wrappers' source
 # ---------------------------------------------------------------------------
 
-CARRIES = ("acc", "x")
+CARRIES = ("acc", "delta", "x")  # delta: the split form's third carry
 # calls whose result is a tensor of its own (never a view of an argument)
 _FRESH_CALLS = ("empty_like", "zeros_like", "clone", "empty", "zeros")
 
@@ -321,7 +325,7 @@ def _writes(node, names: set) -> list:
 def carry_donation_findings(sources: dict | None = None) -> list:
     """Messages for every way the functions in ``sources`` (``{name:
     source}``; default :func:`_carry_functions`) could hand back or write
-    into a carry passed in (``acc``, ``x``).
+    into a carry passed in (``acc``, ``delta``, ``x``).
 
     The statements of each function are read in order. A carry is *fresh*
     once it is rebound to a call that makes a new tensor (``.clone()``,

@@ -545,6 +545,117 @@ def test_partial_launch_with_carries_bit_identical_to_plain_version(cuda_device,
 
 
 # ---------------------------------------------------------------------------
+# the megakernel's split form (multi-device comm="unified") and the exchange
+# ---------------------------------------------------------------------------
+
+
+def _split_segment(B: int, real: bool):
+    """Device 1's tables of a 4-device unified dagpart plan, the segmented
+    layout of its solve, and its widest merged superstep (several levels,
+    so delta is not zero at the later ones)."""
+    from repro_torch.core.solver import SolverConfig, build_plan, level_widths, step_offsets
+    from repro_torch.kernels import superstep
+
+    a = suite.random_levelled(1600, 12, 4.0, seed=6)
+    if not real:
+        a = _dyadic(a)
+    plan = build_plan(a, 4, SolverConfig(block_size=B, comm="unified", sched="dagpart"))
+    so = step_offsets(plan)
+    s = int(np.argmax(np.diff(so)))
+    assert so[s + 1] - so[s] > 1, "no merged superstep"
+    host = [torch.tensor([s, 1], dtype=torch.int32)] + [
+        torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32))
+        for t in (plan.lvl_off, level_widths(plan), plan.solve_rows[1], plan.upd_tiles[1],
+                  plan.tile_row[1], plan.tile_col[1])]
+    stp = torch.from_numpy(np.ascontiguousarray(so, dtype=np.int32))
+    layout = superstep.segmented_layout(*[t.numpy() for t in host[1:]], n_rows=plan.bs.nb + 1,
+                                        stp=so, bounds=np.arange(len(so)))
+    return plan, host, stp, layout, s
+
+
+@pytest.mark.parametrize("values", ["dyadic", "real"])
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("B", [7, 16, 32])
+def test_split_kernel_matches_plain_version(cuda_device, B, form, values):
+    """One launch of the split form over a merged superstep of device 1's
+    tables, with non-zero incoming ``acc``, ``delta`` and ``x``, through
+    the in-place launcher the unified executor uses (its segmented tables):
+    bit-equal to the plain version on dyadic values (whose float32 result
+    is the float64 one: nothing rounds), within 2e-4 on real ones; ``acc``
+    untouched, one launch counted."""
+    from repro_torch.kernels import superstep
+
+    real = values == "real"
+    plan, host, stp, layout, s = _split_segment(B, real)
+    rng = np.random.default_rng(B)
+    shape = (plan.bs.nb + 1, B)
+    vecs = [(rng.uniform(-1, 1, shape) if real else rng.integers(-3, 4, shape))
+            .astype(np.float32) for _ in range(4)]
+    for v in vecs:
+        v[-1] = 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        t = [v.to(dev) for v in host]
+        b_pad, acc, delta, x = (torch.from_numpy(v.copy()).to(dev) for v in vecs)
+        diag = torch.from_numpy(plan.diag).to(dev)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[1])).to(dev)
+        lay = layout.to(dev)
+        flags = superstep.ReadyFlags(shape[0], dev)
+        ops.reset_launch_counts()
+        if form == "resident":
+            superstep.superstep_split_(*t, diag, tiles, b_pad, acc, delta, x, stp.to(dev),
+                                       table=lay.segments[s], flags=flags)
+        else:
+            values_ = superstep.streamed_values(lay, diag, tiles)
+            superstep.superstep_streamed_split_(*t, values_, b_pad, acc, delta, x, stp.to(dev),
+                                                layout=lay, table=lay.segments[s], flags=flags)
+        name = "superstep_split" if form == "resident" else "superstep_streamed_split"
+        assert ops.launch_counts()[name] == (1 if dev != "cpu" else 0)
+        outs[str(dev)] = [v.cpu().numpy() for v in (acc, delta, x)]
+    np.testing.assert_array_equal(outs["cuda"][0], vecs[1])  # acc is only read
+    if real:
+        for got, want in zip(outs["cuda"], outs["cpu"]):
+            np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+        return
+    t64 = [v.double() if v.is_floating_point() else v for v in host]
+    exact = ref.superstep_ref(*t64[:7], torch.from_numpy(plan.diag).double(),
+                              torch.from_numpy(plan.tiles[1]).double(),
+                              *(torch.from_numpy(v).double() for v in vecs[:2]),
+                              torch.from_numpy(vecs[3]).double(), stp,
+                              delta=torch.from_numpy(vecs[2]).double())
+    for got, want, e in zip(outs["cuda"], outs["cpu"], exact):
+        np.testing.assert_array_equal(want, e.numpy().astype(np.float32))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_gloo_group_of_one_on_the_card(cuda_device, tmp_path):
+    """A one-rank gloo group on the card: ``all_reduce`` takes CUDA tensors
+    (gloo stages them through host memory), and a session on the group
+    gathers ``x`` through it, bit-equal to the session without a group."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        t = torch.arange(6, dtype=torch.float32, device=cuda_device)
+        before = comm.all_reduce_sum_.calls
+        assert comm.all_reduce_sum_(t, dist.group.WORLD) is t
+        assert t.device.type == "cuda" and t.tolist() == list(range(6))
+        a = _dyadic(suite.random_levelled(400, 8, 4.0, seed=6))
+        b = np.random.default_rng(3).integers(-4, 5, a.n).astype(np.float32)
+        opts = PlanOptions(block_size=16, comm="unified", kernel="fused")
+        ctx = SpTRSVContext(options=opts, group=dist.group.WORLD)
+        x = ctx.solve(ctx.analyse(a), b)
+        assert comm.all_reduce_sum_.calls == before + 2  # the test's, then the gather
+        alone = SpTRSVContext(options=opts)
+        np.testing.assert_array_equal(x, alone.solve(alone.analyse(a), b))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # the syncfree executor (dense scan under "cuda", frontier form under "fused")
 # and ILU(0)-BiCGStab
 # ---------------------------------------------------------------------------

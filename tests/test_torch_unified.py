@@ -1,0 +1,471 @@
+"""Multi-device ``comm="unified"`` on the CPU: the port's executors on D
+gloo ranks against the reference's ``DistributedSolver`` on a D-device mesh,
+for D = 4 and 8.
+
+Four subprocesses run once for the module, side by side: for each D, the
+reference on a mesh of D forced host devices, and one process that imports
+the port and forks D ranks of one gloo group (no JAX there). The reference
+runs its megakernel executor (``fused``, whose split form the port's fused
+backends run) at both D and its switch executor (``reference``) at D = 8;
+the port's switch executor is held to the reference's switch executor at
+D = 8 and to its megakernel at D = 4. The reference's executors agree bit
+for bit on these problems (its own ``tests/test_multidevice.py`` pins the
+megakernel against the switch executor on 8 devices), so each of the port's
+executors is held to the reference's bits either way; running the
+reference's switch executor at D = 4 too would double the reference's time. The parent writes their inputs (the
+dyadic suites of ``tests/strategies.py``, a real-valued problem, new values
+for a refresh, a matrix whose cut is empty), and the tests read their
+results: every rank's ``x`` bit for bit against the reference's, real values
+within rtol = atol = 2e-4 of ``reference_solve``, launch and exchange counts
+against ``dispatch_stats``, strict verification of every plan run.
+
+Run as ``python tests/test_torch_unified.py D INPUTS OUT`` this file is the
+port's side: it forks the D ranks and writes one ``.npz`` and one ``.json``
+per rank to OUT.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+DEVICES = (4, 8)
+B = 8
+SCHEDS = ("levelset", "dagpart")
+# the port's kernels, and the reference's run at each D
+KERNELS = ("reference", "fused", "fused_streamed")
+REFERENCE_KERNELS = {4: ("fused",), 8: ("reference", "fused")}
+FORMS = ("forward", "transpose", "panel")
+MATRICES = ("banded", "skewed")
+TOL = dict(rtol=2e-4, atol=2e-4)
+TIMEOUT = 600
+
+
+# ---------------------------------------------------------------------------
+# the port's side: D forked gloo ranks (runs in a process of its own)
+# ---------------------------------------------------------------------------
+
+
+def _rank(rank: int, D: int, inputs: str, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    # "fused" means the resident megakernel here, "fused_streamed" the
+    # streamed one (the port's rule streams every plan on its own)
+    os.environ["REPRO_TORCH_STREAM_LIMIT"] = str(2**62)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(out, "rendezvous"),
+                            rank=rank, world_size=D)
+    from repro_torch.api import PlanOptions, SpTRSVContext
+    from repro_torch.core import comm
+    from repro_torch.core import solver as tsolver
+    from repro_torch.kernels import superstep
+    from repro_torch.sparse.matrix import CSR
+    from repro_torch.verify import verify_plan
+
+    group = dist.group.WORLD
+    data = np.load(inputs)
+    calls: dict = {}
+
+    def counted(name):
+        fn = getattr(superstep, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        setattr(superstep, name, wrapper)
+
+    for name in ("superstep_call", "superstep_streamed_call", "superstep_split_",
+                 "superstep_streamed_split_"):
+        counted(name)
+
+    def csr(key):
+        return CSR(n=int(data[key + "/n"]), row_ptr=data[key + "/row_ptr"],
+                   col_idx=data[key + "/col_idx"], val=data[key + "/val"])
+
+    xs, report, verified = {}, {}, {}
+
+    def solve(ctx, h, rhs, tag, transpose=False):
+        """One solve, its ``x`` kept under ``tag`` and its launches and
+        all-reduces counted under ``tag`` in the report."""
+        calls.clear()
+        before = comm.all_reduce_sum_.calls
+        x = ctx.solve(h, rhs, transpose=transpose)
+        solver = ctx.executor(h, transpose=transpose)
+        stats = tsolver.dispatch_stats(solver.plan)
+        kernel = h.config.kernel_backend
+        split = calls.get("superstep_split_", 0) + calls.get("superstep_streamed_split_", 0)
+        whole = calls.get("superstep_call", 0) + calls.get("superstep_streamed_call", 0)
+        if id(solver.plan) not in verified:
+            verified[id(solver.plan)] = verify_plan(solver.plan, "strict").passed
+        xs[tag] = x
+        report[tag] = {
+            "exchanges": solver.exchanges, "want_exchanges": stats["exchanges"],
+            "all_reduces": comm.all_reduce_sum_.calls - before,
+            "want_launches": stats["fused_launches"], "split": split, "whole": whole,
+            "streamed": calls.get("superstep_streamed_split_", 0)
+            + calls.get("superstep_streamed_call", 0),
+            "verified": verified[id(solver.plan)]}
+
+    def ranges(ctx, h, b):
+        """The ``record_function`` ranges one solve enters, untraced and
+        traced."""
+        from repro_torch.obs import trace
+
+        names, real = [], torch.profiler.record_function
+
+        def counted(name, *args, **kwargs):
+            names.append(name)
+            return real(name, *args, **kwargs)
+
+        torch.profiler.record_function = counted
+        try:
+            ctx.solve(h, b)
+            off = list(names)
+            with trace.trace_to():
+                ctx.solve(h, b)
+        finally:
+            torch.profiler.record_function = real
+        return {"off": off, "on": {n: names.count(n) for n in set(names)},
+                "supersteps": ctx.plan(h).n_supersteps}
+
+    for m in MATRICES:
+        a = csr(m)
+        b, panel = data[m + "/b"], data[m + "/panel"]
+        for sched in SCHEDS:
+            for kernel in KERNELS:
+                ctx = SpTRSVContext(device="cpu", group=group, options=PlanOptions(
+                    block_size=B, comm="unified", sched=sched, kernel=kernel))
+                h = ctx.analyse(a)
+                key = f"{m}/{sched}/{kernel}"
+                solve(ctx, h, b, key + "/forward")
+                solve(ctx, h, b, key + "/transpose", transpose=True)
+                solve(ctx, h, panel, key + "/panel")
+                if m == "skewed" and sched == "dagpart":
+                    report[key + "/ranges"] = ranges(ctx, h, b)
+                if m == "skewed":
+                    snap = ctx.metrics_snapshot(h)
+                    stats = ctx.dispatch_stats(h)
+                    report[key + "/metrics"] = all(
+                        snap[f"plan.{k}"] == stats[k]
+                        for k in ("fused_launches", "exchanges", "supersteps"))
+                    # a refresh to new values solves with them, then back
+                    ctx.factorize(csr("skewed_new"), h)
+                    solve(ctx, h, b, key + "/refreshed")
+                    ctx.factorize(a, h)
+                    solve(ctx, h, b, key + "/refreshed_back")
+    for kernel in KERNELS:  # real values
+        ctx = SpTRSVContext(device="cpu", group=group, options=PlanOptions(
+            block_size=16, comm="unified", sched="dagpart", kernel=kernel))
+        solve(ctx, ctx.analyse(csr("real")), data["real/b"], f"real/{kernel}")
+    for kernel in KERNELS:  # an empty cut: no exchange, one launch per solve
+        ctx = SpTRSVContext(device="cpu", group=group, options=PlanOptions(
+            block_size=B, comm="unified", partition="contiguous", kernel=kernel))
+        h = ctx.analyse(csr("uncut"))
+        solve(ctx, h, data["uncut/b"], f"uncut/{kernel}")
+        report[f"uncut/{kernel}"]["boundary"] = ctx.plan(h).n_boundary_rows
+    # what a multi-device session does not run yet
+    refused = []
+    for make in (lambda: SpTRSVContext(device="cpu", group=group, plan_store=object()),
+                 lambda: SpTRSVContext(device="cpu", group=group).analyse(
+                     csr("skewed"), PlanOptions(sched="auto"))):
+        try:
+            make()
+        except NotImplementedError as e:
+            refused.append("ROADMAP" in str(e))
+    report["refused"] = refused
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **xs)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _port_main(D: int, inputs: str, out: str) -> None:
+    """Fork the D ranks (the port is imported once, here) and wait for them."""
+    import multiprocessing
+
+    # imported before the fork, so the ranks share them
+    import torch  # noqa: F401
+    import repro_torch.api  # noqa: F401
+    import repro_torch.verify  # noqa: F401
+
+    fork = multiprocessing.get_context("fork")
+    procs = [fork.Process(target=_rank, args=(r, D, inputs, out)) for r in range(D)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TIMEOUT)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * D:
+        for p in procs:
+            p.kill()
+        sys.exit(f"ranks exited {codes}")
+
+
+# ---------------------------------------------------------------------------
+# the reference's side (runs in a process of its own)
+# ---------------------------------------------------------------------------
+
+REFERENCE = textwrap.dedent("""
+    import sys
+    import numpy as np, jax
+    from repro import compat
+    from repro.core import DistributedSolver, SolverConfig, build_plan
+    from repro.sparse.matrix import CSR
+    inputs, out, D, kernels = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4:]
+    data = np.load(inputs)
+    mesh = compat.make_mesh((D,), ("x",), devices=jax.devices()[:D])
+    xs = {}
+    for m in ("banded", "skewed"):
+        a = CSR(n=int(data[m + "/n"]), row_ptr=data[m + "/row_ptr"],
+                col_idx=data[m + "/col_idx"], val=data[m + "/val"])
+        b, panel = data[m + "/b"], data[m + "/panel"]
+        for sched in ("levelset", "dagpart"):
+            for kernel in kernels:
+                cfg = SolverConfig(block_size=%d, comm="unified", sched=sched,
+                                   kernel_backend=kernel)
+                fw = DistributedSolver(build_plan(a, D, cfg), mesh)
+                tr = DistributedSolver(build_plan(a, D, cfg, transpose=True), mesh)
+                key = f"{D}/{m}/{sched}/{kernel}"
+                xs[key + "/forward"] = fw.solve(b)
+                xs[key + "/transpose"] = tr.solve(b)
+                xs[key + "/panel"] = fw.solve(panel)
+    np.savez(out, **xs)
+""" % B)
+
+
+def _inputs(path: str) -> dict:
+    """The problems both sides solve, written to ``path``; returns them."""
+    import scipy.sparse as sp
+
+    import strategies
+    from repro.sparse.matrix import CSR
+
+    data, probs = {}, {}
+
+    def put(key, a, b, panel=None):
+        probs[key] = (a, b)
+        data.update({f"{key}/n": a.n, f"{key}/row_ptr": a.row_ptr,
+                     f"{key}/col_idx": a.col_idx, f"{key}/val": a.val, f"{key}/b": b})
+        if panel is not None:
+            data[f"{key}/panel"] = panel
+
+    for m in MATRICES:
+        a = strategies.EXACT_MATRICES[m]()
+        b = strategies.dyadic_rhs(a.n)
+        put(m, a, b, np.stack([b, strategies.dyadic_rhs(a.n, seed=2)], axis=1))
+    skewed = probs["skewed"][0]
+    put("skewed_new", strategies.dyadic(skewed, seed=1), probs["skewed"][1])
+    real = strategies.SOLVER_MATRICES["levelled"]()
+    put("real", real, np.random.default_rng(1).uniform(-1, 1, real.n).astype(np.float32))
+    # eight independent copies of one two-block matrix: a contiguous
+    # partition of four or eight devices cuts nothing
+    one = strategies.dyadic(strategies.random_triangular(n=2 * B, seed=3, m=40))
+    L = sp.block_diag([sp.csr_matrix((one.val, one.col_idx, one.row_ptr))] * 8, format="csr")
+    L.sort_indices()
+    uncut = CSR(n=L.shape[0], row_ptr=L.indptr.astype(np.int64),
+                col_idx=L.indices.astype(np.int32), val=L.data.astype(np.float32))
+    put("uncut", uncut, strategies.dyadic_rhs(uncut.n, seed=5))
+    np.savez(path, **data)
+    return probs
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Start the reference and both port runs together, wait for all three,
+    and return their results with the inputs."""
+    tmp = tmp_path_factory.mktemp("unified")
+    inputs = str(tmp / "inputs.npz")
+    probs = _inputs(inputs)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for D in DEVICES:
+        procs[f"reference {D}"] = subprocess.Popen(
+            [sys.executable, "-c", REFERENCE, inputs, str(tmp / f"reference{D}.npz"), str(D),
+             *REFERENCE_KERNELS[D]],
+            env=dict(env, JAX_PLATFORMS="cpu",
+                     XLA_FLAGS=f"--xla_force_host_platform_device_count={D}"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        (tmp / f"port{D}").mkdir()
+        procs[D] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(D), inputs, str(tmp / f"port{D}")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log, _ = p.communicate(timeout=TIMEOUT)
+        assert p.returncode == 0, f"{name} run failed:\n{log[-3000:]}"
+    ref = {k: v for D in DEVICES for k, v in np.load(tmp / f"reference{D}.npz").items()}
+    port = {D: [(dict(np.load(tmp / f"port{D}" / f"rank{r}.npz")),
+                 json.loads((tmp / f"port{D}" / f"rank{r}.json").read_text()))
+                for r in range(D)] for D in DEVICES}
+    return probs, ref, port
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("sched", SCHEDS)
+@pytest.mark.parametrize("matrix", MATRICES)
+@pytest.mark.parametrize("D", DEVICES)
+def test_every_rank_bit_identical_to_the_reference(runs, D, matrix, sched, kernel, form):
+    _, ref, port = runs
+    counterpart = kernel if kernel in REFERENCE_KERNELS[D] else "fused"
+    want = ref[f"{D}/{matrix}/{sched}/{counterpart}/{form}"]
+    for r, (xs, _) in enumerate(port[D]):
+        np.testing.assert_array_equal(xs[f"{matrix}/{sched}/{kernel}/{form}"], want,
+                                      err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("D", DEVICES)
+def test_real_values_within_tolerance_and_refresh(runs, D, kernel):
+    """Real values within 2e-4 of ``reference_solve`` on every rank; a
+    refresh to new values solves with them (exact on the dyadic suite), and
+    back with the old ones."""
+    from repro.sparse.matrix import reference_solve
+
+    probs, _, port = runs
+    a, b = probs["real"]
+    want = reference_solve(a, b)
+    new, bn = probs["skewed_new"]
+    exact_new = reference_solve(new, bn).astype(np.float32)
+    for xs, _ in port[D]:
+        np.testing.assert_allclose(xs[f"real/{kernel}"], want, **TOL)
+        for sched in SCHEDS:
+            np.testing.assert_array_equal(xs[f"skewed/{sched}/{kernel}/refreshed"], exact_new)
+            np.testing.assert_array_equal(xs[f"skewed/{sched}/{kernel}/refreshed_back"],
+                                          xs[f"skewed/{sched}/{kernel}/forward"])
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("D", DEVICES)
+def test_launches_and_exchanges_are_dispatch_stats(runs, D, kernel):
+    """Per solve: as many exchanges as ``dispatch_stats`` says (one per
+    superstep), one all-reduce more (the gather), and under the fused
+    backends as many launches of the split form and no unsplit one,
+    streamed exactly under ``fused_streamed``; ``metrics_snapshot`` reports
+    the same counts; every plan run verifies strict."""
+    for _, report in runs[2][D]:
+        tags = [t for t, c in report.items()
+                if t.split("/")[2:3] == [kernel] and isinstance(c, dict) and "exchanges" in c]
+        tags += [f"real/{kernel}"]
+        assert len(tags) == 2 * 2 * 3 + 2 * 2 + 1
+        for tag in tags:
+            c = report[tag]
+            assert c["verified"], tag
+            assert c["exchanges"] == c["want_exchanges"] > 0, (tag, c)
+            assert c["all_reduces"] == c["exchanges"] + 1, (tag, c)
+            if kernel != "reference":
+                assert c["split"] == c["want_launches"] == c["want_exchanges"], (tag, c)
+                assert c["whole"] == 0, (tag, c)
+                assert (c["streamed"] > 0) == (kernel == "fused_streamed"), (tag, c)
+        assert all(report[f"skewed/{s}/{kernel}/metrics"] for s in SCHEDS)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_exchange_and_gather_ranges_only_when_traced(runs, kernel):
+    """A solve enters no ``record_function`` range untraced; traced, one
+    ``sptrsv.exchange`` per superstep and one ``sptrsv.gather``, beside one
+    ``sptrsv.superstep`` per launch (fused backends)."""
+    for D in DEVICES:
+        for _, report in runs[2][D]:
+            r = report[f"skewed/dagpart/{kernel}/ranges"]
+            assert r["off"] == [], r
+            assert r["on"]["sptrsv.exchange"] == r["supersteps"], r
+            assert r["on"]["sptrsv.gather"] == 1, r
+            if kernel != "reference":
+                assert r["on"]["sptrsv.superstep"] == r["supersteps"], r
+            else:
+                assert r["on"]["sptrsv.level_solve"] > 0, r
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("D", DEVICES)
+def test_empty_cut_runs_one_launch_and_no_exchange(runs, D, kernel):
+    from repro.sparse.matrix import reference_solve
+
+    probs, _, port = runs
+    a, b = probs["uncut"]
+    want = reference_solve(a, b).astype(np.float32)
+    for xs, report in port[D]:
+        c = report[f"uncut/{kernel}"]
+        assert c["boundary"] == 0 and c["verified"], c
+        np.testing.assert_array_equal(xs[f"uncut/{kernel}"], want)
+        assert c["exchanges"] == c["want_exchanges"] == 0, c
+        assert c["all_reduces"] == 1, c  # the gather alone
+        if kernel != "reference":
+            assert c["whole"] == c["want_launches"] == 1 and c["split"] == 0, c
+
+
+@pytest.mark.parametrize("D", DEVICES)
+def test_auto_and_plan_store_refused_on_several_devices(runs, D):
+    for _, report in runs[2][D]:
+        assert report["refused"] == [True, True]
+
+
+def test_plan_digest_tells_plans_apart():
+    """The digest the ranks compare: equal for the same plan built twice,
+    different for another partition or device count."""
+    import strategies
+    from torch_parity import to_torch_csr
+    from repro_torch.api.context import plan_digest
+    from repro_torch.core import solver as tsolver
+
+    a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
+
+    def digest(D, **kw):
+        return plan_digest(tsolver.build_plan(a, D, tsolver.SolverConfig(
+            block_size=B, comm="unified", **kw)))
+
+    assert digest(4) == digest(4)
+    assert len({digest(4), digest(8), digest(4, partition="contiguous"),
+                digest(4, sched="dagpart")}) == 4
+
+
+def test_multi_device_plans_need_a_matching_group():
+    """A unified plan of D > 1 devices without a group of D ranks raises
+    ``ValueError``; zerocopy and syncfree at D > 1 still raise
+    ``NotImplementedError`` naming ROADMAP, also with a group; so do
+    ``"auto"`` and a plan store in a multi-device session."""
+    import torch.distributed as dist
+
+    import strategies
+    from torch_parity import to_torch_csr
+    from repro_torch.api import PlanOptions, SpTRSVContext
+    from repro_torch.core import solver as tsolver
+
+    a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
+    plan = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=B, comm="unified"))
+    with pytest.raises(ValueError, match="group"):
+        tsolver.Solver(plan, "cpu")
+    store = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"unified-{os.getpid()}")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="2 ranks"):
+            tsolver.Solver(plan, "cpu", dist.group.WORLD)
+        for kw in ({"comm": "zerocopy"}, {"comm": "unified", "sched": "syncfree"}):
+            p = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=B, **kw))
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tsolver.Solver(p, "cpu", dist.group.WORLD)
+        # a one-device session on a group of one: the gather is its only all-reduce
+        ctx = SpTRSVContext(device="cpu", group=dist.group.WORLD,
+                            options=PlanOptions(block_size=B, comm="unified"))
+        b = strategies.dyadic_rhs(a.n)
+        np.testing.assert_array_equal(ctx.solve(ctx.analyse(a), b),
+                                      SpTRSVContext(device="cpu", options=PlanOptions(
+                                          block_size=B)).solve(a, b))
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+
+
+if __name__ == "__main__":
+    _port_main(int(sys.argv[1]), sys.argv[2], sys.argv[3])
