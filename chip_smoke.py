@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~7 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~9 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -136,7 +136,26 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    --comm unified --dist-backend gloo --device cuda:0`` under
    ``torch.distributed.run`` with ``UNIFIED_RANKS`` ranks exits 0. These
    ranks share one card through gloo over host memory: no interconnect is
-   measured.
+   measured;
+12. multi-device ``comm="zerocopy"`` and ``sched="syncfree"``, run by phase
+   11's ranks after phase 11 (a fresh session on each): (a) the same forms
+   as phase 11 under ``comm="zerocopy"`` — plain ``fused`` (the streamed
+   split form, one launch per exchange segment) forward and transpose and
+   dagpart forward, the resident split form and ``kernel="cuda"`` forward,
+   the dyadic twin under ``fused``, resident and ``cuda`` (``x_int``
+   exactly), the (n, 8) panel of ``grid2d_factor(PCG_SIDE)`` — each with
+   as many packed exchanges and split launches as ``dispatch_stats`` says;
+   syncfree under ``comm="zerocopy"``, dense (``cuda``) and frontier
+   (``fused``) forward and on the dyadic twin, and under ``comm="unified"``
+   one forward solve each: ``n_levels`` sweeps, one exchange each, one
+   TRSV and GEMV per sweep (dense) or per sweep where the rank has rows or
+   tiles (frontier); every solve within 2e-4 of scipy, every plan
+   strict-verified, no plain version; ms per solve on rank 0 beside phase
+   11's and the one-device time, exchanges and bytes all-reduced per
+   solve; (b) the split kernel, resident and streamed, with a zero ``acc``
+   over the widest zerocopy segment against its plain version, timed
+   there; (c) ``launch/solve.py --sched syncfree`` (its default ``--comm
+   zerocopy``) under ``torch.distributed.run`` exits 0.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -155,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -790,12 +810,40 @@ def phase_service(a, a_dy, x_int, plans: dict, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def rank_launches(plan, rank: int, kernel: str, wide: bool) -> dict:
+    """The block-kernel launches one solve of ``plan`` makes on device
+    ``rank``: the switch executor one TRSV (TRSM) per level with solve rows
+    and one GEMV (GEMM) per level with update tiles on any device (the
+    widths are the busiest device's); syncfree one of each per sweep (dense
+    scan, ``cuda``) or per sweep where this rank has rows to solve or tiles
+    to apply (frontier form, ``fused``)."""
+    import numpy as np
+
+    from repro_torch.core.solver import level_widths
+
+    w = level_widths(plan)
+    if plan.config.sched != "syncfree":
+        n_solve, n_upd = int((w[:, 0] > 0).sum()), int((w[:, 1] > 0).sum())
+    elif kernel == "cuda":
+        n_solve = n_upd = plan.n_levels
+    else:
+        pad = plan.tiles.shape[1] - 1
+        sr, ut = plan.solve_rows[rank], plan.upd_tiles[rank]
+        spans = list(zip(plan.lvl_off[:, 0], w[:, 0], plan.lvl_off[:, 1], w[:, 1]))
+        n_solve = sum(bool((sr[s0:s0 + ws] >= 0).any()) for s0, ws, _, _ in spans)
+        n_upd = sum(bool((ut[u0:u0 + wu] != pad).any()) for _, _, u0, wu in spans)
+    return {"block_trsm" if wide else "block_trsv": n_solve,
+            "block_gemm" if wide else "block_gemv": n_upd}
+
+
 def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
-    """One rank of phase 11 (a process of its own, started by ``spawn``):
-    joins the gloo group, solves the n = SIDE^2 factor on ``cuda:0`` through
-    ``SpTRSVContext(group=...)`` with ``comm="unified"`` in each form, checks
-    each solve, and puts its results on ``out``. A failed check exits
-    non-zero, which fails the phase."""
+    """One rank of phases 11 and 12 (a process of its own, started by
+    ``spawn``): joins the gloo group, solves the n = SIDE^2 factor on
+    ``cuda:0`` through ``SpTRSVContext(group=...)`` in each form, with
+    ``comm="unified"`` (phase 11), then ``comm="zerocopy"`` and syncfree
+    under both comm modes (phase 12), checks each solve, and puts its
+    results on ``out``. A failed check exits non-zero, which fails the
+    phase."""
     import datetime
     import os
 
@@ -805,7 +853,8 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
     import torch.distributed as dist
 
     from repro_torch.api import PlanOptions, SpTRSVContext
-    from repro_torch.core.solver import dispatch_stats, level_widths
+    from repro_torch.core import comm
+    from repro_torch.core.solver import dispatch_stats
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.launch.serve_solve import dyadic
@@ -822,16 +871,30 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
     a = suite.grid2d_factor(int(data["side"]), seed=6)
     a_dy = dyadic(a, seed=SEED)
     ctx = SpTRSVContext(device=str(data["device"]), group=group)
-    res = {"rank": rank, "forms": {}}
+    res = {"rank": rank, "forms": {}, "zc": {}, "seconds": {}}
+    sent = []  # bytes of each all_reduce of the solve being counted
+    all_reduce = comm.all_reduce_sum_
 
-    def one_solve(name, h, rhs, want=None, transpose=False):
-        """A solve after a barrier, its host-clock ms, launches, exchanges
-        and plain-version calls, checked against ``dispatch_stats``."""
+    def counted_all_reduce(t, g):
+        sent.append(t.numel() * t.element_size())
+        return all_reduce(t, g)
+
+    counted_all_reduce.calls = all_reduce.calls  # all_reduce_sum_ counts by its module name
+    comm.all_reduce_sum_ = counted_all_reduce
+
+    def one_solve(name, h, rhs, want=None, transpose=False, phase=11):
+        """A solve after a barrier, its host-clock ms, launches, exchanges,
+        bytes all-reduced and plain-version calls, checked against
+        ``dispatch_stats`` (syncfree: ``n_levels`` sweeps, one exchange
+        each)."""
         solver = ctx.executor(h, transpose=transpose)
         plan = solver.plan
+        cfg = plan.config
+        tag = f"phase {phase} {name}"
         torch.cuda.synchronize()
         dist.barrier()
         kops.reset_launch_counts()
+        sent.clear()
         with PlainCalls(ref) as plain:
             t0 = time.perf_counter()
             x = ctx.solve(h, rhs, transpose=transpose)
@@ -839,74 +902,120 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
         counts = kops.launch_counts()
         stats = dispatch_stats(plan)
         n_steps = plan.n_supersteps
-        check(plan.n_boundary_rows > 0, f"phase 11 {name}: the cut is empty")
-        check(solver.exchanges == stats["exchanges"] == n_steps,
-              f"phase 11 {name}: {solver.exchanges} exchanges, dispatch_stats "
-              f"{stats['exchanges']}, {n_steps} supersteps")
-        check(plain.calls == 0, f"phase 11 {name}: {plain.calls} plain-version calls")
-        if h.config.kernel_backend == "cuda":
-            w = level_widths(plan)
-            wide = np.ndim(rhs) == 2
+        check(plan.n_boundary_rows > 0, f"{tag}: the cut is empty")
+        check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
+        if cfg.sched == "syncfree":
+            check(solver._syncfree.sweeps == solver.exchanges == plan.n_levels,
+                  f"{tag}: {solver._syncfree.sweeps} sweeps, {solver.exchanges} exchanges, "
+                  f"{plan.n_levels} levels")
+        else:
+            want_ex = n_steps if cfg.comm == "unified" else stats["exchanges"]
+            check(solver.exchanges == stats["exchanges"] == want_ex > 0,
+                  f"{tag}: {solver.exchanges} exchanges, dispatch_stats "
+                  f"{stats['exchanges']}, want {want_ex}")
+        if cfg.kernel_backend == "cuda" or cfg.sched == "syncfree":
             want_counts = {**dict.fromkeys(counts, 0),
-                           "block_trsm" if wide else "block_trsv": int((w[:, 0] > 0).sum()),
-                           "block_gemm" if wide else "block_gemv": int((w[:, 1] > 0).sum())}
+                           **rank_launches(plan, rank, cfg.kernel_backend, np.ndim(rhs) == 2)}
         else:
             split = "superstep_streamed_split" if stats["streamed"] else "superstep_split"
             want_counts = {**dict.fromkeys(counts, 0), split: stats["fused_launches"]}
-            check(stats["fused_launches"] == n_steps,
-                  f"phase 11 {name}: dispatch_stats fused_launches {stats['fused_launches']}")
-        check(counts == want_counts, f"phase 11 {name}: launches {counts}, not {want_counts}")
+            want_l = n_steps if cfg.comm == "unified" else stats["exchanges"] + 1
+            check(stats["fused_launches"] == want_l,
+                  f"{tag}: dispatch_stats fused_launches {stats['fused_launches']}, "
+                  f"want {want_l}")
+        check(counts == want_counts, f"{tag}: launches {counts}, not {want_counts}")
         row = {"ms": ms, "launches": counts, "exchanges": solver.exchanges,
                "supersteps": n_steps, "levels": plan.n_levels, "streamed": stats["streamed"],
-               "boundary_rows": plan.n_boundary_rows}
+               "boundary_rows": plan.n_boundary_rows, "all_reduces": len(sent),
+               "exchange_bytes": sum(sent[:-1])}  # the last all_reduce is the gather
         if want is not None:
             e = rel_err(x, want)
-            check(np.isfinite(e) and e <= TOL_SOLVE, f"phase 11 {name}: rel err {e:.3e}")
+            check(np.isfinite(e) and e <= TOL_SOLVE, f"{tag}: rel err {e:.3e}")
             row["rel_err"] = e
-        res["forms"][name] = row
+        res["forms" if phase == 11 else "zc"][name] = row
         return x
 
     def verified(h, transpose=False):
         report = verify_plan(ctx.plan(h, transpose=transpose), level="strict")
-        check(report.passed, f"phase 11: rank {rank} plan fails strict verify: "
+        check(report.passed, f"phase 11/12: rank {rank} plan fails strict verify: "
                              f"{report.summary()}")
 
     b, b_dy, x_int = data["b"], data["b_dy"], data["x_int"]
     store = 2 * int(data["store_bytes"])
-    forms = {"fused": (PlanOptions(comm="unified", kernel="fused"), False),
-             "fused_dagpart": (PlanOptions(comm="unified", sched="dagpart", kernel="fused"),
-                               False),
-             "resident": (PlanOptions(comm="unified", kernel="fused"), True),
-             "cuda": (PlanOptions(comm="unified", kernel="cuda"), False)}
-    handles = {}
-    for name, (opts, resident) in forms.items():
-        with (stream_crossover.stream_limit_env(store) if resident
-              else contextlib.nullcontext()):
-            h = handles[name] = ctx.analyse(a, opts, tag=name)
-            verified(h)
-            ctx.executor(h)  # tables, layouts, stores, upload
-            check(ctx.dispatch_stats(h)["streamed"] == (name in ("fused", "fused_dagpart")),
-                  f"phase 11 {name}: streamed={ctx.dispatch_stats(h)['streamed']}")
-            one_solve(name, h, b, data["want_forward"])
-            if name == "fused":
-                verified(h, transpose=True)
-                one_solve("fused_transpose", h, b, data["want_transpose"], transpose=True)
-    # the dyadic twin: every rank's x is x_int bit for bit under each form
-    for name in ("fused", "resident", "cuda"):
-        with (stream_crossover.stream_limit_env(store) if name == "resident"
-              else contextlib.nullcontext()):
-            ctx.factorize(a_dy, handles[name])
-            x = one_solve(f"{name}_dyadic", handles[name], b_dy)
-        check(np.array_equal(x, x_int), f"phase 11 {name}: the dyadic twin's x != x_int "
-                                        f"on rank {rank}")
-    # an (n, 8) panel on the n = PCG_SIDE^2 factor under plain fused
     a_p = suite.grid2d_factor(int(data["panel_side"]), seed=6)
-    hp = ctx.analyse(a_p, PlanOptions(comm="unified", kernel="fused"))
-    verified(hp)
-    ctx.executor(hp)
-    one_solve("fused_panel_r8", hp, data["panel_p"], data["want_panel_p"])
-    res["n_boundary_rows"] = ctx.plan(handles["fused"]).n_boundary_rows
-    res["n_tiles_here"] = int(ctx.executor(handles["cuda"])._tiles.shape[0])
+
+    def run_forms(comm_mode: str, phase: int) -> None:
+        """The levelset/dagpart forms under ``comm_mode``: plain ``fused``
+        (the streamed split form) forward and transpose, dagpart, the
+        resident split form, ``cuda``; the dyadic twin under three of them,
+        ``x_int`` exactly; an (n, 8) panel of ``a_p``."""
+        t0 = time.perf_counter()
+        forms = {"fused": (PlanOptions(comm=comm_mode, kernel="fused"), False),
+                 "fused_dagpart": (PlanOptions(comm=comm_mode, sched="dagpart",
+                                               kernel="fused"), False),
+                 "resident": (PlanOptions(comm=comm_mode, kernel="fused"), True),
+                 "cuda": (PlanOptions(comm=comm_mode, kernel="cuda"), False)}
+        handles = {}
+        for name, (opts, resident) in forms.items():
+            with (stream_crossover.stream_limit_env(store) if resident
+                  else contextlib.nullcontext()):
+                h = handles[name] = ctx.analyse(a, opts, tag=f"{comm_mode}/{name}")
+                verified(h)
+                ctx.executor(h)  # tables, layouts, stores, upload
+                check(ctx.dispatch_stats(h)["streamed"] == (name in ("fused", "fused_dagpart")),
+                      f"phase {phase} {name}: streamed={ctx.dispatch_stats(h)['streamed']}")
+                one_solve(name, h, b, data["want_forward"], phase=phase)
+                if name == "fused":
+                    verified(h, transpose=True)
+                    one_solve("fused_transpose", h, b, data["want_transpose"], transpose=True,
+                              phase=phase)
+        res["seconds"][f"{phase} real"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the dyadic twin: every rank's x is x_int bit for bit under each form
+        for name in ("fused", "resident", "cuda"):
+            with (stream_crossover.stream_limit_env(store) if name == "resident"
+                  else contextlib.nullcontext()):
+                ctx.factorize(a_dy, handles[name])
+                x = one_solve(f"{name}_dyadic", handles[name], b_dy, phase=phase)
+            check(np.array_equal(x, x_int), f"phase {phase} {name}: the dyadic twin's x != "
+                                            f"x_int on rank {rank}")
+        res["seconds"][f"{phase} dyadic"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # an (n, 8) panel on the n = PCG_SIDE^2 factor under plain fused
+        hp = ctx.analyse(a_p, PlanOptions(comm=comm_mode, kernel="fused"))
+        verified(hp)
+        ctx.executor(hp)
+        one_solve("fused_panel_r8", hp, data["panel_p"], data["want_panel_p"], phase=phase)
+        res["seconds"][f"{phase} panel"] = time.perf_counter() - t0
+        if phase == 11:
+            res["n_boundary_rows"] = ctx.plan(handles["fused"]).n_boundary_rows
+            res["n_tiles_here"] = int(ctx.executor(handles["cuda"])._tiles.shape[0])
+
+    run_forms("unified", 11)
+    # a fresh session for phase 12: phase 11's plans and executors go
+    ctx = SpTRSVContext(device=str(data["device"]), group=group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 12: zerocopy, then syncfree under both comm modes
+    run_forms("zerocopy", 12)
+    t0 = time.perf_counter()
+    for comm_mode, kernel, name in (("zerocopy", "cuda", "syncfree_dense"),
+                                    ("zerocopy", "fused", "syncfree_frontier"),
+                                    ("unified", "cuda", "syncfree_unified_dense"),
+                                    ("unified", "fused", "syncfree_unified_frontier")):
+        h = ctx.analyse(a, PlanOptions(comm=comm_mode, sched="syncfree", kernel=kernel),
+                        tag=name)
+        verified(h)
+        ctx.executor(h)
+        one_solve(name, h, b, data["want_forward"], phase=12)
+        if comm_mode == "zerocopy":  # the dyadic twin, exactly
+            ctx.factorize(a_dy, h)
+            x = one_solve(f"{name}_dyadic", h, b_dy, phase=12)
+            check(np.array_equal(x, x_int), f"phase 12 {name}: the dyadic twin's x != x_int "
+                                            f"on rank {rank}")
+        res["seconds"][f"12 {name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    comm.all_reduce_sum_ = all_reduce
     out.put(res)
     dist.barrier()
     dist.destroy_process_group()
@@ -1048,15 +1157,96 @@ def split_kernel_rows(a, r0: dict, rng, device: str = "cuda:0") -> list:
     return rows_out
 
 
+def zerocopy_segment_times(a, rows_out: list, rng, device: str = "cuda:0") -> str:
+    """Phase 12b: the split kernel, resident and streamed, as the zerocopy
+    fused executor launches it (``acc`` zero, the accumulator in ``delta``)
+    over the widest exchange segment (most solve slots) of device 0 of
+    ``a``'s UNIFIED_RANKS-device zerocopy plan, on real values: within
+    TOL_SOLVE of its plain version, ``acc`` still zero, its ms per launch
+    beside its bound and its plain version's, added to the split rows of
+    ``rows_out`` as ``at_zerocopy_segment``. Returns the log line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solver import (
+        SolverConfig, build_plan, fused_segments, level_widths,
+    )
+    from repro_torch.kernels import ref, superstep
+
+    plan = build_plan(a, UNIFIED_RANKS, SolverConfig(block_size=32, comm="zerocopy"))
+    segs = fused_segments(plan)
+    sw = level_widths(plan)[:, 0]
+    slots = np.array([sw[lo:hi].sum() for lo, hi in segs])
+    s = int(np.argmax(slots))
+    d = 0
+    host = [np.array([segs[s, 0], segs[s, 1] - segs[s, 0]])] + [
+        plan.lvl_off, level_widths(plan), plan.solve_rows[d], plan.upd_tiles[d],
+        plan.tile_row[d], plan.tile_col[d]]
+    tables = [torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(device)
+              for t in host]
+    host_layout = superstep.segmented_layout(*host[1:], n_rows=plan.bs.nb + 1,
+                                             bounds=np.concatenate([segs[:, 0],
+                                                                    [plan.n_levels]]))
+    layout = host_layout.to(device)
+    table = layout.segments[s]
+    shape = (plan.bs.nb + 1, plan.bs.B)
+    b_pad, delta, x = (torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(device)
+                       for _ in range(3))
+    for v in (b_pad, delta, x):
+        v[-1] = 0
+    acc = torch.zeros_like(b_pad)
+    diag = torch.from_numpy(plan.diag).to(device)
+    tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[d])).to(device)
+    values_ = superstep.streamed_values(layout, diag, tiles)
+    flags = superstep.ReadyFlags(shape[0], device)
+    plain = ref.superstep_ref(*tables, diag, tiles, b_pad, acc, x, delta=delta)
+    scale = max(float(w.abs().max()) for w in plain)
+    bound_ms, bound_by = split_bound(plan, d, host_layout.segments[s], 1)
+    parts = []
+    for form in ("superstep_split", "superstep_streamed_split"):
+        def launch(form=form, d_=delta.clone(), x_=x.clone()):
+            if form == "superstep_split":
+                superstep.superstep_split_(*tables, diag, tiles, b_pad, acc, d_, x_,
+                                           table=table, flags=flags)
+            else:
+                superstep.superstep_streamed_split_(*tables, values_, b_pad, acc, d_, x_,
+                                                    layout=layout, table=table, flags=flags)
+            return acc, d_, x_
+
+        got = launch()  # fresh copies of the carries: one launch from the inputs
+        torch.cuda.synchronize()
+        check(not bool(acc.any()), f"phase 12 {form}: acc written")
+        e = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+        check(e <= TOL_SOLVE * scale, f"phase 12 {form} at the zerocopy segment vs plain: "
+                                      f"max abs err {e:.3e}")
+        at = {"segment": s, "levels": [int(segs[s, 0]), int(segs[s, 1])],
+              "solve_slots": int(slots[s]), "max_abs_err": e, "ms": time_ms(launch, 50),
+              "plain_ms": time_ms(lambda: ref.superstep_ref(
+                  *tables, diag, tiles, b_pad, acc, x, delta=delta), 3, warmup=1),
+              "bound_ms": bound_ms, "bound_by": bound_by}
+        for row in rows_out:
+            if row["name"] == form:
+                row["at_zerocopy_segment"] = at
+        parts.append(f"{form} {at['ms']:.4f} ms (plain {at['plain_ms']:.2f}, max abs err "
+                     f"{e:.2e})")
+    return (f"phase 12 split kernels at the widest zerocopy segment (device 0 of "
+            f"{UNIFIED_RANKS}, segment {s}: levels {segs[s, 0]}..{segs[s, 1] - 1}, "
+            f"{slots[s]} solve slots, {len(segs)} segments; acc zero): "
+            + "; ".join(parts) + f"; bound {bound_ms:.5f} ms ({bound_by}); CUDA events, "
+            f"50 launches")
+
+
 def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: dict,
                   rng, side: int = SIDE, panel_side: int = PCG_SIDE,
                   device: str = "cuda:0") -> tuple:
-    """Phase 11 on ``a`` (``grid2d_factor(side, seed=6)``; ``b``, ``b_dy``,
-    ``x_int`` and ``want`` as in main): the ranks' solves
-    (:func:`unified_rank`), the split kernel against its plain version and
-    its times (:func:`split_kernel_rows`), and the CLI under
-    ``torch.distributed.run``. Returns the kernel rows of the split forms
-    and the launches of each rank-0 solve, by path."""
+    """Phases 11 and 12 on ``a`` (``grid2d_factor(side, seed=6)``; ``b``,
+    ``b_dy``, ``x_int`` and ``want`` as in main): the ranks' solves
+    (:func:`unified_rank`, both phases in one start of the ranks), the
+    split kernel against its plain version and its times
+    (:func:`split_kernel_rows`, :func:`zerocopy_segment_times`), and the
+    CLI under ``torch.distributed.run`` (unified, then zerocopy syncfree).
+    Returns the kernel rows of the split forms, the launches of each rank-0
+    solve by path, and phase 12's seconds."""
     import multiprocessing
     import queue
 
@@ -1115,33 +1305,68 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
         f"streamed {one_device['streamed']:.2f}; resident {r0['forms']['resident']['ms']:.1f} "
         f"vs {one_device['resident']:.2f}; cuda {r0['forms']['cuda']['ms']:.1f} vs the "
         f"one-device switch {one_device['switch']:.2f}")
+    # phase 12: beside phase 11's unified solve of the same form and the
+    # one-device solve (phases 3, 5, 6, 7 medians)
+    alone = {"fused": one_device["streamed"], "fused_transpose": None,
+             "fused_dagpart": None, "resident": one_device["resident"],
+             "cuda": one_device["switch"], "syncfree_dense": one_device["syncfree_dense"],
+             "syncfree_frontier": one_device["syncfree_frontier"],
+             "syncfree_unified_dense": one_device["syncfree_dense"],
+             "syncfree_unified_frontier": one_device["syncfree_frontier"]}
+    for name, row in r0["zc"].items():
+        other = [r["zc"][name]["ms"] for r in results[1:]]
+        uni = r0["forms"].get(name, {}).get("ms")
+        one = alone.get(name)
+        log(f"phase 12 {name}: {row['ms']:.1f} ms/solve on rank 0 (others {other}; phase 11 "
+            f"unified {'—' if uni is None else f'{uni:.1f}'}; one device "
+            f"{'—' if one is None else f'{one:.2f}'}), {row['levels']} levels, "
+            f"{row['exchanges']} exchanges, {row['exchange_bytes']} bytes exchanged, "
+            f"{row['all_reduces']} all_reduces, launches "
+            f"{json.dumps({k: v for k, v in row['launches'].items() if v})}"
+            + (f", rel err {row['rel_err']:.2e}" if "rel_err" in row else ", bit-equal to x"))
+    log(f"phase 12 ({UNIFIED_RANKS} ranks sharing one card through gloo over host memory; no "
+        f"interconnect measured): zerocopy fused {r0['zc']['fused']['ms']:.1f} ms/solve vs "
+        f"unified {r0['forms']['fused']['ms']:.1f} vs one device {one_device['streamed']:.2f}; "
+        f"zerocopy cuda {r0['zc']['cuda']['ms']:.1f} vs unified "
+        f"{r0['forms']['cuda']['ms']:.1f}; seconds per sub-step on rank 0: "
+        + ", ".join(f"{k}={v:.1f}" for k, v in r0["seconds"].items()))
 
     t0 = time.perf_counter()
     rows_out = split_kernel_rows(a, r0, rng, device)
     sub_s["b split kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(zerocopy_segment_times(a, rows_out, rng, device))
+    sub_s["12b split kernels"] = time.perf_counter() - t0
 
     # the CLI under torch.distributed.run, both ranks on this card (full
     # option names only: torch.distributed.run reads an abbreviation of one
     # of its own, such as --n, as its own)
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(UNIFIED_RANKS), "-m", "repro_torch.launch.solve",
-           "--matrix", "webbase-1M", "--scale", "2", "--comm", "unified",
-           "--sched", "dagpart", "--kernel", "fused", "--dist-backend", "gloo",
-           "--device", device, "--repeats", "2", "--tol", str(TOL_SOLVE), "--verify"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
-    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
-    for line in run.stdout.splitlines():
-        if line.startswith("[solve]"):
-            log(f"phase 11 cli {line}")
-    check(run.returncode == 0, f"phase 11: the CLI under torch.distributed.run exited "
-                               f"{run.returncode}: {run.stderr[-2000:]}")
-    sub_s["c cli"] = time.perf_counter() - t0
-    log("phase 11 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
-    paths = {f"unified_{name}": {**dict.fromkeys(r0["forms"]["fused"]["launches"], 0),
-                                 **row["launches"]}
-             for name, row in r0["forms"].items()}
-    return rows_out, paths
+    for phase, opts in ((11, ["--comm", "unified", "--sched", "dagpart", "--kernel", "fused"]),
+                        (12, ["--sched", "syncfree"])):  # 12: the default --comm zerocopy
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(UNIFIED_RANKS), "-m", "repro_torch.launch.solve",
+               "--matrix", "webbase-1M", "--scale", "2", *opts, "--dist-backend", "gloo",
+               "--device", device, "--repeats", "2", "--tol", str(TOL_SOLVE), "--verify"]
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env,
+                             cwd=ROOT)
+        for line in run.stdout.splitlines():
+            if line.startswith("[solve]"):
+                log(f"phase {phase} cli {line}")
+        check(run.returncode == 0, f"phase {phase}: the CLI under torch.distributed.run "
+                                   f"exited {run.returncode}: {run.stderr[-2000:]}")
+        sub_s[f"{'c' if phase == 11 else '12c'} cli"] = time.perf_counter() - t0
+    log("phase 11 and 12 seconds per sub-step (a: both phases' ranks): "
+        + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items()))
+    zeros = dict.fromkeys(r0["forms"]["fused"]["launches"], 0)
+    paths = {**{f"unified_{name}": {**zeros, **row["launches"]}
+                for name, row in r0["forms"].items()},
+             **{f"zerocopy_{name}": {**zeros, **row["launches"]}
+                for name, row in r0["zc"].items()}}
+    phase12_s = (sum(v for k, v in r0["seconds"].items() if k.startswith("12"))
+                 + sub_s["12b split kernels"] + sub_s["12c cli"])
+    return rows_out, paths, phase12_s
 
 
 def main() -> None:
@@ -1999,11 +2224,15 @@ def main() -> None:
     service_launches = phase_service(a, a_dy, x_int, plans10, rng)
 
     # 11. multi-device comm="unified": UNIFIED_RANKS gloo ranks on this card
-    phase_start["11 unified"] = time.perf_counter()
-    split_rows, unified_paths = phase_unified(
+    phase_start["11+12 unified, zerocopy"] = time.perf_counter()
+    # 12. multi-device comm="zerocopy" and syncfree, run by phase 11's ranks
+    split_rows, unified_paths, phase12_s = phase_unified(
         a, b, b_dy, x_int, want, plan.diag.nbytes + plan.tiles.nbytes,
         {"streamed": stiming["forward"][2], "resident": ftiming["forward"][2],
-         "switch": timing["forward"][2]}, rng)
+         "switch": timing["forward"][2], "syncfree_dense": sf_ms["dense"]["forward"][1],
+         "syncfree_frontier": sf_ms["frontier"]["forward"][1]}, rng)
+    log(f"phase 12 zerocopy and multi-rank syncfree: {phase12_s:.1f} s of phase 11's "
+        f"(its ranks, split-kernel check and CLI)")
 
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()

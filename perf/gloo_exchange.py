@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""The unified executor's exchange alone: ``all_reduce`` of a ``delta``
-carry over a gloo group of ranks sharing one card, ms per call.
+"""The multi-device executors' exchange alone: ``all_reduce`` of a carry
+over a gloo group of ranks sharing one card, ms per call.
 
     python3 perf/gloo_exchange.py [--ranks 2] [--rows 32769] [--widths 32 256] [--calls 50]
+                                  [--device cuda:0]
 
 Starts ``--ranks`` processes on ``cuda:0`` (one gloo group, loopback
 rendezvous through a file), and on each a float32 ``(rows, width)`` CUDA
 tensor per width, the shape of ``delta`` for ``rows`` block rows of
 ``width = B x R`` floats (``32769 x 32``: the n = 1,048,576 factor at
-B = 32, a vector; ``x 256``: an (n, 8) panel). Times ``--calls`` calls of
+B = 32, a vector; ``x 256``: an (n, 8) panel; ``--rows 1``: one zerocopy
+packed exchange of one boundary row; ``--device cpu``: the same on host
+tensors, for the gloo round trip without the card). Times ``--calls`` calls of
 :func:`repro_torch.core.comm.all_reduce_sum_` back to back after a barrier,
 the host clock around them with the stream synchronised at both ends
 (gloo stages CUDA tensors through host memory, so the card's copies and the
@@ -42,22 +45,28 @@ def _rank(rank: int, world: int, path: str, args, out) -> None:
     dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
     group = dist.group.WORLD
+    on_card = torch.device(args.device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
     rows = []
     for width in args.widths:
-        t = torch.full((args.rows, width), float(rank + 1), device="cuda:0")
+        t = torch.full((args.rows, width), float(rank + 1), device=args.device)
         comm.all_reduce_sum_(t, group)  # the first call sets up the pairs
-        torch.cuda.synchronize()
+        sync()
         dist.barrier()
         t0 = time.perf_counter()
         for _ in range(args.calls):
             t.fill_(float(rank + 1))
             comm.all_reduce_sum_(t, group)
-        torch.cuda.synchronize()
+        sync()
         ms = (time.perf_counter() - t0) * 1e3 / args.calls
         want = world * (world + 1) / 2
         if not bool((t == want).all()):
             raise RuntimeError(f"all_reduce gave {t.flatten()[:4].tolist()}, not {want}")
-        rows.append({"ranks": world, "shape": [args.rows, width],
+        rows.append({"ranks": world, "device": args.device, "shape": [args.rows, width],
                      "mbytes": args.rows * width * 4 / 1e6, "ms_per_all_reduce": ms,
                      "calls": args.calls})
     if rank == 0:
@@ -72,6 +81,8 @@ def main() -> None:
     ap.add_argument("--rows", type=int, default=32769)
     ap.add_argument("--widths", type=int, nargs="+", default=[32, 256])
     ap.add_argument("--calls", type=int, default=50)
+    ap.add_argument("--device", default="cuda:0",
+                    help="where the ranks' tensors live: cuda:0 (all on one card) or cpu")
     args = ap.parse_args()
     import multiprocessing
 

@@ -16,8 +16,9 @@ as an object:
 
 The session runs on one device, the card unless the caller passes
 ``device="cpu"``; given a ``torch.distributed`` ``group`` of D ranks, each
-rank's session is one device of a D-device session (``comm="unified"``;
-every rank builds the same plans and runs its own device's tables). Auto
+rank's session is one device of a D-device session (either comm mode,
+every scheduler; every rank builds the same plans and runs its own
+device's tables). Auto
 mode (:class:`repro_torch.api.options.PlanOptions`
 with ``sched``/``comm``/``kernel`` set to ``"auto"``) resolves the execution
 mode per matrix at analyse time (:mod:`repro_torch.api.autotune`); the
@@ -127,9 +128,10 @@ class SpTRSVContext:
     the group's size, each rank builds the same plans (host numpy, the same
     bits on every rank, checked once per plan with one collective on its
     digest) and runs its own device's tables, and every solve returns the
-    whole ``x`` on every rank (:class:`repro_torch.core.solver.Solver`). At
-    more than one device only ``comm="unified"`` executes; ``"auto"``
-    options and a ``plan_store`` raise ``NotImplementedError`` there.
+    whole ``x`` on every rank (:class:`repro_torch.core.solver.Solver`):
+    ``comm="zerocopy"`` and ``"unified"``, every scheduler and backend. At
+    more than one device ``"auto"`` options and a ``plan_store`` raise
+    ``NotImplementedError`` (ROADMAP.md).
     ``options`` set the session default; ``analyse`` and
     ``factorize`` accept per-call overrides. Counters (:meth:`stats`) audit
     the amortization: ``analyses`` counts real partition constructions

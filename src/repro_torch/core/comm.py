@@ -3,9 +3,12 @@
 The reference runs one program over a device mesh (``shard_map``) and
 combines per-device partial sums with ``jax.lax.psum`` over its axis. The
 port runs one process per device, each a rank of a process group, and
-combines them with ``all_reduce(SUM)``. This module names no backend and
-never picks a device: the caller creates the group, ``nccl`` where each rank
-has a card of its own, ``gloo`` for CPU tensors or several ranks sharing one
+combines them with ``all_reduce(SUM)``: the unified executors' dense
+``delta`` sum, the zerocopy executors' packed boundary rows, the syncfree
+sweep's values and counts (the rows left over the group ride with the
+counts), and every solve's gather. This module names no backend and never
+picks a device: the caller creates the group, ``nccl`` where each rank has
+a card of its own, ``gloo`` for CPU tensors or several ranks sharing one
 card (gloo stages CUDA tensors through host memory), and hands it to the
 executor (``core.solver.Solver(group=...)``).
 """

@@ -30,19 +30,35 @@ each sweep, solved and applied at a width from :func:`_frontier_ladder`).
 and the streamed one above it (:func:`fused_streaming`, the limit measured
 on the card, :data:`DEFAULT_STREAM_LIMIT`).
 
-A multi-device plan (``n_devices = D > 1``) with ``comm="unified"`` runs
-on ``D`` processes, one per device, each a rank of a ``torch.distributed``
-group (:mod:`repro_torch.core.comm`) executing its device's tables: the
-reference's ``shard_map`` executors, its ``psum`` an ``all_reduce``. Before
-each superstep the ranks sum their ``delta`` carries into ``acc``; within
-it tile updates land in ``delta`` and solves read ``(b - acc) - delta``
-(the reference's ``split_delta`` form). The switch executor runs the
-superstep's levels; the fused backends launch the megakernel's split form
-once per superstep (:func:`repro_torch.kernels.superstep.superstep_split_`,
-tables built once, :func:`~repro_torch.kernels.superstep.segmented_layout`).
-With an empty cut every update is local: no exchange, and a fused solve is
-one unsplit launch. Every rank ends with the whole ``x`` (an ``all_reduce``
-of each rank's own rows).
+A multi-device plan (``n_devices = D > 1``) runs on ``D`` processes, one
+per device, each a rank of a ``torch.distributed`` group
+(:mod:`repro_torch.core.comm`) executing its device's tables: the
+reference's ``shard_map`` executors, its ``psum`` an ``all_reduce``. Every
+scheduler and backend runs there, under either comm mode:
+
+* ``comm="zerocopy"`` (levelset, dagpart): right before a level whose
+  exchange bucket is not empty, the ranks sum the accumulator's rows of
+  that level's packed ``ex_rows`` slice (each boundary row once per solve).
+  The switch executor does so inside its level loop; the fused backends
+  launch the megakernel's split form once per :func:`fused_segments` range
+  with the sum between launches, the accumulator in the split form's
+  ``delta`` slot and a zero ``acc`` (``(b - 0) - delta`` is ``b - delta``
+  bit for bit);
+* ``comm="unified"`` (levelset, dagpart): before each superstep the ranks
+  sum their ``delta`` carries into ``acc``; within it tile updates land in
+  ``delta`` and solves read ``(b - acc) - delta`` (the reference's
+  ``split_delta`` form). The switch executor runs the superstep's levels;
+  the fused backends launch the split form once per superstep;
+* ``sched="syncfree"``: updates into another rank's rows go to ``delta``
+  (values) and ``dcnt`` (counts); after each sweep the ranks sum them,
+  the boundary rows alone (zerocopy) or every row (unified), into their
+  own, and count the rows left over the whole group.
+
+The split launches' tables are built once per executor
+(:func:`~repro_torch.kernels.superstep.segmented_layout`). With an empty
+cut every update is local: no exchange, and a fused solve is one unsplit
+launch. Every rank ends with the whole ``x`` (an ``all_reduce`` of each
+rank's own rows).
 
 Telemetry: :func:`build_plan` and :func:`refresh_plan` open the
 ``sptrsv.schedule`` / ``sptrsv.refresh`` spans (:mod:`repro_torch.obs.trace`);
@@ -50,11 +66,6 @@ the executors open ``torch.profiler.record_function`` ranges
 (``sptrsv.level_solve``, ``sptrsv.tile_update``, ``sptrsv.superstep``,
 ``sptrsv.exchange``, ``sptrsv.gather``) only while a tracer is enabled or a
 profiler session records.
-
-Not ported yet (ROADMAP.md): the other multi-device executors,
-``comm="zerocopy"`` and ``sched="syncfree"`` at ``D > 1``. Their plans
-build (and verify, :mod:`repro_torch.verify`); executing one raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -714,10 +725,23 @@ def dispatch_stats(plan: Plan) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _unified_cut(plan: Plan) -> bool:
-    """Whether ``plan`` exchanges: unified, several devices, a non-empty
-    cut (the reference's gate; with an empty cut every update is local)."""
-    return plan.config.comm == "unified" and plan.n_devices > 1 and plan.n_boundary_rows > 0
+def _exchange_mode(plan: Plan) -> str | None:
+    """How ``plan``'s executor exchanges: its ``comm`` mode with several
+    devices and a non-empty cut (the reference's gate), else ``None`` (with
+    an empty cut every update is local)."""
+    if plan.n_devices > 1 and plan.n_boundary_rows > 0:
+        return plan.config.comm
+    return None
+
+
+def _pull_rows(plan: Plan, levels, device: torch.device) -> list:
+    """The packed exchange before each of ``levels``: a device view of its
+    ``ex_rows`` slice (pad rows ``nb`` included, as the reference sums
+    them), or ``None`` where its exchange bucket is empty."""
+    ex = torch.from_numpy(plan.ex_rows.astype(np.int64)).to(device)
+    widths = level_widths(plan)
+    return [ex[int(plan.lvl_off[t, 2]):int(plan.lvl_off[t, 2]) + int(widths[t, 2])]
+            if widths[t, 2] > 0 else None for t in levels]
 
 
 def _range(name: str, on: bool):
@@ -734,10 +758,15 @@ class _Schedule:
     source block rows. ``levels`` holds each level's (solve offset, solve
     width, update offset, update width) as Python ints, so the level loop
     slices without reading anything back from the device; ``steps`` each
-    superstep's level range.
+    superstep's level range. ``mode`` is :func:`_exchange_mode`; under
+    ``"zerocopy"``, ``pulls[t]`` holds level ``t``'s packed exchange rows
+    (:func:`_pull_rows`), ``None`` for every level otherwise.
     """
 
     def __init__(self, plan: Plan, device: torch.device, rank: int = 0):
+        self.mode = _exchange_mode(plan)
+        self.pulls = (_pull_rows(plan, range(plan.n_levels), device)
+                      if self.mode == "zerocopy" else [None] * plan.n_levels)
         nb = plan.bs.nb
         sr = plan.solve_rows[rank].astype(np.int64)
         ut = plan.upd_tiles[rank].astype(np.int64)
@@ -784,8 +813,10 @@ def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
                 exchange=None) -> torch.Tensor:
     """The switch executor's level loop (``_compact_level_body`` of the
     reference) on padded blocks ``b_pad`` (nb+1, B[, R]); returns ``x``.
-    With an ``exchange`` (the unified executor's, ``exchange(acc, delta)``)
-    it runs superstep by superstep, the exchange first, then the step's
+    Under ``sched.mode == "zerocopy"`` each level with exchange rows first
+    runs ``exchange(acc, rows)``, the packed sum of those rows (the
+    reference's ``_levelset_device_fn``). Under ``"unified"`` it runs
+    superstep by superstep, ``exchange(acc, delta)`` first, then the step's
     levels with updates into ``delta`` and solves of ``(b - acc) - delta``
     (the reference's ``_levelset_unified_device_fn``). Each level's solve
     and update, and each exchange, run inside ``sptrsv.level_solve`` /
@@ -793,13 +824,18 @@ def _run_levels(sched: _Schedule, diag: torch.Tensor, tiles: torch.Tensor,
     :func:`executor_scopes` says so (read once per solve)."""
     acc = torch.zeros_like(b_pad)
     x = torch.zeros_like(b_pad)
-    delta = None if exchange is None else torch.zeros_like(b_pad)
+    unified = sched.mode == "unified"
+    delta = torch.zeros_like(b_pad) if unified else None
     scoped = executor_scopes()
-    for t0, t1 in (sched.steps if exchange else [(0, len(sched.levels))]):
-        if exchange is not None:
+    for t0, t1 in (sched.steps if unified else [(0, len(sched.levels))]):
+        if unified:
             with _range("sptrsv.exchange", scoped):
                 exchange(acc, delta)
-        for s0, w_s, u0, w_u in sched.levels[t0:t1]:
+        for t in range(t0, t1):
+            s0, w_s, u0, w_u = sched.levels[t]
+            if sched.pulls[t] is not None:
+                with _range("sptrsv.exchange", scoped):
+                    exchange(acc, sched.pulls[t])
             if w_s > 0:
                 with _range("sptrsv.level_solve", scoped):
                     _level_solve(sched, diag, b_pad, acc, x, s0, w_s, backend, delta)
@@ -821,13 +857,16 @@ class _FusedSchedule:
     :class:`~repro_torch.kernels.superstep.ReadyFlags` scratch, allocated
     once and kept from solve to solve.
 
-    ``split`` (a unified plan with a cut) launches the split form once per
-    superstep instead: ``segs[s]`` is superstep ``s``'s ``seg`` and the
-    layout a :func:`~repro_torch.kernels.superstep.segmented_layout` of
-    the whole solve (built on the CPU only for the streamed store)."""
+    A plan that exchanges (:func:`_exchange_mode`) launches the split form
+    once per :func:`fused_segments` range instead (``split``): one per
+    superstep under ``"unified"``, one from each level with exchange rows
+    under ``"zerocopy"``, whose packed rows before launch ``l`` are
+    ``pulls[l]``. ``segs[l]`` is launch ``l``'s ``seg`` and the layout a
+    :func:`~repro_torch.kernels.superstep.segmented_layout` of the whole
+    solve cut at the launches (built on the CPU only for the streamed
+    store)."""
 
-    def __init__(self, plan: Plan, device: torch.device, streamed: bool, rank: int = 0,
-                 split: bool = False):
+    def __init__(self, plan: Plan, device: torch.device, streamed: bool, rank: int = 0):
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
@@ -837,16 +876,22 @@ class _FusedSchedule:
         so = step_offsets(plan)
         self.tables = tuple(dev(t) for t in host)
         self.stp = dev(so)
-        self.split = split
+        self.mode = _exchange_mode(plan)
+        self.split = self.mode is not None
         self.table = self.layout = self.values = None
         self.flags = superstep.ReadyFlags(plan.bs.nb + 1, device)
-        if split:
-            steps = np.arange(plan.n_supersteps)
-            self.segs = dev(np.stack([steps, np.ones_like(steps)], axis=1))
+        if self.split:
+            # each launch's superstep range: segments start at superstep starts
+            segs = fused_segments(plan)
+            step_of = np.repeat(np.arange(plan.n_supersteps), np.diff(so))
+            lo, hi = step_of[segs[:, 0]], step_of[segs[:, 1] - 1] + 1
+            self.segs = dev(np.stack([lo, hi - lo], axis=1))
+            self.pulls = (_pull_rows(plan, segs[:, 0], device) if self.mode == "zerocopy"
+                          else [None] * len(segs))
             if streamed or device.type == "cuda":
                 layout = superstep.segmented_layout(
                     *host[1:], n_rows=plan.bs.nb + 1, stp=so,
-                    bounds=np.arange(plan.n_supersteps + 1))
+                    bounds=np.concatenate([lo, [plan.n_supersteps]]))
                 if streamed:
                     superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
                 self.layout = layout.to(device)
@@ -867,8 +912,8 @@ class _FusedSchedule:
     def run(self, diag: torch.Tensor | None, tiles: torch.Tensor | None,
             b_pad: torch.Tensor, exchange=None) -> torch.Tensor:
         """One megakernel launch over the whole schedule, or, split, one per
-        superstep, each after ``exchange(acc, delta)``; returns ``x`` (the
-        streamed form reads only its store: ``diag``/``tiles`` unused)."""
+        segment, each after its exchange; returns ``x`` (the streamed form
+        reads only its store: ``diag``/``tiles`` unused)."""
         scoped = executor_scopes()
         if self.split:
             return self._run_split(diag, tiles, b_pad, exchange, scoped)
@@ -884,13 +929,22 @@ class _FusedSchedule:
         return x
 
     def _run_split(self, diag, tiles, b_pad, exchange, scoped: bool) -> torch.Tensor:
-        """The unified fused executor: per superstep the exchange, then one
-        split launch on the carries, which stay in place."""
+        """The multi-device fused executor: per launch the exchange, then
+        one split launch on the carries, which stay in place. Unified:
+        ``exchange(acc, delta)``. Zerocopy: ``exchange(delta, rows)`` where
+        the launch starts at a level with exchange rows; ``delta`` carries
+        the reference's accumulator and ``acc`` stays zero, so each solve's
+        ``(b - 0) - delta`` is the unsplit ``b - acc`` bit for bit (``-0.0``
+        included)."""
         acc, delta, x = (torch.zeros_like(b_pad) for _ in range(3))
         rest = self.tables[1:]
         for s in range(self.segs.shape[0]):
-            with _range("sptrsv.exchange", scoped):
-                exchange(acc, delta)
+            if self.mode == "unified":
+                with _range("sptrsv.exchange", scoped):
+                    exchange(acc, delta)
+            elif self.pulls[s] is not None:
+                with _range("sptrsv.exchange", scoped):
+                    exchange(delta, self.pulls[s])
             table = None if self.layout is None else self.layout.segments[s]
             with _range("sptrsv.superstep", scoped):
                 if self.streamed:
@@ -905,7 +959,7 @@ class _FusedSchedule:
 
 
 # ---------------------------------------------------------------------------
-# single-device syncfree executor
+# syncfree executor
 # ---------------------------------------------------------------------------
 
 
@@ -921,29 +975,33 @@ def _frontier_ladder(cap: int) -> tuple:
 
 
 class _SyncfreeSchedule:
-    """A syncfree plan's device-0 tables as device tensors, built once per
-    executor (the reference's ``_syncfree_device_fn`` at one device).
+    """A syncfree plan's tables on device ``rank`` as device tensors, built
+    once per executor (the reference's ``_syncfree_device_fn``).
 
-    ``lr`` are the local rows (pad ``nb``), ``lown`` marks the owned ones and
-    ``indeg`` holds their tile in-degrees; ``trow``/``tcol`` are every local
-    tile's destination and source block row, the zero tile at the pad slot
-    ``MLT - 1`` (both ``nb``). ``frontier`` selects the frontier-bucketed
-    form, whose solve and update widths round up the ladders ``lad_s`` /
+    ``lr`` are the local rows (pad ``nb``), ``lown`` marks the ones this
+    rank owns and ``indeg`` holds their tile in-degrees; ``trow``/``tcol``
+    are every local tile's destination and source block row, the zero tile
+    at the pad slot ``MLT - 1`` (both ``nb``), and ``tmine`` marks the tiles
+    whose destination this rank owns. ``mode`` is :func:`_exchange_mode`:
+    with one, updates into another rank's rows go to ``delta``/``dcnt`` and
+    each sweep ends with an exchange, of the boundary rows ``exb`` alone
+    under ``"zerocopy"``. ``frontier`` selects the frontier-bucketed form,
+    whose solve and update widths round up the ladders ``lad_s`` /
     ``lad_u``. ``sweeps`` and ``host_reads`` count the last solve's sweeps
     and device-to-host reads.
     """
 
-    def __init__(self, plan: Plan, device: torch.device, frontier: bool):
+    def __init__(self, plan: Plan, device: torch.device, frontier: bool, rank: int = 0):
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-        lr = plan.local_rows[0].astype(np.int64)
-        owned = plan.owner[lr] == 0
-        self.nb, self.frontier = plan.bs.nb, frontier
-        self.n_owned = int(owned.sum())
-        self.lr, self.lown, self.indeg = dev(lr), dev(owned), dev(plan.indeg[lr])
-        self.trow = dev(plan.tile_row[0].astype(np.int64))
-        self.tcol = dev(plan.tile_col[0].astype(np.int64))
+        lr = plan.local_rows[rank].astype(np.int64)
+        trow = plan.tile_row[rank].astype(np.int64)
+        self.nb, self.frontier, self.mode = plan.bs.nb, frontier, _exchange_mode(plan)
+        self.lr, self.lown, self.indeg = dev(lr), dev(plan.owner[lr] == rank), dev(plan.indeg[lr])
+        self.trow, self.tcol = dev(trow), dev(plan.tile_col[rank].astype(np.int64))
+        self.tmine = dev(plan.owner[trow] == rank)
+        self.exb = dev(plan.ex_boundary.astype(np.int64))
         mlr, mlt = lr.shape[0], plan.tiles.shape[1]
         self.iota_l = torch.arange(mlr, device=device)
         self.iota_t = torch.arange(mlt, device=device)
@@ -963,44 +1021,72 @@ class _SyncfreeSchedule:
         return ladder[k]
 
 
+def _apply_updates(s: _SyncfreeSchedule, carries: tuple, rows: torch.Tensor,
+                   prods: torch.Tensor, counts: torch.Tensor, mine: torch.Tensor) -> None:
+    """Add masked ``prods`` and ``counts`` at ``rows``: into ``acc``/``cnt``,
+    or, with an exchange, those whose destination this rank owns (``mine``)
+    there and the others into ``delta``/``dcnt``, in the reference's order."""
+    acc, cnt, delta, dcnt = carries
+    if s.mode is None:
+        acc.index_add_(0, rows, prods)
+        cnt.index_add_(0, rows, counts)
+        return
+    m = ops.bcast_trailing(mine, prods)
+    acc.index_add_(0, rows, torch.where(m, prods, 0.0))
+    cnt.index_add_(0, rows, torch.where(mine, counts, 0))
+    delta.index_add_(0, rows, torch.where(m, 0.0, prods))
+    dcnt.index_add_(0, rows, torch.where(mine, 0, counts))
+
+
 def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
-                  b_pad: torch.Tensor, backend: str, group: int) -> torch.Tensor:
+                  b_pad: torch.Tensor, backend: str, group: int,
+                  combine=None) -> torch.Tensor:
     """The syncfree sweep loop on padded blocks ``b_pad`` (nb+1, B[, R]);
     returns ``x``. Each sweep solves the ready rows (owned, unsolved, every
     incoming tile counted), then applies the tiles whose source row it
     solved and counts them at their destination. A sweep solves exactly one
-    block level, so a solve takes ``n_levels`` sweeps; the host reads the
-    sweep's counts once (the frontier's widths, and whether rows remain).
-    Each sweep runs inside a ``sptrsv.level_solve`` range when
-    :func:`executor_scopes` says so."""
+    block level, so a solve takes ``n_levels`` sweeps. On one device the
+    host reads the sweep's counts once (the frontier's widths, and whether
+    rows remain). On several, ``combine(acc, delta, cnt, dcnt, left)`` ends
+    each sweep: the exchange, and the count of rows unsolved on every rank
+    from this rank's ``left``, read on the host (the frontier form reads
+    its widths before it). A sweep that solves no row on any rank raises.
+    Each sweep runs inside a ``sptrsv.level_solve`` range, and its exchange
+    inside ``sptrsv.exchange``, when :func:`executor_scopes` says so."""
     nb = s.nb
     acc, x = torch.zeros_like(b_pad), torch.zeros_like(b_pad)
     cnt = torch.zeros(nb + 1, dtype=torch.int32, device=b_pad.device)
     solved = torch.zeros(nb + 1, dtype=torch.bool, device=b_pad.device)
+    delta = dcnt = None
+    if s.mode is not None:
+        delta, dcnt = torch.zeros_like(acc), torch.zeros_like(cnt)
+    carries = (acc, cnt, delta, dcnt)
     if not s.frontier:
         ldiag, lb = diag[s.lr], b_pad[s.lr]
-    remaining, s.sweeps, s.host_reads = s.n_owned, 0, 0
+    remaining, s.sweeps, s.host_reads = nb, 0, 0  # every row is some rank's
     scoped = executor_scopes()  # read once per solve
     while remaining:
         if s.sweeps > nb:
             raise RuntimeError(f"{s.name}: {remaining} rows unsolved after {s.sweeps} sweeps")
         s.sweeps += 1
-        with (torch.profiler.record_function("sptrsv.level_solve") if scoped
-              else contextlib.nullcontext()):
+        with _range("sptrsv.level_solve", scoped):
             ready = s.lown & ~solved[s.lr] & (cnt[s.lr] == s.indeg)
             just = torch.zeros_like(solved)
             just[s.lr] = ready
             tmask = just[s.tcol]
             if s.frontier:
                 n_ready, n_tiles = torch.stack([ready.sum(), tmask.sum()]).tolist()
-                # compact the ready rows in ascending local index, pad MLR -> row nb
-                mlr = s.iota_l.shape[0]
-                order = torch.sort(torch.where(ready, s.iota_l, mlr)).values[
-                    :s.width(s.lad_s, n_ready)]
-                valid = order < mlr
-                rows = torch.where(valid, s.lr[torch.where(valid, order, 0)], nb)
-                xs = ops.batched_block_trsv(diag[rows], b_pad[rows] - acc[rows], backend=backend)
-                x[rows] = torch.where(ops.bcast_trailing(valid, xs), xs, x[rows])
+                s.host_reads += 1
+                if n_ready:
+                    # compact the ready rows in ascending local index, pad MLR -> row nb
+                    mlr = s.iota_l.shape[0]
+                    order = torch.sort(torch.where(ready, s.iota_l, mlr)).values[
+                        :s.width(s.lad_s, n_ready)]
+                    valid = order < mlr
+                    rows = torch.where(valid, s.lr[torch.where(valid, order, 0)], nb)
+                    xs = ops.batched_block_trsv(diag[rows], b_pad[rows] - acc[rows],
+                                                backend=backend)
+                    x[rows] = torch.where(ops.bcast_trailing(valid, xs), xs, x[rows])
                 solved |= just
                 if n_tiles:
                     # compact the tiles sourced at this frontier, pad -> the zero tile
@@ -1011,37 +1097,37 @@ def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
                     tid = torch.where(tvalid, tid, mlt - 1)
                     prods = ops.batched_block_gemv(tiles[tid], x[s.tcol[tid]], backend=backend,
                                                    group=group)
-                    rd = s.trow[tid]
-                    acc.index_add_(0, rd, torch.where(ops.bcast_trailing(tvalid, prods), prods,
-                                                      0.0))
-                    cnt.index_add_(0, rd, tvalid.to(torch.int32))
+                    _apply_updates(s, carries, s.trow[tid],
+                                   torch.where(ops.bcast_trailing(tvalid, prods), prods, 0.0),
+                                   tvalid.to(torch.int32), s.tmine[tid])
             else:
-                n_ready = ready.sum()
                 xs = ops.batched_block_trsv(ldiag, lb - acc[s.lr], backend=backend)
                 x[s.lr] = torch.where(ops.bcast_trailing(ready, xs), xs, x[s.lr])
                 solved |= just
                 prods = ops.batched_block_gemv(tiles, x[s.tcol], backend=backend, group=group)
-                acc.index_add_(0, s.trow, torch.where(ops.bcast_trailing(tmask, prods), prods, 0.0))
-                cnt.index_add_(0, s.trow, tmask.to(torch.int32))
-                n_ready = int(n_ready)
-        s.host_reads += 1
-        if n_ready == 0:
+                _apply_updates(s, carries, s.trow,
+                               torch.where(ops.bcast_trailing(tmask, prods), prods, 0.0),
+                               tmask.to(torch.int32), s.tmine)
+        if combine is not None:
+            with _range("sptrsv.exchange", scoped):
+                left = combine(acc, delta, cnt, dcnt, (s.lown & ~solved[s.lr]).sum())
+            s.host_reads += 1
+        elif s.frontier:
+            left = remaining - n_ready
+        else:
+            left = remaining - int(ready.sum())
+            s.host_reads += 1
+        if left == remaining:
             raise RuntimeError(f"{s.name}: {remaining} rows unsolved and none ready "
                                f"at sweep {s.sweeps}")
-        remaining -= n_ready
+        remaining = left
     return x
 
 
 def _check_executable(plan: Plan, group) -> int:
-    """This process's device index in ``plan``. Raises, in this order, for
-    plans whose executor is not ported yet (``NotImplementedError``) and for
-    a multi-device plan without a ``group`` of ``n_devices`` ranks
-    (``ValueError``)."""
+    """This process's device index in ``plan``. Raises ``ValueError`` for a
+    multi-device plan without a ``group`` of ``n_devices`` ranks."""
     D = plan.n_devices
-    if D > 1 and (plan.config.comm == "zerocopy" or plan.config.sched == "syncfree"):
-        raise NotImplementedError(
-            f"multi-device execution (n_devices={D}) with comm={plan.config.comm!r}, "
-            f"sched={plan.config.sched!r} is {ops.NOT_PORTED}")
     if group is None:
         if D > 1:
             raise ValueError(f"a {D}-device plan runs on a torch.distributed group of {D} "
@@ -1073,18 +1159,24 @@ class Solver:
     by :func:`repro_torch.kernels.ops.per_op_backend` (the CUDA kernels on a
     card).
 
-    A multi-device plan (``n_devices = D``) with ``comm="unified"`` runs on
-    a ``torch.distributed`` ``group`` of ``D`` ranks, one process per
-    device: each rank builds this executor on its own device with the same
-    plan and runs device ``rank``'s tables, all ranks solve together, and
-    each returns the whole ``x``. Its switch executor exchanges once per
-    superstep, its fused backends launch the megakernel's split form once
-    per superstep; with an empty cut neither exchanges. ``exchanges``
-    counts the last solve's exchanges; with a ``group`` every solve ends
-    with one more ``all_reduce``, the gather. Multi-device ``zerocopy`` and
-    ``syncfree`` plans raise ``NotImplementedError``, a multi-device plan
-    without a group of ``D`` ranks ``ValueError``. ``n_solves`` counts
-    invocations; a multi-RHS panel counts once.
+    A multi-device plan (``n_devices = D``) runs on a ``torch.distributed``
+    ``group`` of ``D`` ranks, one process per device: each rank builds this
+    executor on its own device with the same plan and runs device
+    ``rank``'s tables, all ranks solve together, and each returns the whole
+    ``x``. Levelset and dagpart under ``comm="zerocopy"``: the switch
+    executor exchanges the packed rows of each level that has some, the
+    fused backends launch the megakernel's split form once per exchange
+    segment (:func:`fused_segments`), the rows exchanged before each
+    launch. Under ``comm="unified"`` both exchange once per superstep, the
+    fused backends launching the split form once per superstep. Syncfree
+    plans exchange once per sweep (two ``all_reduce`` calls: values, then
+    counts with the rows left) and take ``n_levels`` sweeps on every rank.
+    With an empty cut nothing is exchanged (syncfree still sums the rows
+    left once a sweep). ``exchanges`` counts the last solve's exchanges;
+    with a ``group`` every solve ends with one more ``all_reduce``, the
+    gather. A multi-device plan without a group of ``D`` ranks raises
+    ``ValueError``. ``n_solves`` counts invocations; a multi-RHS panel
+    counts once.
     """
 
     def __init__(self, plan: Plan, device: str | torch.device | None = None, group=None):
@@ -1095,16 +1187,15 @@ class Solver:
         self.plan = plan
         self.n_solves = self.exchanges = 0
         self._fused = self._sched = self._syncfree = None
-        split = _unified_cut(plan)
         if plan.config.sched == "syncfree":
             self._syncfree = _SyncfreeSchedule(plan, self.device,
-                                               frontier=self.backend in ops.FUSED_BACKENDS)
+                                               self.backend in ops.FUSED_BACKENDS, self.rank)
         elif self.backend in ops.FUSED_BACKENDS:
-            self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan), self.rank,
-                                         split=split)
+            self._fused = _FusedSchedule(plan, self.device, fused_streaming(plan), self.rank)
         else:
             self._sched = _Schedule(plan, self.device, self.rank)
-        self._exchange = self._exchange_delta if split else None
+        self._exchange = {"unified": self._exchange_delta,
+                          "zerocopy": self._exchange_rows}.get(_exchange_mode(plan))
         if plan.n_devices > 1:
             mask = (plan.owner == self.rank).astype(np.float32)  # this rank's rows, pad 0
             self._owner_mask = torch.from_numpy(mask).to(self.device)
@@ -1116,6 +1207,33 @@ class Solver:
         acc += comm.all_reduce_sum_(delta, self.group)
         delta.zero_()
         self.exchanges += 1
+
+    def _exchange_rows(self, carry: torch.Tensor, rows: torch.Tensor) -> None:
+        """The zerocopy exchange: ``carry[rows] = all_reduce(carry[rows])``,
+        one packed buffer of the level's boundary rows, pad rows included
+        (the reference's ``psum(acc[rows])``)."""
+        carry[rows] = comm.all_reduce_sum_(carry[rows], self.group)
+        self.exchanges += 1
+
+    def _combine_sweep(self, acc, delta, cnt, dcnt, left: torch.Tensor) -> int:
+        """A multi-device syncfree sweep's end (the reference's steps 4 and
+        5): the exchange, then the rows unsolved on every rank, read on the
+        host. Zerocopy sums ``delta``/``dcnt`` at the boundary rows into
+        ``acc``/``cnt`` and zeroes them there, unified every row; the counts
+        travel with this rank's ``left`` in one int32 ``all_reduce``, so a
+        sweep makes two, and one (``left`` alone) with an empty cut."""
+        s = self._syncfree
+        left = left.reshape(1).to(torch.int32)
+        if s.mode is None:
+            return int(comm.all_reduce_sum_(left, self.group))
+        rows = s.exb if s.mode == "zerocopy" else slice(None)
+        acc[rows] += comm.all_reduce_sum_(delta[rows].contiguous(), self.group)
+        delta[rows] = 0.0
+        counts = comm.all_reduce_sum_(torch.cat([dcnt[rows], left]), self.group)
+        cnt[rows] += counts[:-1]
+        dcnt[rows] = 0
+        self.exchanges += 1
+        return int(counts[-1])
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's own rows of ``x``, summed over the group: the whole
@@ -1169,7 +1287,8 @@ class Solver:
         elif self._syncfree is not None:
             x = _run_syncfree(self._syncfree, self._diag, self._tiles, b_pad,
                               ops.per_op_backend(self.backend, self.device),
-                              self.plan.config.gemv_group)
+                              self.plan.config.gemv_group,
+                              self._combine_sweep if self.plan.n_devices > 1 else None)
         else:
             x = _run_levels(self._sched, self._diag, self._tiles, b_pad,
                             self.backend, self.plan.config.gemv_group, self._exchange)

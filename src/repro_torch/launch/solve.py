@@ -8,11 +8,12 @@ Runs through the session API (:class:`repro_torch.api.SpTRSVContext`); pass
 ``auto`` for ``--sched``/``--comm``/``--kernel`` to let the cost model (plus
 ``--probe N`` timed probe solves) pick the execution mode.
 
-Multi-device (``--comm unified`` on D devices, one process each) runs
-under ``torch.distributed.run``::
+Multi-device (D devices, one process each; every ``--sched`` under
+either ``--comm``, the default ``zerocopy`` included) runs under
+``torch.distributed.run``::
 
     python -m torch.distributed.run --nproc-per-node D \
-        -m repro_torch.launch.solve --comm unified [...]
+        -m repro_torch.launch.solve [--comm unified] [--sched syncfree] [...]
 
 With ``WORLD_SIZE > 1`` in the environment every rank joins one process
 group (``--dist-backend``: ``nccl`` where each rank has a card of its own,

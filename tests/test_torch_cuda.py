@@ -655,14 +655,196 @@ def test_gloo_group_of_one_on_the_card(cuda_device, tmp_path):
         dist.destroy_process_group()
 
 
+def _zerocopy_segment(B: int, real: bool):
+    """Device 1's tables of a 4-device zerocopy levelset plan, the segmented
+    layout of its solve cut at the exchange segments (``fused_segments``,
+    as the executor cuts it), and the segment with the most levels."""
+    from repro_torch.core.solver import SolverConfig, build_plan, fused_segments, level_widths
+    from repro_torch.kernels import superstep
+
+    a = suite.random_levelled(1600, 12, 4.0, seed=6)
+    if not real:
+        a = _dyadic(a)
+    plan = build_plan(a, 4, SolverConfig(block_size=B, comm="zerocopy"))
+    segs = fused_segments(plan)
+    assert len(segs) > 2, "one exchange segment: nothing split"
+    s = int(np.argmax(segs[:, 1] - segs[:, 0]))
+    host = [torch.tensor([segs[s, 0], segs[s, 1] - segs[s, 0]], dtype=torch.int32)] + [
+        torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32))
+        for t in (plan.lvl_off, level_widths(plan), plan.solve_rows[1], plan.upd_tiles[1],
+                  plan.tile_row[1], plan.tile_col[1])]
+    layout = superstep.segmented_layout(*[t.numpy() for t in host[1:]], n_rows=plan.bs.nb + 1,
+                                        bounds=np.concatenate([segs[:, 0], [plan.n_levels]]))
+    return plan, host, layout, s
+
+
+@pytest.mark.parametrize("values", ["dyadic", "real"])
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("B", [7, 16, 32])
+def test_zerocopy_split_launch_with_zero_acc_matches_plain_version(cuda_device, B, form,
+                                                                    values):
+    """The zerocopy fused executor's launch: the split form over one
+    exchange segment of device 1's tables, ``acc`` zero and the
+    accumulator (non-zero, as after earlier segments and an exchange) in
+    ``delta``: bit-equal to the plain version on dyadic values and to the
+    float64 result, within 2e-4 on real ones; ``acc`` stays zero."""
+    from repro_torch.kernels import superstep
+
+    real = values == "real"
+    plan, host, layout, s = _zerocopy_segment(B, real)
+    rng = np.random.default_rng(B)
+    shape = (plan.bs.nb + 1, B)
+    vecs = [(rng.uniform(-1, 1, shape) if real else rng.integers(-3, 4, shape))
+            .astype(np.float32) for _ in range(3)]  # b, delta, x
+    for v in vecs:
+        v[-1] = 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        t = [v.to(dev) for v in host]
+        b_pad, delta, x = (torch.from_numpy(v.copy()).to(dev) for v in vecs)
+        acc = torch.zeros_like(b_pad)
+        diag = torch.from_numpy(plan.diag).to(dev)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[1])).to(dev)
+        lay = layout.to(dev)
+        flags = superstep.ReadyFlags(shape[0], dev)
+        ops.reset_launch_counts()
+        if form == "resident":
+            superstep.superstep_split_(*t, diag, tiles, b_pad, acc, delta, x,
+                                       table=lay.segments[s], flags=flags)
+        else:
+            values_ = superstep.streamed_values(lay, diag, tiles)
+            superstep.superstep_streamed_split_(*t, values_, b_pad, acc, delta, x,
+                                                layout=lay, table=lay.segments[s], flags=flags)
+        name = "superstep_split" if form == "resident" else "superstep_streamed_split"
+        assert ops.launch_counts()[name] == (1 if dev != "cpu" else 0)
+        outs[str(dev)] = [v.cpu().numpy() for v in (acc, delta, x)]
+    assert not outs["cuda"][0].any()  # acc is only read
+    if real:
+        for got, want in zip(outs["cuda"], outs["cpu"]):
+            np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+        return
+    t64 = [v.double() if v.is_floating_point() else v for v in host]
+    zero = torch.zeros(shape, dtype=torch.float64)
+    exact = ref.superstep_ref(*t64[:7], torch.from_numpy(plan.diag).double(),
+                              torch.from_numpy(plan.tiles[1]).double(),
+                              torch.from_numpy(vecs[0]).double(), zero,
+                              torch.from_numpy(vecs[2]).double(),
+                              delta=torch.from_numpy(vecs[1]).double())
+    for got, want, e in zip(outs["cuda"], outs["cpu"], exact):
+        np.testing.assert_array_equal(want, e.numpy().astype(np.float32))
+        np.testing.assert_array_equal(got, want)
+
+
+class _ThreadGroup:
+    """``D`` ranks as threads of this process, for tests: ``all_reduce``
+    sums the ranks' tensors in rank order behind a barrier."""
+
+    def __init__(self, D: int):
+        import threading
+
+        self.D, self.local = D, threading.local()
+        self.barrier = threading.Barrier(D, timeout=120)
+        self.slots = [None] * D
+
+    def all_reduce_sum_(self, t, group):
+        self.slots[self.local.rank] = t.clone()
+        self.barrier.wait()
+        total = self.slots[0].clone()
+        for other in self.slots[1:]:
+            total += other
+        self.barrier.wait()
+        return t.copy_(total)
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on each rank's thread; its results in rank order."""
+        import threading
+
+        out, errors = [None] * self.D, []
+
+        def body(r):
+            self.local.rank = r
+            try:
+                out[r] = fn(r)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.D)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+@pytest.mark.parametrize("opts", [
+    dict(comm="zerocopy", kernel="fused"), dict(comm="zerocopy", kernel="fused_streamed"),
+    dict(comm="zerocopy", kernel="cuda"), dict(comm="zerocopy", sched="dagpart", kernel="fused"),
+    dict(comm="zerocopy", sched="syncfree", kernel="cuda"),
+    dict(comm="zerocopy", sched="syncfree", kernel="fused"),
+    dict(comm="unified", sched="syncfree", kernel="fused"),
+], ids=lambda o: "-".join(o.values()))
+@pytest.mark.parametrize("values", ["dyadic", "real"])
+def test_multi_rank_executors_on_the_card(cuda_device, monkeypatch, opts, values):
+    """Two ranks (threads sharing the card, ``all_reduce`` summed behind a
+    barrier) run the zerocopy and multi-rank syncfree executors: every
+    rank's ``x`` equals the one-device plain solve on the CPU bit for bit
+    on dyadic values, within 2e-4 of scipy on real ones; exchanges and
+    split launches as ``dispatch_stats`` says (syncfree: ``n_levels``
+    sweeps, one exchange each); no plain block op."""
+    from repro_torch.core import comm
+    from repro_torch.core.solver import Solver, SolverConfig, build_plan, dispatch_stats
+    from repro_torch.kernels import superstep
+
+    group = _ThreadGroup(2)
+    monkeypatch.setattr(comm, "all_reduce_sum_", group.all_reduce_sum_)
+    monkeypatch.setattr(comm, "rank", lambda g: g.local.rank)
+    monkeypatch.setattr(comm, "size", lambda g: g.D)
+    a = suite.random_levelled(1600, 12, 4.0, seed=6)
+    if values == "dyadic":
+        a = _dyadic(a)
+    cfg = dict(opts)
+    cfg["kernel_backend"] = cfg.pop("kernel")
+    plan = build_plan(a, 2, SolverConfig(block_size=16, **cfg))
+    assert plan.n_boundary_rows > 0
+    b = np.random.default_rng(3).integers(-4, 5, a.n).astype(np.float32)
+    one = build_plan(a, 1, SolverConfig(block_size=16, kernel_backend="reference"))
+    want = Solver(one, "cpu").solve(b)
+    _refuse_plain_block_ops(monkeypatch)
+    stats = dispatch_stats(plan)
+    before = superstep.superstep_split_.launches + superstep.superstep_streamed_split_.launches
+
+    def rank(r):
+        solver = Solver(plan, cuda_device, group)
+        x = solver.solve(b)
+        torch.cuda.synchronize()
+        return x, solver.exchanges, solver._syncfree and solver._syncfree.sweeps
+
+    results = group.run(rank)
+    split = (superstep.superstep_split_.launches + superstep.superstep_streamed_split_.launches
+             - before)
+    for x, exchanges, sweeps in results:
+        if values == "dyadic":
+            np.testing.assert_array_equal(x, want)
+        else:
+            np.testing.assert_allclose(x, reference_solve(a, b), rtol=2e-4, atol=2e-4)
+        if opts.get("sched") == "syncfree":
+            assert sweeps == exchanges == plan.n_levels
+        else:
+            assert exchanges == stats["exchanges"] > 0
+    if opts["kernel"].startswith("fused") and opts.get("sched") != "syncfree":
+        assert split == 2 * stats["fused_launches"] == 2 * (stats["exchanges"] + 1)
+
+
 # ---------------------------------------------------------------------------
 # the syncfree executor (dense scan under "cuda", frontier form under "fused")
 # and ILU(0)-BiCGStab
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture
-def no_plain_block_ops(monkeypatch):
+def _refuse_plain_block_ops(monkeypatch) -> None:
     """Make the block ops' plain versions raise: a solve that takes them on
     the card fails instead of falling back."""
     def refuse(*args, **kwargs):
@@ -670,6 +852,12 @@ def no_plain_block_ops(monkeypatch):
 
     for name in ("block_trsv_ref", "block_gemv_ref", "block_trsv_panel_ref"):
         monkeypatch.setattr(ref, name, refuse)
+
+
+@pytest.fixture
+def no_plain_block_ops(monkeypatch):
+    """:func:`_refuse_plain_block_ops` for the whole test."""
+    _refuse_plain_block_ops(monkeypatch)
 
 
 @pytest.mark.parametrize("kernel", ["cuda", "fused"])

@@ -113,9 +113,10 @@ def test_single_row_block():
                                           ({"kernel_backend": "fused_streamed"}, 2),
                                           ({}, 2)])
 def test_unported_executors_raise(kw, n_devices):
-    """Multi-device plans raise, naming ROADMAP. The one-device syncfree
-    plan was refused the same way until its executor was ported: it now
-    runs and gives the reference's bits."""
+    """Executors once refused now run. The one-device syncfree plan gives
+    the reference's bits. Multi-device plans (``comm="zerocopy"`` here)
+    run on a group of ``n_devices`` ranks (``tests/test_torch_zerocopy.py``);
+    without one they raise ``ValueError`` asking for it."""
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, n_devices, tsolver.SolverConfig(block_size=8, **kw))
     if n_devices == 1:
@@ -123,7 +124,7 @@ def test_unported_executors_raise(kw, n_devices):
             np.testing.assert_array_equal(tsolver.Solver(plan, "cpu").solve(_rhs(a.n, form)),
                                           _reference_solve("skewed", 8, form))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group of 2 ranks"):
         tsolver.Solver(plan, "cpu")
 
 

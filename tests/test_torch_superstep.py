@@ -422,10 +422,12 @@ def test_fused_single_row_block():
     ({"kernel_backend": "fused_streamed"}, 2),
 ])
 def test_unported_fused_forms_raise(kw, n_devices):
-    """Multi-device fused plans raise, naming ROADMAP. One-device syncfree
-    plans under a fused backend were refused the same way until the
-    syncfree executor was ported: they now run its frontier form and give
-    the reference's (its own frontier form) bit for bit."""
+    """Forms once refused now run. One-device syncfree plans under a fused
+    backend run the syncfree executor's frontier form and give the
+    reference's (its own frontier form) bit for bit. Multi-device fused
+    plans (``comm="zerocopy"``, one split launch per exchange segment) run
+    on a group of ``n_devices`` ranks (``tests/test_torch_zerocopy.py``):
+    without one they raise ``ValueError`` asking for it."""
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, n_devices, tsolver.SolverConfig(block_size=8, **kw))
     if n_devices == 1:
@@ -437,7 +439,7 @@ def test_unported_fused_forms_raise(kw, n_devices):
         np.testing.assert_array_equal(
             solver.solve(b), DistributedSolver(ref_plan, strategies.mesh1()).solve(b))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group of 2 ranks"):
         tsolver.Solver(plan, "cpu")
 
 

@@ -212,10 +212,13 @@ def test_dispatch_stats_match_reference(kernel):
 
 @pytest.mark.parametrize("kernel", [None, "fused"])
 def test_multi_device_syncfree_still_raises(kernel):
+    """A multi-device syncfree plan runs on a group of ``n_devices`` ranks
+    (``tests/test_torch_zerocopy.py``); without one it raises
+    ``ValueError`` asking for it."""
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=8, sched="syncfree",
                                                          kernel_backend=kernel))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group of 2 ranks"):
         tsolver.Solver(plan, "cpu")
 
 

@@ -25,9 +25,7 @@ per rank to OUT.
 """
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
 import textwrap
 
@@ -45,7 +43,6 @@ REFERENCE_KERNELS = {4: ("fused",), 8: ("reference", "fused")}
 FORMS = ("forward", "transpose", "panel")
 MATRICES = ("banded", "skewed")
 TOL = dict(rtol=2e-4, atol=2e-4)
-TIMEOUT = 600
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +54,8 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
     import torch
     import torch.distributed as dist
 
+    from torch_parity import RankRecorder, read_csr
+
     torch.set_num_threads(1)
     # "fused" means the resident megakernel here, "fused_streamed" the
     # streamed one (the port's rule streams every plan on its own)
@@ -64,77 +63,14 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
     dist.init_process_group("gloo", init_method="file://" + os.path.join(out, "rendezvous"),
                             rank=rank, world_size=D)
     from repro_torch.api import PlanOptions, SpTRSVContext
-    from repro_torch.core import comm
-    from repro_torch.core import solver as tsolver
-    from repro_torch.kernels import superstep
-    from repro_torch.sparse.matrix import CSR
-    from repro_torch.verify import verify_plan
 
     group = dist.group.WORLD
     data = np.load(inputs)
-    calls: dict = {}
-
-    def counted(name):
-        fn = getattr(superstep, name)
-
-        def wrapper(*args, **kwargs):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        setattr(superstep, name, wrapper)
-
-    for name in ("superstep_call", "superstep_streamed_call", "superstep_split_",
-                 "superstep_streamed_split_"):
-        counted(name)
+    rec = RankRecorder()
+    solve, report = rec.solve, rec.report
 
     def csr(key):
-        return CSR(n=int(data[key + "/n"]), row_ptr=data[key + "/row_ptr"],
-                   col_idx=data[key + "/col_idx"], val=data[key + "/val"])
-
-    xs, report, verified = {}, {}, {}
-
-    def solve(ctx, h, rhs, tag, transpose=False):
-        """One solve, its ``x`` kept under ``tag`` and its launches and
-        all-reduces counted under ``tag`` in the report."""
-        calls.clear()
-        before = comm.all_reduce_sum_.calls
-        x = ctx.solve(h, rhs, transpose=transpose)
-        solver = ctx.executor(h, transpose=transpose)
-        stats = tsolver.dispatch_stats(solver.plan)
-        kernel = h.config.kernel_backend
-        split = calls.get("superstep_split_", 0) + calls.get("superstep_streamed_split_", 0)
-        whole = calls.get("superstep_call", 0) + calls.get("superstep_streamed_call", 0)
-        if id(solver.plan) not in verified:
-            verified[id(solver.plan)] = verify_plan(solver.plan, "strict").passed
-        xs[tag] = x
-        report[tag] = {
-            "exchanges": solver.exchanges, "want_exchanges": stats["exchanges"],
-            "all_reduces": comm.all_reduce_sum_.calls - before,
-            "want_launches": stats["fused_launches"], "split": split, "whole": whole,
-            "streamed": calls.get("superstep_streamed_split_", 0)
-            + calls.get("superstep_streamed_call", 0),
-            "verified": verified[id(solver.plan)]}
-
-    def ranges(ctx, h, b):
-        """The ``record_function`` ranges one solve enters, untraced and
-        traced."""
-        from repro_torch.obs import trace
-
-        names, real = [], torch.profiler.record_function
-
-        def counted(name, *args, **kwargs):
-            names.append(name)
-            return real(name, *args, **kwargs)
-
-        torch.profiler.record_function = counted
-        try:
-            ctx.solve(h, b)
-            off = list(names)
-            with trace.trace_to():
-                ctx.solve(h, b)
-        finally:
-            torch.profiler.record_function = real
-        return {"off": off, "on": {n: names.count(n) for n in set(names)},
-                "supersteps": ctx.plan(h).n_supersteps}
+        return read_csr(data, key)
 
     for m in MATRICES:
         a = csr(m)
@@ -149,7 +85,7 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
                 solve(ctx, h, b, key + "/transpose", transpose=True)
                 solve(ctx, h, panel, key + "/panel")
                 if m == "skewed" and sched == "dagpart":
-                    report[key + "/ranges"] = ranges(ctx, h, b)
+                    report[key + "/ranges"] = rec.ranges(ctx, h, b)
                 if m == "skewed":
                     snap = ctx.metrics_snapshot(h)
                     stats = ctx.dispatch_stats(h)
@@ -170,7 +106,6 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
             block_size=B, comm="unified", partition="contiguous", kernel=kernel))
         h = ctx.analyse(csr("uncut"))
         solve(ctx, h, data["uncut/b"], f"uncut/{kernel}")
-        report[f"uncut/{kernel}"]["boundary"] = ctx.plan(h).n_boundary_rows
     # what a multi-device session does not run yet
     refused = []
     for make in (lambda: SpTRSVContext(device="cpu", group=group, plan_store=object()),
@@ -181,33 +116,20 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
         except NotImplementedError as e:
             refused.append("ROADMAP" in str(e))
     report["refused"] = refused
-    np.savez(os.path.join(out, f"rank{rank}.npz"), **xs)
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump(report, f)
+    rec.save(out, rank)
     dist.barrier()
     dist.destroy_process_group()
 
 
 def _port_main(D: int, inputs: str, out: str) -> None:
     """Fork the D ranks (the port is imported once, here) and wait for them."""
-    import multiprocessing
-
     # imported before the fork, so the ranks share them
     import torch  # noqa: F401
     import repro_torch.api  # noqa: F401
     import repro_torch.verify  # noqa: F401
+    from torch_parity import fork_ranks
 
-    fork = multiprocessing.get_context("fork")
-    procs = [fork.Process(target=_rank, args=(r, D, inputs, out)) for r in range(D)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(TIMEOUT)
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * D:
-        for p in procs:
-            p.kill()
-        sys.exit(f"ranks exited {codes}")
+    fork_ranks(_rank, D, (inputs, out))
 
 
 # ---------------------------------------------------------------------------
@@ -242,70 +164,30 @@ REFERENCE = textwrap.dedent("""
 """ % B)
 
 
-def _inputs(path: str) -> dict:
-    """The problems both sides solve, written to ``path``; returns them."""
-    import scipy.sparse as sp
-
-    import strategies
-    from repro.sparse.matrix import CSR
-
-    data, probs = {}, {}
-
-    def put(key, a, b, panel=None):
-        probs[key] = (a, b)
-        data.update({f"{key}/n": a.n, f"{key}/row_ptr": a.row_ptr,
-                     f"{key}/col_idx": a.col_idx, f"{key}/val": a.val, f"{key}/b": b})
-        if panel is not None:
-            data[f"{key}/panel"] = panel
-
-    for m in MATRICES:
-        a = strategies.EXACT_MATRICES[m]()
-        b = strategies.dyadic_rhs(a.n)
-        put(m, a, b, np.stack([b, strategies.dyadic_rhs(a.n, seed=2)], axis=1))
-    skewed = probs["skewed"][0]
-    put("skewed_new", strategies.dyadic(skewed, seed=1), probs["skewed"][1])
-    real = strategies.SOLVER_MATRICES["levelled"]()
-    put("real", real, np.random.default_rng(1).uniform(-1, 1, real.n).astype(np.float32))
-    # eight independent copies of one two-block matrix: a contiguous
-    # partition of four or eight devices cuts nothing
-    one = strategies.dyadic(strategies.random_triangular(n=2 * B, seed=3, m=40))
-    L = sp.block_diag([sp.csr_matrix((one.val, one.col_idx, one.row_ptr))] * 8, format="csr")
-    L.sort_indices()
-    uncut = CSR(n=L.shape[0], row_ptr=L.indptr.astype(np.int64),
-                col_idx=L.indices.astype(np.int32), val=L.data.astype(np.float32))
-    put("uncut", uncut, strategies.dyadic_rhs(uncut.n, seed=5))
-    np.savez(path, **data)
-    return probs
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Start the reference and both port runs together, wait for all three,
-    and return their results with the inputs."""
+    """Start the reference and both port runs together, wait for all of
+    them, and return their results with the inputs."""
+    from torch_parity import multi_device_inputs, rank_results, run_together
+
     tmp = tmp_path_factory.mktemp("unified")
     inputs = str(tmp / "inputs.npz")
-    probs = _inputs(inputs)
+    probs = multi_device_inputs(inputs, B)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
-    procs = {}
+    commands = {}
     for D in DEVICES:
-        procs[f"reference {D}"] = subprocess.Popen(
+        commands[f"reference {D}"] = (
             [sys.executable, "-c", REFERENCE, inputs, str(tmp / f"reference{D}.npz"), str(D),
              *REFERENCE_KERNELS[D]],
-            env=dict(env, JAX_PLATFORMS="cpu",
-                     XLA_FLAGS=f"--xla_force_host_platform_device_count={D}"),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": f"--xla_force_host_platform_device_count={D}"})
         (tmp / f"port{D}").mkdir()
-        procs[D] = subprocess.Popen(
+        commands[f"port {D}"] = (
             [sys.executable, os.path.abspath(__file__), str(D), inputs, str(tmp / f"port{D}")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, p in procs.items():
-        log, _ = p.communicate(timeout=TIMEOUT)
-        assert p.returncode == 0, f"{name} run failed:\n{log[-3000:]}"
+            {})
+    run_together(commands, env)
     ref = {k: v for D in DEVICES for k, v in np.load(tmp / f"reference{D}.npz").items()}
-    port = {D: [(dict(np.load(tmp / f"port{D}" / f"rank{r}.npz")),
-                 json.loads((tmp / f"port{D}" / f"rank{r}.json").read_text()))
-                for r in range(D)] for D in DEVICES}
+    port = {D: rank_results(tmp / f"port{D}", D) for D in DEVICES}
     return probs, ref, port
 
 
@@ -430,29 +312,32 @@ def test_plan_digest_tells_plans_apart():
 
 
 def test_multi_device_plans_need_a_matching_group():
-    """A unified plan of D > 1 devices without a group of D ranks raises
-    ``ValueError``; zerocopy and syncfree at D > 1 still raise
-    ``NotImplementedError`` naming ROADMAP, also with a group; so do
-    ``"auto"`` and a plan store in a multi-device session."""
+    """A multi-device plan of D > 1 devices without a group of D ranks
+    raises ``ValueError``, under either comm mode and every scheduler (all
+    of them execute at D > 1 now); the multi-device SpMV, ``"auto"`` and a
+    plan store in a multi-device session raise ``NotImplementedError``
+    naming ROADMAP."""
     import torch.distributed as dist
 
     import strategies
     from torch_parity import to_torch_csr
     from repro_torch.api import PlanOptions, SpTRSVContext
     from repro_torch.core import solver as tsolver
+    from repro_torch.krylov.spmv import SpMV
 
     a = to_torch_csr(strategies.EXACT_MATRICES["skewed"]())
     plan = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=B, comm="unified"))
     with pytest.raises(ValueError, match="group"):
         tsolver.Solver(plan, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SpMV(plan, "cpu")
     store = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"unified-{os.getpid()}")
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
     try:
-        with pytest.raises(ValueError, match="2 ranks"):
-            tsolver.Solver(plan, "cpu", dist.group.WORLD)
-        for kw in ({"comm": "zerocopy"}, {"comm": "unified", "sched": "syncfree"}):
+        for kw in ({}, {"comm": "zerocopy"}, {"comm": "unified", "sched": "syncfree"},
+                   {"comm": "zerocopy", "sched": "syncfree"}):
             p = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=B, **kw))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="2 ranks"):
                 tsolver.Solver(p, "cpu", dist.group.WORLD)
         # a one-device session on a group of one: the gather is its only all-reduce
         ctx = SpTRSVContext(device="cpu", group=dist.group.WORLD,

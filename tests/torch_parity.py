@@ -170,3 +170,186 @@ def assert_dispatch_stats_match(ref_stats: dict, ref_plan, port_stats: dict) -> 
         if key not in HOPPER_FUSED_KEYS:
             assert port_stats[key] == want, key
     assert {k: port_stats[k] for k in HOPPER_FUSED_KEYS} == hopper_fused_stats(ref_plan)
+
+
+# ---------------------------------------------------------------------------
+# multi-device runs: the reference on a mesh of forced host devices, the port
+# on D forked gloo ranks (tests/test_torch_unified.py, test_torch_zerocopy.py)
+# ---------------------------------------------------------------------------
+
+# the megakernel wrappers a multi-device solve may launch
+SUPERSTEP_WRAPPERS = ("superstep_call", "superstep_streamed_call", "superstep_split_",
+                      "superstep_streamed_split_")
+RANK_TIMEOUT = 600  # seconds a side may take
+
+
+def multi_device_inputs(path: str, B: int) -> dict:
+    """The problems both sides solve, written to ``path`` (one ``.npz``);
+    returns them as ``{key: (reference CSR, b)}``: the dyadic suites of
+    ``tests/strategies.py`` with a two-column panel (``banded``,
+    ``skewed``), new dyadic values on ``skewed``'s pattern for a refresh
+    (``skewed_new``), a real-valued problem (``real``) and eight copies of
+    one two-block matrix, which a contiguous partition of four or eight
+    devices cuts nowhere (``uncut``)."""
+    import scipy.sparse as sp
+
+    import strategies
+    from repro.sparse.matrix import CSR
+
+    data, probs = {}, {}
+
+    def put(key, a, b, panel=None):
+        probs[key] = (a, b)
+        data.update({f"{key}/n": a.n, f"{key}/row_ptr": a.row_ptr,
+                     f"{key}/col_idx": a.col_idx, f"{key}/val": a.val, f"{key}/b": b})
+        if panel is not None:
+            data[f"{key}/panel"] = panel
+
+    for m in ("banded", "skewed"):
+        a = strategies.EXACT_MATRICES[m]()
+        b = strategies.dyadic_rhs(a.n)
+        put(m, a, b, np.stack([b, strategies.dyadic_rhs(a.n, seed=2)], axis=1))
+    skewed = probs["skewed"][0]
+    put("skewed_new", strategies.dyadic(skewed, seed=1), probs["skewed"][1])
+    real = strategies.SOLVER_MATRICES["levelled"]()
+    put("real", real, np.random.default_rng(1).uniform(-1, 1, real.n).astype(np.float32))
+    one = strategies.dyadic(strategies.random_triangular(n=2 * B, seed=3, m=40))
+    L = sp.block_diag([sp.csr_matrix((one.val, one.col_idx, one.row_ptr))] * 8, format="csr")
+    L.sort_indices()
+    uncut = CSR(n=L.shape[0], row_ptr=L.indptr.astype(np.int64),
+                col_idx=L.indices.astype(np.int32), val=L.data.astype(np.float32))
+    put("uncut", uncut, strategies.dyadic_rhs(uncut.n, seed=5))
+    np.savez(path, **data)
+    return probs
+
+
+def read_csr(data, key: str) -> tmatrix.CSR:
+    """Problem ``key`` of :func:`multi_device_inputs`' file as the port's CSR."""
+    return tmatrix.CSR(n=int(data[key + "/n"]), row_ptr=data[key + "/row_ptr"],
+                       col_idx=data[key + "/col_idx"], val=data[key + "/val"])
+
+
+def count_calls(module, names, calls: dict) -> None:
+    """Wrap each function ``names`` of ``module`` so that every call adds one
+    to ``calls[name]``."""
+    for name in names:
+        fn = getattr(module, name)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(module, name, wrapper)
+
+
+def fork_ranks(target, D: int, args: tuple) -> None:
+    """Fork ``D`` processes running ``target(rank, D, *args)`` (what the
+    caller imported is shared) and wait for them; exits non-zero if one
+    fails."""
+    import multiprocessing
+    import sys
+
+    fork = multiprocessing.get_context("fork")
+    procs = [fork.Process(target=target, args=(r, D) + tuple(args)) for r in range(D)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * D:
+        for p in procs:
+            p.kill()
+        sys.exit(f"ranks exited {codes}")
+
+
+def run_together(commands: dict, env: dict) -> None:
+    """Start every ``{name: (argv, extra env)}`` command at once and wait
+    for all; each must exit 0."""
+    import subprocess
+
+    procs = {name: subprocess.Popen(argv, env=dict(env, **extra), stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, (argv, extra) in commands.items()}
+    for name, p in procs.items():
+        log, _ = p.communicate(timeout=RANK_TIMEOUT)
+        assert p.returncode == 0, f"{name} run failed:\n{log[-3000:]}"
+
+
+def rank_results(out, D: int) -> list:
+    """Each rank's ``(xs, report)`` as the ranks wrote them to ``out``."""
+    import json
+    import os
+
+    return [(dict(np.load(os.path.join(out, f"rank{r}.npz"))),
+             json.load(open(os.path.join(out, f"rank{r}.json")))) for r in range(D)]
+
+
+class RankRecorder:
+    """One rank's solves in a multi-device parity run: each ``x`` under its
+    tag, and beside it the solve's exchanges, ``all_reduce`` calls and
+    megakernel launches (counted by :func:`count_calls` on
+    :data:`SUPERSTEP_WRAPPERS`), what ``dispatch_stats`` predicts, the
+    syncfree sweeps, and whether its plan verifies strict."""
+
+    def __init__(self):
+        from repro_torch.kernels import superstep
+
+        self.calls, self.xs, self.report, self._verified = {}, {}, {}, {}
+        count_calls(superstep, SUPERSTEP_WRAPPERS, self.calls)
+
+    def solve(self, ctx, h, rhs, tag: str, transpose: bool = False) -> None:
+        from repro_torch.core import comm
+        from repro_torch.verify import verify_plan
+
+        self.calls.clear()
+        before = comm.all_reduce_sum_.calls
+        x = ctx.solve(h, rhs, transpose=transpose)
+        solver = ctx.executor(h, transpose=transpose)
+        plan = solver.plan
+        stats = tsolver.dispatch_stats(plan)
+        if id(plan) not in self._verified:
+            self._verified[id(plan)] = verify_plan(plan, "strict").passed
+        c = self.calls
+        self.xs[tag] = x
+        self.report[tag] = {
+            "exchanges": solver.exchanges, "want_exchanges": stats["exchanges"],
+            "all_reduces": comm.all_reduce_sum_.calls - before,
+            "want_launches": stats["fused_launches"],
+            "split": c.get("superstep_split_", 0) + c.get("superstep_streamed_split_", 0),
+            "whole": c.get("superstep_call", 0) + c.get("superstep_streamed_call", 0),
+            "streamed": c.get("superstep_streamed_split_", 0)
+            + c.get("superstep_streamed_call", 0),
+            "levels": plan.n_levels, "boundary": plan.n_boundary_rows,
+            "sweeps": None if solver._syncfree is None else solver._syncfree.sweeps,
+            "verified": self._verified[id(plan)]}
+
+    def ranges(self, ctx, h, b) -> dict:
+        """The ``record_function`` ranges one solve enters, untraced and
+        traced, with the plan's supersteps."""
+        import torch
+
+        from repro_torch.obs import trace
+
+        names, real = [], torch.profiler.record_function
+
+        def counted(name, *args, **kwargs):
+            names.append(name)
+            return real(name, *args, **kwargs)
+
+        torch.profiler.record_function = counted
+        try:
+            ctx.solve(h, b)
+            off = list(names)
+            with trace.trace_to():
+                ctx.solve(h, b)
+        finally:
+            torch.profiler.record_function = real
+        return {"off": off, "on": {n: names.count(n) for n in set(names)},
+                "supersteps": ctx.plan(h).n_supersteps}
+
+    def save(self, out: str, rank: int) -> None:
+        import json
+        import os
+
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **self.xs)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(self.report, f)
