@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~9 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~10 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -155,7 +155,30 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    solve; (b) the split kernel, resident and streamed, with a zero ``acc``
    over the widest zerocopy segment against its plain version, timed
    there; (c) ``launch/solve.py --sched syncfree`` (its default ``--comm
-   zerocopy``) under ``torch.distributed.run`` exits 0.
+   zerocopy``) under ``torch.distributed.run`` exits 0;
+13. the multi-device tail, run by phase 11's ranks after phase 12 (fresh
+   sessions; seconds per sub-step printed): (a) ``SpMV(plan, "cuda:0",
+   group)`` on phase 4's system: every rank's ``y`` bit-equal to the
+   one-device SpMV on its dyadic twin (a vector and an (n, 8) panel),
+   within ``TOL_KERNEL`` on real values, exactly three GEMV (GEMM) launches
+   and one ``all_reduce`` of the padded ``y`` a matvec, no plain version;
+   ms a matvec beside one device; (b) IC(0)-PCG and ILU(0)-BiCGStab with
+   ``group=`` under ``comm="zerocopy"``, plain ``fused``: converged, the
+   true residual within 10 * tol, PCG within one iteration of phase 5's,
+   BiCGStab phase 8's ``fused`` iterations and within ``TOL_SOLVE`` of
+   scipy, both ranks the same iterations, history and bits of ``x``, the
+   split launches ``dispatch_stats`` gives per solve, three GEMV launches
+   a matvec, no plain version; (c) ``"auto"`` on
+   ``grid2d_factor(AUTO_SIDE)``, probed (``probe_solves=1``) and modelled:
+   both comm modes in the grid, every rank the same choice, scores and
+   probe times, the calibration file written by rank 0 alone; (d) the plan
+   store on phase 3's dyadic twin: cold sessions analyse and rank 0 alone
+   saves, warm sessions hit once and analyse nothing on every rank, warm
+   ``x`` == cold ``x`` == ``x_int``; (e) ``launch/serve_solve.py
+   --dyadic --solo-check`` under ``torch.distributed.run`` on the two gloo
+   ranks (``SERVE_REQUESTS`` requests, hot pattern
+   ``grid2d_factor(SERVICE_SIDE)``, plain ``fused``) exits 0: every ticket
+   exact and its solo solve's bits.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -232,7 +255,9 @@ PANEL_BP = ((8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32))  # pa
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
 ORACLE_CHUNK = 4096  # tiles per host oracle call at the syncfree shapes
 UNIFIED_RANKS = 2  # phase 11: gloo ranks, all on cuda:0
-UNIFIED_TIMEOUT = 600  # seconds phase 11's ranks may take
+UNIFIED_TIMEOUT = 720  # seconds phase 11's ranks may take (phases 11-13)
+AUTO_SIDE = 256  # phase 13c: "auto" at D = 2 on grid2d_factor(AUTO_SIDE), B = 32
+SERVE_REQUESTS = 16  # phase 13e: the dyadic mix served on two ranks
 
 
 def fail(msg: str) -> None:
@@ -1015,10 +1040,247 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
                                             f"on rank {rank}")
         res["seconds"][f"12 {name}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+    # phase 13: fresh sessions; phase 12's plans and executors go
+    ctx = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["tail"] = tail_rank(rank, group, data, a_dy, sent)
     comm.all_reduce_sum_ = all_reduce
     out.put(res)
     dist.barrier()
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-device tail (SpMV, Krylov, "auto", plan store, service)
+# ---------------------------------------------------------------------------
+
+
+def digest(x) -> str:
+    """The bits of an array, for comparing ranks' results through a queue."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def tail_rank(rank: int, group, data, a_dy, sent: list) -> dict:
+    """Phase 13 (a)-(d) on one rank of phase 11's group, with fresh
+    sessions: the SpMV, IC(0)-PCG and ILU(0)-BiCGStab on the n =
+    PCG_SIDE^2 system, ``"auto"`` on ``grid2d_factor(AUTO_SIDE)`` and the
+    plan store on phase 3's dyadic twin ``a_dy``. Checks what one rank can
+    see; returns the digests, counts and times the parent compares across
+    ranks. ``sent`` collects the bytes of each ``all_reduce_sum_``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import PlanOptions, SpTRSVContext
+    from repro_torch.core.solver import SolverConfig, build_plan, dispatch_stats
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.krylov import (
+        SpMV, matvec_lower, solve_ic0_pcg, solve_ilu0_bicgstab, spd_lower_from_triangular,
+    )
+    from repro_torch.launch.serve_solve import dyadic
+    from repro_torch.obs import calibration as ocal
+    from repro_torch.service import PlanStore
+    from repro_torch.sparse import suite
+
+    dev = str(data["device"])
+    tol = float(data["tol"])
+    zeros = dict.fromkeys(kops.KERNELS, 0)
+    out = {"seconds": {}, "paths": {}, "digests": {}, "ms": {}}
+
+    def together():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    # (a) the SpMV on the n = PCG_SIDE^2 system: dyadic values exact, one
+    # all_reduce of nb * B floats a matvec, three GEMV (GEMM) launches
+    t0 = time.perf_counter()
+    a_spd = spd_lower_from_triangular(suite.grid2d_factor(int(data["panel_side"]), seed=6))
+    b_spd = data["b_spd"]
+    for values, mat in (("dyadic", dyadic(a_spd, seed=SEED)), ("real", a_spd)):
+        p2, p1 = (build_plan(mat, D, SolverConfig()) for D in (UNIFIED_RANKS, 1))
+        spmv2, spmv1 = SpMV(p2, dev, group), SpMV(p1, dev)
+        for form, v in (("vector", data[f"v_{values}"]), ("panel", data[f"v8_{values}"])):
+            want = spmv1.matvec(v)
+            tag = f"phase 13a SpMV {values} {form}"
+            together()
+            kops.reset_launch_counts()
+            sent.clear()
+            with PlainCalls(ref) as plain:
+                y = spmv2.matvec(v)
+            counts = kops.launch_counts()
+            gemv = "block_gemv" if form == "vector" else "block_gemm"
+            check(counts == {**zeros, gemv: 3}, f"{tag}: launches {counts}")
+            check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
+            R = 1 if form == "vector" else v.shape[1]
+            check(sent == [p2.bs.nb * p2.bs.B * R * 4],
+                  f"{tag}: all_reduce bytes {sent}, want one of {p2.bs.nb * p2.bs.B * R * 4}")
+            if values == "dyadic":
+                check(np.array_equal(y, want), f"{tag}: rank {rank} != the one-device SpMV")
+            else:
+                e = float(np.abs(y - want).max() / np.abs(want).max())
+                check(e <= TOL_KERNEL, f"{tag}: rel err {e:.3e} against the one-device SpMV")
+                out[f"spmv_{form}_rel_err"] = e
+            out["digests"][f"spmv {values} {form}"] = digest(y)
+            out["paths"][f"spmv_{values}_{form}"] = counts
+        if values == "real":  # ms a matvec: the group's, then one device alone on rank 0
+            v = data["v_real"]
+            together()
+            t = time.perf_counter()
+            for _ in range(10):
+                spmv2.matvec(v)
+            out["ms"]["spmv D=2"] = (time.perf_counter() - t) * 100
+            together()
+            if rank == 0:
+                t = time.perf_counter()
+                for _ in range(10):
+                    spmv1.matvec(v)
+                out["ms"]["spmv one device"] = (time.perf_counter() - t) * 100
+            together()
+    out["seconds"]["13a spmv"] = time.perf_counter() - t0
+
+    # (b) IC(0)-PCG and ILU(0)-BiCGStab, zerocopy, plain "fused" (the split
+    # megakernel, streamed by the card's rule): launches as dispatch_stats
+    # says, no plain version, the one-device runs' iterations
+    opts = PlanOptions(comm="zerocopy", kernel="fused")
+    for method, solve in (("pcg", solve_ic0_pcg), ("bicgstab", solve_ilu0_bicgstab)):
+        tag = f"phase 13b {method}"
+        together()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with PlainCalls(ref) as plain:
+            r = solve(a_spd, b_spd, tol=tol, maxiter=400, config=opts, device=dev, group=group)
+        secs = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        want = {**zeros, "block_gemv": 3 * r.info["spmv"].n_matvecs}
+        split = {}
+        for side in ("forward", "backward"):
+            solver = r.info[side]
+            st = dispatch_stats(solver.plan)
+            key = "superstep_streamed_split" if st["streamed"] else "superstep_split"
+            want[key] += solver.n_solves * st["fused_launches"]
+            split[side] = {"fused_launches": st["fused_launches"], "exchanges": st["exchanges"],
+                           "solves": solver.n_solves, "streamed": st["streamed"]}
+        check(counts == want, f"{tag}: launches {counts}, not {want}")
+        check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
+        true_res = float(np.linalg.norm(b_spd - matvec_lower(a_spd, r.x))
+                         / np.linalg.norm(b_spd))
+        check(r.converged and true_res <= 10 * tol,
+              f"{tag}: converged={r.converged} in {r.n_iters} iterations, true residual "
+              f"{true_res:.3e}")
+        per_iter = 1 if method == "pcg" else 2
+        check(r.info["forward"].n_solves == r.info["backward"].n_solves
+              == per_iter * r.n_iters,
+              f"{tag}: {r.info['forward'].n_solves}/{r.info['backward'].n_solves} sweeps for "
+              f"{r.n_iters} iterations")
+        if method == "pcg":
+            check(abs(r.n_iters - int(data["pcg_iters"])) <= 1,
+                  f"{tag}: {r.n_iters} iterations, phase 5 took {int(data['pcg_iters'])}")
+        else:
+            check(r.n_iters == int(data["bicgstab_iters"]),
+                  f"{tag}: {r.n_iters} iterations, phase 8's fused run took "
+                  f"{int(data['bicgstab_iters'])}")
+            e = rel_err(r.x, data["x_spd"])
+            check(e <= TOL_SOLVE, f"{tag}: rel err {e:.3e} against scipy")
+            out["bicgstab_rel_err"] = e
+        matvecs = r.info["spmv"].n_matvecs
+        # where an iteration's time goes: each of its steps once more on the
+        # group, after a barrier (median of 3, host clock, numpy out)
+        b32 = np.asarray(b_spd, np.float32)
+        steps = {}
+        for step, run in (("forward", lambda: r.info["forward"].solve(b32)),
+                          ("backward", lambda: r.info["backward"].solve(b32)),
+                          ("matvec", lambda: r.info["spmv"].matvec(b32))):
+            times = []
+            for _ in range(3):
+                together()
+                t = time.perf_counter()
+                run()
+                times.append(time.perf_counter() - t)
+            steps[step] = sorted(times)[1] * 1e3
+        out[method] = {"n_iters": r.n_iters, "seconds": secs, "true_res": true_res,
+                       "matvecs": matvecs, "split": split,
+                       "history": r.history, "step_ms": steps}
+        out["digests"][method] = digest(r.x)
+        out["paths"][f"{method}_zerocopy_fused"] = counts
+        out["seconds"][f"13b {method}"] = secs
+
+    # (c) "auto" at D = 2: probed (the calibration file rank 0's alone), then
+    # modelled; the parent compares the ranks' decisions
+    t0 = time.perf_counter()
+    a_auto = suite.grid2d_factor(AUTO_SIDE, seed=6)
+    store = ocal.CalibrationStore(path=str(data["calibration"]))
+    saves = []
+    real_save = store.save
+    store.save = lambda path: (saves.append(path), real_save(path))
+    ocal.set_store(store)
+    auto = dict(sched="auto", comm="auto", kernel="auto")
+    b_auto = data["b_auto"]
+    try:
+        decisions = {}
+        for probes in (1, 0):
+            ctx = SpTRSVContext(device=dev, group=group)
+            together()
+            kops.reset_launch_counts()
+            h = ctx.analyse(a_auto, PlanOptions(**auto, probe_solves=probes))
+            x = ctx.solve(h, b_auto)
+            d = h.auto
+            e = rel_err(x, data["want_auto"])
+            check(e <= TOL_SOLVE, f"phase 13c auto (probes {probes}): rel err {e:.3e}")
+            check({c[1] for c in d.scores} == {"zerocopy", "unified"},
+                  f"phase 13c: the candidate grid's comm modes {sorted(d.scores)}")
+            check(d.mode == ("probed" if probes else "modelled"), f"phase 13c: mode {d.mode}")
+            decisions[probes] = {"chosen": list(d.chosen), "mode": d.mode,
+                                 "probe_us": {"/".join(c): v for c, v in d.probe_us.items()},
+                                 "scores": {"/".join(c): v for c, v in d.scores.items()},
+                                 "candidates": len(d.scores),
+                                 "overhead_s": d.probe_overhead_us / 1e6}
+            out["paths"][f"auto_{'probed' if probes else 'modelled'}"] = kops.launch_counts()
+        out["auto"] = decisions
+        out["calibration_saves"] = len(saves)
+        out["calibration_samples"] = store.n_samples()
+    finally:
+        ocal.set_store(None)
+    out["seconds"]["13c auto"] = time.perf_counter() - t0
+
+    # (d) the plan store on phase 3's dyadic twin (n = SIDE^2): the cold
+    # sessions analyse and rank 0 saves; warm sessions hit on every rank
+    t0 = time.perf_counter()
+    opts = PlanOptions(comm="zerocopy", kernel="fused")
+    xs = {}
+    for phase in ("cold", "warm"):
+        store = PlanStore(str(data["plan_store"]))
+        ctx = SpTRSVContext(device=dev, group=group, plan_store=store, options=opts)
+        together()
+        kops.reset_launch_counts()
+        t = time.perf_counter()
+        h = ctx.analyse(a_dy)
+        ctx.executor(h)
+        out["seconds"][f"13d {phase} analyse+plan"] = time.perf_counter() - t
+        with PlainCalls(ref) as plain:
+            xs[phase] = ctx.solve(h, data["b_dy"])
+        check(plain.calls == 0, f"phase 13d {phase}: {plain.calls} plain-version calls")
+        st, ps = ctx.stats(), store.stats
+        if phase == "cold":
+            check(st.get("analyses") == 1 and ps.get("saves", 0) == (1 if rank == 0 else 0),
+                  f"phase 13d cold on rank {rank}: session {st}, store {ps}")
+        else:
+            check(st.get("plan_store_hits") == 1 and not st.get("analyses")
+                  and not ps.get("rejected"),
+                  f"phase 13d warm on rank {rank}: session {st}, store {ps}")
+        out[f"store_{phase}"] = {"session": {k: v for k, v in st.items() if k != "cache_hit_rate"},
+                                 "store": ps}
+        out["paths"][f"store_{phase}"] = kops.launch_counts()
+    check(np.array_equal(xs["warm"], xs["cold"]) and np.array_equal(xs["cold"], data["x_int"]),
+          f"phase 13d: warm solve != cold solve or != x_int on rank {rank}")
+    out["digests"]["store"] = digest(xs["warm"])
+    out["seconds"]["13d store"] = time.perf_counter() - t0
+    return out
 
 
 def split_bound(plan, d: int, table, R: int) -> tuple[float, str]:
@@ -1237,7 +1499,7 @@ def zerocopy_segment_times(a, rows_out: list, rng, device: str = "cuda:0") -> st
 
 
 def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: dict,
-                  rng, side: int = SIDE, panel_side: int = PCG_SIDE,
+                  rng, tail: dict, side: int = SIDE, panel_side: int = PCG_SIDE,
                   device: str = "cuda:0") -> tuple:
     """Phases 11 and 12 on ``a`` (``grid2d_factor(side, seed=6)``; ``b``,
     ``b_dy``, ``x_int`` and ``want`` as in main): the ranks' solves
@@ -1245,8 +1507,10 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
     split kernel against its plain version and its times
     (:func:`split_kernel_rows`, :func:`zerocopy_segment_times`), and the
     CLI under ``torch.distributed.run`` (unified, then zerocopy syncfree).
-    Returns the kernel rows of the split forms, the launches of each rank-0
-    solve by path, and phase 12's seconds."""
+    ``tail``: phase 13's inputs (:func:`tail_rank`, run by the same ranks
+    after phase 12). Returns the kernel rows of the split forms, the
+    launches of each rank-0 solve by path, phase 12's seconds and every
+    rank's results (phase 13's under ``"tail"``)."""
     import multiprocessing
     import queue
 
@@ -1266,7 +1530,9 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
         np.savez(inputs, b=b, b_dy=b_dy, x_int=x_int, want_forward=want["forward"],
                  want_transpose=want["transpose"], panel_p=panel_p,
                  want_panel_p=reference_solve(a_p, panel_p), store_bytes=store_bytes,
-                 side=side, panel_side=panel_side, device=device)
+                 side=side, panel_side=panel_side, device=device,
+                 calibration=str(Path(tmp) / "calibration.json"),
+                 plan_store=str(Path(tmp) / "plan_store"), **tail)
         procs = [spawn.Process(target=unified_rank,
                                args=(r, inputs, str(Path(tmp) / "rendezvous"), out))
                  for r in range(UNIFIED_RANKS)]
@@ -1285,6 +1551,8 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
                 p.join(60)
             check(all(p.exitcode == 0 for p in procs),
                   f"phase 11: ranks exited {[p.exitcode for p in procs]}")
+            check(Path(tmp, "calibration.json").exists(),
+                  "phase 13c: no calibration file was written")
         finally:
             for p in procs:
                 if p.is_alive():
@@ -1366,7 +1634,94 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
                 for name, row in r0["zc"].items()}}
     phase12_s = (sum(v for k, v in r0["seconds"].items() if k.startswith("12"))
                  + sub_s["12b split kernels"] + sub_s["12c cli"])
-    return rows_out, paths, phase12_s
+    return rows_out, paths, phase12_s, results
+
+
+def phase_tail(results: list, card: str, device: str = "cuda:0") -> tuple:
+    """Phase 13 from the parent: every rank's results of (a)-(d) held to
+    rank 0's (the same bits, iterations, decisions), rank 0's numbers
+    logged, and (e) ``launch/serve_solve.py`` under
+    ``torch.distributed.run`` on ``UNIFIED_RANKS`` gloo ranks on
+    ``device``. Returns rank 0's launches by path and the phase's
+    seconds."""
+    r0 = results[0]["tail"]
+    for r in results[1:]:
+        t = r["tail"]
+        check(t["digests"] == r0["digests"],
+              f"phase 13: rank {r['rank']}'s bits differ from rank 0's: "
+              f"{sorted(k for k in t['digests'] if t['digests'][k] != r0['digests'][k])}")
+        for method in ("pcg", "bicgstab"):
+            check(t[method]["n_iters"] == r0[method]["n_iters"]
+                  and t[method]["history"] == r0[method]["history"],
+                  f"phase 13b {method}: rank {r['rank']} took {t[method]['n_iters']} "
+                  f"iterations, rank 0 {r0[method]['n_iters']}")
+        for probes in (1, 0):
+            mine, first = t["auto"][probes], r0["auto"][probes]
+            check(mine["chosen"] == first["chosen"] and mine["probe_us"] == first["probe_us"]
+                  and mine["scores"] == first["scores"],
+                  f"phase 13c (probes {probes}): rank {r['rank']} chose {mine['chosen']}, "
+                  f"rank 0 {first['chosen']}")
+        check(t["calibration_saves"] == 0 and t["calibration_samples"]
+              == r0["calibration_samples"],
+              f"phase 13c: rank {r['rank']} saved the calibration file "
+              f"{t['calibration_saves']} times")
+    probed = r0["auto"][1]
+    check(r0["calibration_saves"] == probed["candidates"] > 1,
+          f"phase 13c: rank 0 saved {r0['calibration_saves']} times for "
+          f"{probed['candidates']} candidates")
+    note = (f"{UNIFIED_RANKS} ranks sharing one card through gloo; no NVLink measured; "
+            f"card {card}")
+    log(f"phase 13a SpMV at D={UNIFIED_RANKS} (n = {PCG_SIDE}^2; {note}): dyadic vector "
+        f"and (n, 8) panel bit-equal to the one-device SpMV on every rank, real within "
+        f"{max(r0['spmv_vector_rel_err'], r0['spmv_panel_rel_err']):.2e}; 3 GEMV (GEMM) "
+        f"launches and one all_reduce a matvec; {r0['ms']['spmv D=2']:.2f} ms a matvec "
+        f"on rank 0 against {r0['ms']['spmv one device']:.2f} ms on one device")
+    for method in ("pcg", "bicgstab"):
+        m = r0[method]
+        log(f"phase 13b {method} at D={UNIFIED_RANKS} (zerocopy, fused; {note}): "
+            f"{m['n_iters']} iterations (every rank), {m['seconds']:.1f} s (analysis + "
+            f"factorization + iterations), true rel residual "
+            f"{m['true_res']:.2e}, {m['matvecs']} matvecs, split launches a solve "
+            f"(forward, backward) {m['split']['forward']['fused_launches']}, "
+            f"{m['split']['backward']['fused_launches']}, exchanges "
+            f"{m['split']['forward']['exchanges']}, {m['split']['backward']['exchanges']}, "
+            f"launches {json.dumps({k: v for k, v in r0['paths'][method + '_zerocopy_fused'].items() if v})}; "
+            f"an iteration's steps (median of 3, ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in m["step_ms"].items()))
+    for probes, d in r0["auto"].items():
+        log(f"phase 13c auto at D={UNIFIED_RANKS} (probe_solves={probes}; "
+            f"grid2d_factor({AUTO_SIDE}); {note}): chose {'/'.join(d['chosen'])} "
+            f"({d['mode']}, {d['candidates']} candidates, both comm modes, every rank), "
+            f"probe overhead {d['overhead_s']:.1f} s"
+            + (", probe ms " + ", ".join(f"{k}={v / 1e3:.1f}" for k, v in
+                                          sorted(d["probe_us"].items(), key=lambda kv: kv[1]))
+               if d["probe_us"] else ""))
+    sec = r0["seconds"]
+    log(f"phase 13d plan store at D={UNIFIED_RANKS} (n = {SIDE}^2 dyadic twin; {note}): "
+        f"cold analyse+plan {sec['13d cold analyse+plan']:.1f} s, warm load+plan "
+        f"{sec['13d warm analyse+plan']:.1f} s, warm hits 1 on every rank, rank 0 alone "
+        f"saved, warm x == cold x == x_int")
+
+    # (e) the service on both ranks: every ticket exact and its solo solve's bits
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(UNIFIED_RANKS), "-m", "repro_torch.launch.serve_solve",
+           "--hot-side", str(SERVICE_SIDE), "--requests", str(SERVE_REQUESTS), "--dyadic",
+           "--solo-check", "--kernel", "fused", "--dist-backend", "gloo", "--device", device]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    for line in run.stdout.splitlines():
+        if line.startswith("[serve]"):
+            log(f"phase 13e serve ({note}) {line}")
+    check(run.returncode == 0, f"phase 13e: serve_solve under torch.distributed.run exited "
+                               f"{run.returncode}: {run.stdout[-1500:]} {run.stderr[-1500:]}")
+    sec = {**{k: v for k, v in sec.items() if not k.startswith("13d ")},
+           "13e serve": time.perf_counter() - t0}
+    log("phase 13 seconds per sub-step (rank 0): "
+        + ", ".join(f"{k}={v:.1f}" for k, v in sec.items()))
+    zeros = dict.fromkeys(next(iter(r0["paths"].values())), 0)
+    paths = {f"d2_{name}": {**zeros, **counts} for name, counts in r0["paths"].items()}
+    return paths, sum(sec.values())
 
 
 def main() -> None:
@@ -1396,6 +1751,7 @@ def main() -> None:
         from repro_torch.kernels import ops as kops
         from repro_torch.krylov import (
             matvec_lower, solve_ic0_pcg, solve_ilu0_bicgstab, spd_lower_from_triangular,
+            symmetric_full_csr,
         )
         from repro_torch.launch.serve_solve import dyadic
         from repro_torch.sparse import suite
@@ -1961,6 +2317,7 @@ def main() -> None:
     path_launches8 = {}
     spd_plan = build_plan(a_spd, 1, SolverConfig())
     spd_store = spd_plan.diag.nbytes + spd_plan.tiles.nbytes
+    bicgstab_iters = {}
     for kernel in ("cuda", "fused", "fused_streamed"):
         kops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1974,6 +2331,7 @@ def main() -> None:
         check(streamed == [kernel == "fused_streamed"] * 2,
               f"ILU(0)-BiCGStab ({kernel}): plans report streamed {streamed}")
         path_launches8[kernel] = blaunch
+        bicgstab_iters[kernel] = bres.n_iters
         btrue = float(np.linalg.norm(b_spd - matvec_lower(a_spd, bres.x))
                       / np.linalg.norm(b_spd))
         check(bres.converged and btrue <= 10 * tol,
@@ -2224,15 +2582,32 @@ def main() -> None:
     service_launches = phase_service(a, a_dy, x_int, plans10, rng)
 
     # 11. multi-device comm="unified": UNIFIED_RANKS gloo ranks on this card
-    phase_start["11+12 unified, zerocopy"] = time.perf_counter()
+    phase_start["11-13 unified, zerocopy, tail (ranks)"] = time.perf_counter()
     # 12. multi-device comm="zerocopy" and syncfree, run by phase 11's ranks
-    split_rows, unified_paths, phase12_s = phase_unified(
+    # 13. the multi-device tail, run by the same ranks after phase 12:
+    # its inputs (the one-device runs' iterations, scipy's x, the vectors)
+    a_auto = suite.grid2d_factor(AUTO_SIDE, seed=6)
+    b_auto = rng.uniform(-1, 1, a_auto.n)
+    n_spd = a_spd.n
+    tail = {"b_spd": b_spd, "tol": tol, "pcg_iters": fres.n_iters,
+            "bicgstab_iters": bicgstab_iters["fused"],
+            "x_spd": spla.spsolve(to_scipy(symmetric_full_csr(a_spd)).tocsc(), b_spd),
+            "v_dyadic": rng.integers(-4, 5, n_spd).astype(np.float32),
+            "v8_dyadic": rng.integers(-4, 5, (n_spd, 8)).astype(np.float32),
+            "v_real": rng.uniform(-1, 1, n_spd).astype(np.float32),
+            "v8_real": rng.uniform(-1, 1, (n_spd, 8)).astype(np.float32),
+            "b_auto": b_auto, "want_auto": reference_solve(a_auto, b_auto)}
+    split_rows, unified_paths, phase12_s, rank_results = phase_unified(
         a, b, b_dy, x_int, want, plan.diag.nbytes + plan.tiles.nbytes,
         {"streamed": stiming["forward"][2], "resident": ftiming["forward"][2],
          "switch": timing["forward"][2], "syncfree_dense": sf_ms["dense"]["forward"][1],
-         "syncfree_frontier": sf_ms["frontier"]["forward"][1]}, rng)
+         "syncfree_frontier": sf_ms["frontier"]["forward"][1]}, rng, tail)
     log(f"phase 12 zerocopy and multi-rank syncfree: {phase12_s:.1f} s of phase 11's "
         f"(its ranks, split-kernel check and CLI)")
+    phase_start["13 tail (report, service)"] = time.perf_counter()
+    tail_paths, phase13_s = phase_tail(rank_results, card)
+    log(f"phase 13 the multi-device tail: {phase13_s:.1f} s (its share of the ranks, and "
+        f"the service)")
 
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
@@ -2365,7 +2740,7 @@ def main() -> None:
     paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
              "syncfree_pcg": ypcg_launches, "service": service_launches,
              **{f"bicgstab_{k}": v for k, v in path_launches8.items()},
-             **path_launches9, **unified_paths}
+             **path_launches9, **unified_paths, **tail_paths}
     for row in rows_out:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     torch.cuda.synchronize()

@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.costmodel import FLOPS_PER_BYTE, calibrate_weights
 from repro_torch.core.solver import (
     Plan,
@@ -163,9 +164,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def tune(a, options, device=None, *, part=None, bs=None):
+def tune(a, options, device=None, *, part=None, bs=None, group=None):
     """Resolve ``options``' auto dimensions for matrix ``a`` on one device
-    (``None``: the card).
+    (``None``: the card), or on every rank of ``group`` (a
+    ``torch.distributed`` group, one rank per device: the candidates are
+    ``D``-device plans, ``D`` the group's size).
 
     Returns ``(config, plan, decision, solver)`` — the winning concrete
     :class:`SolverConfig`, its plan (built on the shared partition), the
@@ -177,13 +180,22 @@ def tune(a, options, device=None, *, part=None, bs=None):
     uploading, and on the card the first launch: ``compile_us``), once more
     as a warm-up, then ``probe_solves`` times, each between two
     synchronizations; ``probe_us`` is the median.
+
+    Every rank of a group reaches the same decision: rank 0's candidate
+    list and modelled scores are broadcast (weights measured on the card
+    may differ between ranks), and after the probes each candidate's
+    median and build time are the group's largest (the group's solve takes
+    as long as its slowest rank), one ``all_reduce``. Each rank records
+    those group times into its calibration store, so the stores stay
+    alike; only rank 0's writes its file.
     """
     from repro_torch.core.blocking import build_blocks, pad_rhs
     from repro_torch.core.partition import make_partition
     from repro_torch.core.solver import build_plan
 
     dev = resolve_device(device)
-    D = 1
+    D = 1 if group is None else comm.size(group)
+    rank = 0 if group is None else comm.rank(group)
     if bs is None:
         bs = build_blocks(a, options.block_size)
     if part is None:
@@ -195,17 +207,26 @@ def tune(a, options, device=None, *, part=None, bs=None):
     with get_tracer().span("sptrsv.autotune", n_candidates=len(combos),
                            probe_solves=options.probe_solves) as tspan:
         for combo in combos:
-            sched, comm, kernel = combo
-            if kernel == "fused_streamed" and (sched, comm, "fused") in plans:
+            sched, comm_mode, kernel = combo
+            if kernel == "fused_streamed" and (sched, comm_mode, "fused") in plans:
                 # never probe the same executor twice: syncfree runs both fused
                 # backends as the same frontier form, and plain "fused" above
                 # the stream limit already runs the streamed megakernel
                 if sched == "syncfree" or fused_streaming(
-                        plans[(sched, comm, "fused")], options.rhs_hint):
+                        plans[(sched, comm_mode, "fused")], options.rhs_hint):
                     continue
-            cfg = options.to_config(sched=sched, comm=comm, kernel=kernel)
+            cfg = options.to_config(sched=sched, comm=comm_mode, kernel=kernel)
             plans[combo] = build_plan(a, D, cfg, part=part, device=dev)
             scores[combo] = estimate_plan_cost(plans[combo], R=options.rhs_hint, device=dev)
+        if group is not None:
+            # one candidate list and one set of scores on every rank: rank 0's
+            combos, scores = comm.broadcast_object(
+                ([c for c in combos if c in plans], scores), group)
+            for combo in combos:
+                if combo not in plans:
+                    plans[combo] = build_plan(a, D, options.to_config(
+                        sched=combo[0], comm=combo[1], kernel=combo[2]), part=part,
+                        device=dev)
         combos = [c for c in combos if c in plans]
 
         probe_us: dict = {}
@@ -223,7 +244,7 @@ def tune(a, options, device=None, *, part=None, bs=None):
                                        comm=combo[1], kernel=combo[2]) as sp:
                     _sync(dev)
                     t_c = time.perf_counter()
-                    solver = solvers[combo] = Solver(plans[combo], dev)
+                    solver = solvers[combo] = Solver(plans[combo], dev, group)
                     solver.solve_blocks(b_blocks)
                     _sync(dev)
                     compile_us[combo] = (time.perf_counter() - t_c) * 1e6
@@ -238,6 +259,12 @@ def tune(a, options, device=None, *, part=None, bs=None):
                     times.sort()
                     probe_us[combo] = times[len(times) // 2] * 1e6
                     sp.set(probe_us=probe_us[combo], compile_us=compile_us[combo])
+            if group is not None:  # the group's times: its slowest rank's
+                worst = comm.group_max([[probe_us[c], compile_us[c]] for c in combos],
+                                       group, dev)
+                probe_us = {c: float(w[0]) for c, w in zip(combos, worst)}
+                compile_us = {c: float(w[1]) for c, w in zip(combos, worst)}
+            for combo in combos:
                 # the measured solve is a sample of the cost model's compute
                 # term: keep it for probe-free sessions
                 su, tu, tf = plan_work_units(plans[combo], R)
@@ -245,7 +272,7 @@ def tune(a, options, device=None, *, part=None, bs=None):
                     backend=ops.executor_backend(combo[2], dev), B=plans[combo].bs.B,
                     device=dev, signature=_calibration.probe_signature(plans[combo], R, dev),
                     solve_units=su, tile_units=tu, tile_flop_units=tf, R=R,
-                    measured_us=probe_us[combo],
+                    measured_us=probe_us[combo], persist=rank == 0,
                 )
             chosen = min(combos, key=lambda c: probe_us[c])
             mode = "probed"

@@ -49,7 +49,6 @@ from repro_torch.core.solver import (
     Plan, Solver, SolverConfig, build_plan, dispatch_stats, refresh_plan,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import NOT_PORTED
 from repro_torch.obs.metrics import MetricsRegistry, get_registry, record_plan_metrics
 from repro_torch.obs.trace import get_tracer
 from repro_torch.sparse.matrix import CSR
@@ -129,9 +128,11 @@ class SpTRSVContext:
     bits on every rank, checked once per plan with one collective on its
     digest) and runs its own device's tables, and every solve returns the
     whole ``x`` on every rank (:class:`repro_torch.core.solver.Solver`):
-    ``comm="zerocopy"`` and ``"unified"``, every scheduler and backend. At
-    more than one device ``"auto"`` options and a ``plan_store`` raise
-    ``NotImplementedError`` (ROADMAP.md).
+    ``comm="zerocopy"`` and ``"unified"``, every scheduler and backend.
+    ``"auto"`` options tune on every rank to one decision
+    (:func:`repro_torch.api.autotune.tune`); with a ``plan_store`` every rank
+    loads, the ranks agree on hit or miss with one collective, and only
+    rank 0 saves (the others wait for it).
     ``options`` set the session default; ``analyse`` and
     ``factorize`` accept per-call overrides. Counters (:meth:`stats`) audit
     the amortization: ``analyses`` counts real partition constructions
@@ -158,9 +159,6 @@ class SpTRSVContext:
         self.device = resolve_device(device)
         self.group = group
         self.n_devices = 1 if group is None else comm.size(group)
-        if self.n_devices > 1 and plan_store is not None:
-            raise NotImplementedError(f"a plan store with {self.n_devices} devices is "
-                                      f"{NOT_PORTED}")
         self.options = as_options(options)
         self.registry = registry if registry is not None else get_registry()
         self.plan_store = plan_store
@@ -185,13 +183,31 @@ class SpTRSVContext:
 
     def _store_save(self, handle: SpTRSVHandle, plan: Plan) -> None:
         """Persist a freshly built plan; a read-only or full store degrades
-        to no persistence, never to a failed solve."""
+        to no persistence, never to a failed solve. In a group only rank 0
+        writes, and every rank waits for it, so a later session on any rank
+        finds the file."""
         if self.plan_store is None:
             return
-        try:
-            self.plan_store.save(plan, pattern=handle.pattern, options=handle.options)
-        except Exception:
-            self._count("plan_store_save_errors")
+        if self.group is None or comm.rank(self.group) == 0:
+            try:
+                self.plan_store.save(plan, pattern=handle.pattern, options=handle.options)
+            except Exception:
+                self._count("plan_store_save_errors")
+        comm.barrier(self.group)
+
+    def _store_load(self, a: CSR, opts: PlanOptions, *, transpose: bool = False) -> Plan | None:
+        """The stored plan for ``a`` under ``opts``, or ``None``. In a group
+        every rank loads and the ranks agree with one collective (the
+        smallest hit flag): a plan that one rank misses is a miss on all, so
+        every rank takes the same branch; a hit is checked like a built
+        plan (:meth:`_agreed`)."""
+        plan = self.plan_store.load(a, self.n_devices, opts, transpose=transpose)
+        if self.group is None:
+            return plan
+        hit = torch.tensor([int(plan is not None)], dtype=torch.int32, device=self.device)
+        if not int(comm.all_reduce_min_(hit, self.group)):
+            return None
+        return self._agreed(plan)
 
     # -- analyse ----------------------------------------------------------
 
@@ -238,9 +254,6 @@ class SpTRSVContext:
         :meth:`factorize`.
         """
         opts = as_options(options) if options is not None else self.options
-        if opts.is_auto and self.n_devices > 1:
-            raise NotImplementedError(f"auto options with {self.n_devices} devices are "
-                                      f"{NOT_PORTED}")
         pat = pattern_key(a)
         key = (pat, opts, tag)
         hit = self._entries.get(key)
@@ -256,7 +269,7 @@ class SpTRSVContext:
                                n_devices=self.n_devices) as span:
             if (self.plan_store is not None
                     and self._symbolic_key(pat, opts) not in self._symbolic):
-                plan = self.plan_store.load(a, self.n_devices, opts)
+                plan = self._store_load(a, opts)
             stored = plan is not None
             if stored:
                 # a store hit: the symbolic analysis and the resolved config
@@ -279,7 +292,8 @@ class SpTRSVContext:
                     self._count("auto_reuses")
                 else:
                     config, plan, decision, solver = autotune.tune(
-                        a, opts, self.device, bs=sym.bs, part=sym.part)
+                        a, opts, self.device, bs=sym.bs, part=sym.part, group=self.group)
+                    plan = self._agreed(plan)
                     sym.tuned[opts] = (config, decision)
                 span.set(sched=config.sched, comm=config.comm,
                          kernel=config.kernel_backend or "default")
@@ -396,8 +410,8 @@ class SpTRSVContext:
         if transpose:
             if handle.tplan is None:
                 if self.plan_store is not None:
-                    handle.tplan = self.plan_store.load(
-                        handle.matrix, self.n_devices, handle.options, transpose=True)
+                    handle.tplan = self._store_load(handle.matrix, handle.options,
+                                                    transpose=True)
                 if handle.tplan is not None:
                     self._count("plan_store_hits")
                 else:

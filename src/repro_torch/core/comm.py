@@ -6,14 +6,19 @@ port runs one process per device, each a rank of a process group, and
 combines them with ``all_reduce(SUM)``: the unified executors' dense
 ``delta`` sum, the zerocopy executors' packed boundary rows, the syncfree
 sweep's values and counts (the rows left over the group ride with the
-counts), and every solve's gather. This module names no backend and never
-picks a device: the caller creates the group, ``nccl`` where each rank has
-a card of its own, ``gloo`` for CPU tensors or several ranks sharing one
-card (gloo stages CUDA tensors through host memory), and hands it to the
-executor (``core.solver.Solver(group=...)``).
+counts), every solve's gather and the SpMV's partial products. The
+sessions above the executors agree through the others: the largest (plan
+digests, a Krylov loop's residuals, probe times), the smallest (plan-store
+hits), rank 0's object (the tuner's scores, the engine's batches) and a
+barrier (after rank 0 writes a stored plan). This module names no backend
+and never picks a device: the caller creates the group, ``nccl`` where
+each rank has a card of its own, ``gloo`` for CPU tensors or several ranks
+sharing one card (gloo stages CUDA tensors through host memory), and hands
+it to the executor (``core.solver.Solver(group=...)``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -43,7 +48,47 @@ all_reduce_sum_.calls = 0
 
 def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise largest ``t`` over the ranks of ``group``, in place
-    (the session's check that every rank built the same plan; not counted
-    with the exchanges)."""
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    (the session's agreements: the plan digests, the stop test of a Krylov
+    loop, the auto-tuner's probe times; not counted with the exchanges).
+    A no-op for ``group=None``."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
+
+
+def all_reduce_min_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise smallest ``t`` over the ranks of ``group``, in place
+    (whether every rank found a stored plan). A no-op for ``group=None``."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t
+
+
+def group_max(values, group, device) -> np.ndarray:
+    """The elementwise largest of ``values`` (array-like of floats) over
+    the ranks of ``group``, as float64 numpy: one ``all_reduce`` of a
+    tensor on ``device`` (the session's, so ``nccl`` gets a card tensor).
+    Returns ``values`` as an array for ``group=None``."""
+    a = np.array(values, np.float64)  # a copy: the reduction writes in place
+    if group is None:
+        return a
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(device)
+    return all_reduce_max_(t, group).cpu().numpy().reshape(a.shape)
+
+
+def broadcast_object(obj, group):
+    """Rank 0's ``obj`` (any picklable object) on every rank of ``group``;
+    the other ranks' ``obj`` is ignored. Returns ``obj`` for
+    ``group=None``."""
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def barrier(group) -> None:
+    """Wait until every rank of ``group`` has called it. A no-op for
+    ``group=None``."""
+    if group is not None:
+        dist.barrier(group=group)

@@ -1124,7 +1124,7 @@ def _run_syncfree(s: _SyncfreeSchedule, diag: torch.Tensor, tiles: torch.Tensor,
     return x
 
 
-def _check_executable(plan: Plan, group) -> int:
+def check_executable(plan: Plan, group) -> int:
     """This process's device index in ``plan``. Raises ``ValueError`` for a
     multi-device plan without a ``group`` of ``n_devices`` ranks."""
     D = plan.n_devices
@@ -1182,7 +1182,7 @@ class Solver:
     def __init__(self, plan: Plan, device: str | torch.device | None = None, group=None):
         self.device = resolve_device(device)
         self.backend = ops.executor_backend(plan.config.kernel_backend, self.device)
-        self.rank = _check_executable(plan, group)
+        self.rank = check_executable(plan, group)
         self.group = group
         self.plan = plan
         self.n_solves = self.exchanges = 0

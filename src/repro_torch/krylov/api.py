@@ -16,6 +16,12 @@ solves per application, two applications per iteration. The U sweep is a
 transpose solve of the reversed ``U^T``, so every backend serves it as a
 lower solve.
 
+Every entry point takes ``group=`` (a ``torch.distributed`` group, one rank
+per device; or a ``context`` built with one): the plans are D-device plans,
+the SpMV and the solves exchange over the group and give every rank the
+same bits, and the loop runs replicated on every rank, its stop test on the
+group's largest residual, so all ranks take the same iterations.
+
 Preconditioners are durable objects: :class:`IC0Preconditioner` /
 :class:`ILU0Preconditioner` support ``refresh(new_matrix)``, which re-runs
 the numeric factorization on new values of the SAME pattern and re-arms the
@@ -23,10 +29,13 @@ executors in place.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.api import PlanOptions, SpTRSVContext, as_options
+from repro_torch.core import comm
 from repro_torch.core.solver import SolverConfig
 from repro_torch.krylov.bicgstab import bicgstab
 from repro_torch.krylov.cg import KrylovResult, pcg
@@ -35,10 +44,17 @@ from repro_torch.krylov.spmv import SpMV
 from repro_torch.sparse.matrix import CSR
 
 
-def _context(device, config, context) -> SpTRSVContext:
+def _context(device, config, context, group=None) -> SpTRSVContext:
     if context is not None:
         return context
-    return SpTRSVContext(device=device, options=as_options(config))
+    return SpTRSVContext(device=device, options=as_options(config), group=group)
+
+
+def _agree(ctx: SpTRSVContext):
+    """The stop test's agreement for ``ctx``'s group: the group's max of the
+    relative residuals, one ``all_reduce`` (of a value per panel column) an
+    iteration; the residuals themselves without a group."""
+    return functools.partial(comm.group_max, group=ctx.group, device=ctx.device)
 
 
 class IC0Preconditioner:
@@ -105,7 +121,7 @@ class ILU0Preconditioner:
 def make_ic0_preconditioner(
     a_lower: CSR, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None,
-    context: SpTRSVContext | None = None,
+    context: SpTRSVContext | None = None, group=None,
 ) -> tuple:
     """IC(0)-factorize and wire the solve pair ``M^{-1} r = L^-T L^-1 r``.
 
@@ -114,7 +130,7 @@ def make_ic0_preconditioner(
     ``backward`` executors (with ``n_solves`` audit counters), ``context``,
     ``handle`` and ``preconditioner``.
     """
-    ctx = _context(device, config, context)
+    ctx = _context(device, config, context, group)
     pre = IC0Preconditioner(ctx, a_lower)
     return pre, {
         "factor": pre.factor,
@@ -127,7 +143,7 @@ def make_ic0_preconditioner(
 def make_ilu0_preconditioner(
     a_full: CSR, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None,
-    context: SpTRSVContext | None = None,
+    context: SpTRSVContext | None = None, group=None,
 ) -> tuple:
     """ILU(0)-factorize a full CSR and wire ``M^{-1} r = U^-1 L^-1 r``.
 
@@ -135,7 +151,7 @@ def make_ilu0_preconditioner(
     ``handles`` holds the ``lower`` and ``upper`` factors, the ``forward`` (L)
     and ``backward`` (U) executors, ``context`` and ``preconditioner``.
     """
-    ctx = _context(device, config, context)
+    ctx = _context(device, config, context, group)
     pre = ILU0Preconditioner(ctx, a_full)
     return pre, {
         "lower": pre.lower, "upper": pre.upper,
@@ -148,12 +164,12 @@ def make_ilu0_preconditioner(
 def solve_cg(
     a_lower: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None, tol: float = 1e-8,
-    maxiter: int = 2000, context: SpTRSVContext | None = None,
+    maxiter: int = 2000, context: SpTRSVContext | None = None, group=None,
 ) -> KrylovResult:
     """Unpreconditioned CG baseline (SpMV only, no triangular solves)."""
-    ctx = _context(device, config, context)
-    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device)
-    res = pcg(spmv.matvec, b, tol=tol, maxiter=maxiter)
+    ctx = _context(device, config, context, group)
+    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device, ctx.group)
+    res = pcg(spmv.matvec, b, tol=tol, maxiter=maxiter, agree=_agree(ctx))
     res.info.update(spmv=spmv, context=ctx)
     return res
 
@@ -161,7 +177,7 @@ def solve_cg(
 def solve_ic0_pcg(
     a_lower: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None, tol: float = 1e-8,
-    maxiter: int = 2000, context: SpTRSVContext | None = None,
+    maxiter: int = 2000, context: SpTRSVContext | None = None, group=None,
 ) -> KrylovResult:
     """PCG with an IC(0) preconditioner — the paper's amortized regime.
 
@@ -171,10 +187,11 @@ def solve_ic0_pcg(
     sweeps solve against it every iteration. ``b`` may be ``(n,)`` or an
     ``(n, R)`` panel.
     """
-    ctx = _context(device, config, context)
-    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device)
+    ctx = _context(device, config, context, group)
+    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device, ctx.group)
     psolve, handles = make_ic0_preconditioner(a_lower, context=ctx)
-    res = pcg(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter)
+    res = pcg(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter,
+              agree=_agree(ctx))
     res.info.update(spmv=spmv, **handles)
     return res
 
@@ -182,15 +199,16 @@ def solve_ic0_pcg(
 def solve_ilu0_bicgstab(
     a_lower: CSR, b: np.ndarray, *, device: str | torch.device | None = None,
     config: SolverConfig | PlanOptions | None = None, tol: float = 1e-8,
-    maxiter: int = 2000, context: SpTRSVContext | None = None,
+    maxiter: int = 2000, context: SpTRSVContext | None = None, group=None,
 ) -> KrylovResult:
     """BiCGStab with an ILU(0) preconditioner built from the full symmetric
     expansion of ``a_lower``. The unit-lower factor shares ``a_lower``'s
     pattern (and therefore its analysis); the reversed U's transpose plan
     is a lazy extension of a handle on that same analysis."""
-    ctx = _context(device, config, context)
-    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device)
+    ctx = _context(device, config, context, group)
+    spmv = SpMV(ctx.plan(ctx.analyse(a_lower)), ctx.device, ctx.group)
     psolve, handles = make_ilu0_preconditioner(symmetric_full_csr(a_lower), context=ctx)
-    res = bicgstab(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter)
+    res = bicgstab(spmv.matvec, b, psolve=psolve, tol=tol, maxiter=maxiter,
+                   agree=_agree(ctx))
     res.info.update(spmv=spmv, **handles)
     return res

@@ -22,8 +22,10 @@ def bicgstab(
     tol: float = 1e-8,
     maxiter: int = 1000,
     x0: np.ndarray | None = None,
+    agree: Callable[[np.ndarray], np.ndarray] | None = None,
 ) -> KrylovResult:
-    """Solve ``A x = b`` (A square, possibly nonsymmetric) per RHS column."""
+    """Solve ``A x = b`` (A square, possibly nonsymmetric) per RHS column;
+    ``agree`` as in :func:`repro_torch.krylov.cg.pcg`."""
     b = np.asarray(b, np.float64)
     x = np.zeros_like(b) if x0 is None else np.asarray(x0, np.float64).copy()
     r = b - np.asarray(matvec(x), np.float64) if x0 is not None else b.copy()
@@ -48,7 +50,7 @@ def bicgstab(
         x = x + alpha * ph + omega * sh
         r = s - omega * t
         n_iters += 1
-        relres = _norm(r) / bnorm
+        relres = _norm(r) / bnorm if agree is None else agree(_norm(r) / bnorm)
         history.append(float(np.max(relres)))
         if np.all(relres <= tol):
             return KrylovResult(x=x, n_iters=n_iters, relres=relres,

@@ -46,8 +46,14 @@ def pcg(
     tol: float = 1e-8,
     maxiter: int = 1000,
     x0: np.ndarray | None = None,
+    agree: Callable[[np.ndarray], np.ndarray] | None = None,
 ) -> KrylovResult:
-    """Solve SPD ``A x = b`` to ``||r|| <= tol * ||b||`` per RHS column."""
+    """Solve SPD ``A x = b`` to ``||r|| <= tol * ||b||`` per RHS column.
+
+    ``agree`` maps this process's relative residuals to the ones the stop
+    test reads: on the ranks of a multi-device session, the group's
+    elementwise max (:func:`repro_torch.core.comm.group_max`), so no rank
+    stops alone and leaves the others in the next collective."""
     b = np.asarray(b, np.float64)
     x = np.zeros_like(b) if x0 is None else np.asarray(x0, np.float64).copy()
     r = b - np.asarray(matvec(x), np.float64) if x0 is not None else b.copy()
@@ -64,7 +70,7 @@ def pcg(
         x = x + alpha * p
         r = r - alpha * ap
         n_iters += 1
-        relres = _norm(r) / bnorm
+        relres = _norm(r) / bnorm if agree is None else agree(_norm(r) / bnorm)
         history.append(float(np.max(relres)))
         if np.all(relres <= tol):
             return KrylovResult(x=x, n_iters=n_iters, relres=relres,

@@ -9,15 +9,20 @@ A's lower-triangular half already holds on the device:
 
 The products go through the block GEMV/GEMM kernels (rank dispatch in
 :mod:`repro_torch.kernels.ops`), the scatters through ``index_add_``.
-Single device only; the multi-device exchange is not ported yet.
+
+On a ``torch.distributed`` group of D ranks (the plan's ``n_devices``), each
+rank holds its own device's tiles and counts the diagonal blocks of the
+rows it owns; one ``all_reduce(SUM)`` a matvec (the reference's ``psum``)
+gives every rank the whole ``y``, the same bits on each.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.blocking import pad_rhs, unpad_x
-from repro_torch.core.solver import Plan
+from repro_torch.core.solver import Plan, check_executable
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -32,31 +37,35 @@ def _symmetrize_diag(diag: np.ndarray) -> np.ndarray:
 
 
 class SpMV:
-    """``y = A v`` for symmetric A given the plan of its lower half."""
+    """``y = A v`` for symmetric A given the plan of its lower half.
 
-    def __init__(self, plan: Plan, device: str | torch.device | None = None):
+    ``group``: the ``torch.distributed`` group of a multi-device plan, one
+    rank per device (a D-device plan without a group of D ranks raises
+    ``ValueError``). ``n_matvecs`` counts calls; ``exchanges`` the
+    ``all_reduce`` calls (one a matvec with a group, else none)."""
+
+    def __init__(self, plan: Plan, device: str | torch.device | None = None, group=None):
         if plan.transpose:
             raise ValueError("SpMV needs the plan of A itself, not a transpose plan")
-        if plan.n_devices != 1:
-            raise NotImplementedError(
-                f"multi-device SpMV (n_devices={plan.n_devices}) is {ops.NOT_PORTED}")
+        self.rank = check_executable(plan, group)
+        self.group = group
         self.plan = plan
         self.device = resolve_device(device)
         # a fused plan's solves are megakernel launches; its matvec keeps the
         # per-tile GEMV kernels
         self.backend = ops.per_op_backend(plan.config.kernel_backend, self.device)
-        self.n_matvecs = 0
-        nb = plan.bs.nb
+        self.n_matvecs = self.exchanges = 0
+        nb, r = plan.bs.nb, self.rank
 
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-        self._tiles = dev(plan.tiles[0])
-        self._tiles_t = dev(plan.tiles[0].transpose(0, 2, 1))
-        self._trow = dev(plan.tile_row[0].astype(np.int64))
-        self._tcol = dev(plan.tile_col[0].astype(np.int64))
-        owner_mask = np.zeros(nb + 1, np.float32)
-        owner_mask[:nb] = 1.0  # every block row is local; the pad row is not
+        self._tiles = dev(plan.tiles[r])
+        self._tiles_t = dev(plan.tiles[r].transpose(0, 2, 1))
+        self._trow = dev(plan.tile_row[r].astype(np.int64))
+        self._tcol = dev(plan.tile_col[r].astype(np.int64))
+        owner_mask = np.zeros(nb + 1, np.float32)  # the pad row adds nothing
+        owner_mask[:nb] = plan.part.owner == r  # each diagonal block counted once
         self._owner_mask = dev(owner_mask)
         self._sym_diag = dev(_symmetrize_diag(plan.diag))
 
@@ -66,14 +75,18 @@ class SpMV:
         v = v_blocks.to(self.device, torch.float32)
         v_pad = torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
         y = ops.batched_block_gemv(self._sym_diag, v_pad, backend=self.backend)
-        y = y * ops.bcast_trailing(self._owner_mask, y)  # the pad row adds nothing
+        y = y * ops.bcast_trailing(self._owner_mask, y)
         prods = ops.batched_block_gemv(self._tiles, v_pad[self._tcol],
                                        backend=self.backend)
         y.index_add_(0, self._trow, prods)  # pad tiles are zero -> inert
         mirrored = ops.batched_block_gemv(self._tiles_t, v_pad[self._trow],
                                           backend=self.backend)
         y.index_add_(0, self._tcol, mirrored)
-        return y[: self.plan.bs.nb]
+        y = y[: self.plan.bs.nb]
+        if self.group is not None:
+            comm.all_reduce_sum_(y, self.group)
+            self.exchanges += 1
+        return y
 
     def matvec(self, v: np.ndarray) -> np.ndarray:
         """v: (n,) or (n, R) -> A v, same shape, as numpy."""

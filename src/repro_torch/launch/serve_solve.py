@@ -17,6 +17,18 @@ partial sum of the solve is then exact in float32, so any correct order of
 the work gives ``x`` bit for bit, and each ticket is checked for exactly
 that.
 
+Multi-device (D devices, one process each) runs under
+``torch.distributed.run``, as ``launch/solve.py`` does::
+
+    python -m torch.distributed.run --nproc-per-node D \
+        -m repro_torch.launch.serve_solve [--dist-backend gloo] [...]
+
+Rank 0 builds the mix, takes the requests and prints the report; every
+other rank follows its batches (:meth:`repro_torch.service.SolveEngine.follow`).
+
+``--solo-check`` serves every request once more alone (a batch of one) and
+requires each ticket of the mix to equal its solo solve bit for bit.
+
 Run it twice against the same ``--plan-store`` directory: the first (cold)
 run pays one symbolic analysis per pattern and saves the plans; the second
 (warm) run serves the same mix with **zero** symbolic analyses, which
@@ -101,7 +113,14 @@ def parse_args(argv: list | None = None) -> argparse.Namespace:
     ap.add_argument("--levels", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' runs the plain versions)")
+                    help="torch device (default: the card, cuda:{LOCAL_RANK} under "
+                         "torch.distributed.run; 'cpu' runs the plain versions)")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend when WORLD_SIZE > 1: nccl (one card "
+                         "per rank) or gloo (ranks sharing a card, or the CPU)")
+    ap.add_argument("--solo-check", action="store_true",
+                    help="serve each request again alone; every ticket of the mix "
+                         "must equal its solo solve bit for bit")
     ap.add_argument("--max-batch", type=int, default=8,
                     help="coalesced RHS columns per served panel")
     ap.add_argument("--max-wait-ms", type=float, default=0.0,
@@ -149,12 +168,20 @@ class Served:
     exit_code: int
 
 
-def serve(args: argparse.Namespace) -> Served:
-    """Serve the mix ``args`` describe; print the serving numbers."""
-    if args.trace:
-        obs_trace.configure_tracing(args.trace)
+def _engine(args: argparse.Namespace, group) -> SolveEngine:
     opts = PlanOptions(block_size=args.block_size, sched=args.sched,
                        comm=args.comm, kernel=args.kernel)
+    return SolveEngine(device=args.device, options=opts,
+                       plan_store=args.plan_store, max_batch=args.max_batch,
+                       max_wait_s=args.max_wait_ms / 1e3,
+                       cache_capacity=args.cache_capacity, group=group)
+
+
+def serve(args: argparse.Namespace, group=None) -> Served:
+    """Serve the mix ``args`` describe; print the serving numbers. With a
+    ``group`` this is rank 0, and the other ranks run :func:`follow`."""
+    if args.trace:
+        obs_trace.configure_tracing(args.trace)
     mats = build_patterns(args.patterns, args.n, args.levels, args.seed, args.hot_side)
     if args.dyadic:
         mats = [dyadic(m, seed=args.seed + p) for p, m in enumerate(mats)]
@@ -170,10 +197,9 @@ def serve(args: argparse.Namespace) -> Served:
             rhs.append(rng.uniform(-1, 1, mats[p].n).astype(np.float32))
             answers.append(None)
 
-    engine = SolveEngine(device=args.device, options=opts, plan_store=args.plan_store,
-                         max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3,
-                         cache_capacity=args.cache_capacity)
-    print(f"[serve] device={engine.device} patterns={[m.n for m in mats]} "
+    engine = _engine(args, group)
+    print(f"[serve] device={engine.device} D={engine.ctx.n_devices} "
+          f"patterns={[m.n for m in mats]} "
           f"requests={args.requests} hot={args.hot_fraction:.0%} "
           f"tenants={args.tenants} max_batch={args.max_batch} "
           f"kernel={args.kernel} dyadic={args.dyadic} "
@@ -183,6 +209,7 @@ def serve(args: argparse.Namespace) -> Served:
                for i, (p, b) in enumerate(zip(mix, rhs))]
     served = engine.drain()
     wall_s = time.perf_counter() - t0
+    st = engine.stats()  # the mix's counters, before any solo solve
 
     exit_code, worst = 0, 0.0
     for t, want in zip(tickets, answers):
@@ -190,13 +217,19 @@ def serve(args: argparse.Namespace) -> Served:
         if want is not None and not np.array_equal(x, want):
             print(f"[serve] FAIL: request {t.request.id} is not the exact solution")
             exit_code = 1
+        if args.solo_check:
+            solo = engine.submit("solo", t.request.matrix, t.request.rhs)
+            engine.drain()
+            if not np.array_equal(x, solo.result(timeout=0)):
+                print(f"[serve] FAIL: request {t.request.id} differs from its solo solve")
+                exit_code = 1
         ref = reference_solve(t.request.matrix, t.request.rhs)
         worst = max(worst, float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-30)))
     if not worst <= args.tol:
         print(f"[serve] FAIL: rel.err {worst:.2e} against scipy > --tol {args.tol}")
         exit_code = 1
 
-    st = engine.stats()
+    engine.close()
     sess, ps = st["session"], st.get("plan_store", {})
     width = st["coalesced_columns"] / st["batches"] if st["batches"] else 0.0
     lat = sorted(t.latency_s for t in tickets)
@@ -232,8 +265,25 @@ def serve(args: argparse.Namespace) -> Served:
                   wall_s=wall_s, max_rel_err=worst, exit_code=exit_code)
 
 
+def follow(args: argparse.Namespace, group) -> int:
+    """A rank other than 0: serve rank 0's batches until it closes."""
+    engine = _engine(args, group)
+    engine.follow()
+    return 0
+
+
 def main(argv: list | None = None) -> int:
-    return serve(parse_args(argv)).exit_code
+    from repro_torch.launch.solve import join_group
+
+    args = parse_args(argv)
+    group, rank = join_group(args)
+    try:
+        return serve(args, group).exit_code if rank == 0 else follow(args, group)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -105,7 +105,7 @@ def parse_args(argv: list | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _join_group(args) -> tuple:
+def join_group(args) -> tuple:
     """The process group (``None`` for one process) and this rank, from the
     environment ``torch.distributed.run`` sets; rank 0 builds the kernels
     first when the ranks run on a card."""
@@ -131,7 +131,7 @@ def _join_group(args) -> tuple:
 
 def main(argv: list | None = None) -> int:
     args = parse_args(argv)
-    group, rank = _join_group(args)
+    group, rank = join_group(args)
     try:
         return _main(args, group, rank)
     finally:

@@ -93,9 +93,11 @@ class CalibrationStore:
 
     def record(self, *, backend: str, B: int, device, signature: str,
                solve_units: float, tile_units: float, tile_flop_units: float,
-               R: int, measured_us: float) -> None:
+               R: int, measured_us: float, persist: bool = True) -> None:
         """Install one measured sample (replacing any prior sample with the
-        same signature) and persist when the store has a path."""
+        same signature) and persist when the store has a path and
+        ``persist`` (false on the ranks of a group but rank 0, so two ranks
+        never write one file)."""
         sample = {
             "su": float(solve_units), "tu": float(tile_units),
             "tf": float(tile_flop_units), "R": int(R),
@@ -105,7 +107,7 @@ class CalibrationStore:
         with self._lock:
             self._samples.setdefault(key, {})[signature] = sample
             self._fits.pop(key, None)
-        if self.path:
+        if self.path and persist:
             self.save(self.path)
 
     def samples(self, backend: str, B: int, device) -> dict:

@@ -655,6 +655,57 @@ def test_gloo_group_of_one_on_the_card(cuda_device, tmp_path):
         dist.destroy_process_group()
 
 
+def test_krylov_auto_and_store_on_a_gloo_group_of_one_on_the_card(cuda_device, tmp_path):
+    """A one-rank gloo group on the card: ``SpMV(group=)`` (one
+    ``all_reduce`` a matvec, three GEMV launches) and ``solve_ic0_pcg(group=)``
+    bit-equal to the group-free runs; ``"auto"`` options and a plan store on
+    the group: a cold session saves, a warm one hits, the same bits. The
+    matvec's scatters (``index_add_``) add atomically on the card unless
+    PyTorch's deterministic algorithms are on, so they are on here: with
+    them, real-valued runs repeat bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+    from repro_torch.core.solver import SolverConfig, build_plan
+    from repro_torch.krylov import SpMV
+    from repro_torch.service import PlanStore
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g = dist.group.WORLD
+        a = spd_lower_from_triangular(suite.grid2d_factor(24, seed=3))
+        plan = build_plan(_dyadic(a), 1, SolverConfig(block_size=16))
+        v = np.random.default_rng(3).integers(-4, 5, a.n).astype(np.float32)
+        spmv, alone = SpMV(plan, cuda_device, g), SpMV(plan, cuda_device)
+        ops.reset_launch_counts()
+        before = comm.all_reduce_sum_.calls
+        y = spmv.matvec(v)
+        assert comm.all_reduce_sum_.calls == before + 1 and spmv.exchanges == 1
+        assert ops.launch_counts()["block_gemv"] == 3
+        np.testing.assert_array_equal(y, alone.matvec(v))
+        b = np.random.default_rng(4).uniform(-1, 1, a.n)
+        opts = PlanOptions(block_size=16, kernel="fused")
+        res = solve_ic0_pcg(a, b, config=opts, tol=1e-6, group=g)
+        want = solve_ic0_pcg(a, b, config=opts, tol=1e-6)
+        assert res.converged and res.n_iters == want.n_iters
+        assert res.history == want.history
+        np.testing.assert_array_equal(res.x, want.x)
+        auto = PlanOptions(block_size=16, sched="auto", comm="auto", kernel="auto")
+        xs = []
+        for _ in range(2):
+            ctx = SpTRSVContext(options=auto, group=g,
+                                plan_store=PlanStore(str(tmp_path / "store")))
+            xs.append(ctx.solve(ctx.analyse(a), b))
+        assert ctx.stats()["plan_store_hits"] == 1 and not ctx.stats().get("analyses")
+        np.testing.assert_array_equal(xs[0], xs[1])
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        dist.destroy_process_group()
+
+
 def _zerocopy_segment(B: int, real: bool):
     """Device 1's tables of a 4-device zerocopy levelset plan, the segmented
     layout of its solve cut at the exchange segments (``fused_segments``,
@@ -747,11 +798,17 @@ class _ThreadGroup:
         self.slots = [None] * D
 
     def all_reduce_sum_(self, t, group):
+        return self._reduce(t, torch.Tensor.add_)
+
+    def all_reduce_max_(self, t, group):
+        return self._reduce(t, lambda acc, o: torch.maximum(acc, o, out=acc))
+
+    def _reduce(self, t, op):
         self.slots[self.local.rank] = t.clone()
         self.barrier.wait()
         total = self.slots[0].clone()
         for other in self.slots[1:]:
-            total += other
+            op(total, other)
         self.barrier.wait()
         return t.copy_(total)
 
@@ -836,6 +893,46 @@ def test_multi_rank_executors_on_the_card(cuda_device, monkeypatch, opts, values
             assert exchanges == stats["exchanges"] > 0
     if opts["kernel"].startswith("fused") and opts.get("sched") != "syncfree":
         assert split == 2 * stats["fused_launches"] == 2 * (stats["exchanges"] + 1)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "cuda"])
+def test_multi_rank_spmv_and_pcg_on_the_card(cuda_device, monkeypatch, kernel):
+    """Two ranks (threads sharing the card): the two-device SpMV of an
+    (n, 2) panel equals the one-device plain SpMV on the CPU bit for bit on
+    dyadic values; IC(0)-PCG (zerocopy) converges on both
+    ranks to the same bits and iterations, within one iteration of the
+    one-device PCG on the card, no plain block op."""
+    from repro_torch.core import comm
+    from repro_torch.core.solver import SolverConfig, build_plan
+    from repro_torch.krylov import SpMV
+
+    group = _ThreadGroup(2)
+    monkeypatch.setattr(comm, "all_reduce_sum_", group.all_reduce_sum_)
+    monkeypatch.setattr(comm, "all_reduce_max_", group.all_reduce_max_)
+    monkeypatch.setattr(comm, "rank", lambda g: g.local.rank)
+    monkeypatch.setattr(comm, "size", lambda g: g.D)
+    a = spd_lower_from_triangular(suite.grid2d_factor(24, seed=3))
+    a_dy = _dyadic(a)
+    v = np.random.default_rng(3).integers(-4, 5, (a.n, 2)).astype(np.float32)
+    want_y = SpMV(build_plan(a_dy, 1, SolverConfig(block_size=16)), "cpu").matvec(v)
+    plan = build_plan(a_dy, 2, SolverConfig(block_size=16))
+    b = np.random.default_rng(4).uniform(-1, 1, a.n)
+    opts = PlanOptions(block_size=16, kernel=kernel)
+    one = solve_ic0_pcg(a, b, config=opts, tol=1e-6)
+    _refuse_plain_block_ops(monkeypatch)
+
+    def rank(r):
+        y = SpMV(plan, cuda_device, group).matvec(v)
+        res = solve_ic0_pcg(a, b, config=opts, tol=1e-6, group=group)
+        return y, res
+
+    (y0, r0), (y1, r1) = group.run(rank)
+    np.testing.assert_array_equal(y0, want_y)
+    np.testing.assert_array_equal(y1, want_y)
+    assert r0.converged and r0.n_iters == r1.n_iters and abs(r0.n_iters - one.n_iters) <= 1
+    np.testing.assert_array_equal(r0.x, r1.x)
+    np.testing.assert_allclose(r0.x, one.x, rtol=1e-4, atol=1e-4)
+    assert r0.info["spmv"].n_matvecs == r0.info["spmv"].exchanges
 
 
 # ---------------------------------------------------------------------------

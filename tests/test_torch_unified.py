@@ -17,7 +17,10 @@ dyadic suites of ``tests/strategies.py``, a real-valued problem, new values
 for a refresh, a matrix whose cut is empty), and the tests read their
 results: every rank's ``x`` bit for bit against the reference's, real values
 within rtol = atol = 2e-4 of ``reference_solve``, launch and exchange counts
-against ``dispatch_stats``, strict verification of every plan run.
+against ``dispatch_stats``, strict verification of every plan run. Last,
+each rank runs what a multi-device session runs beside the executors:
+``"auto"`` options with a plan store (cold, then warm) and IC(0)-PCG and CG
+on the group, held to ``spsolve`` and to one another.
 
 Run as ``python tests/test_torch_unified.py D INPUTS OUT`` this file is the
 port's side: it forks the D ranks and writes one ``.npz`` and one ``.json``
@@ -106,16 +109,28 @@ def _rank(rank: int, D: int, inputs: str, out: str) -> None:
             block_size=B, comm="unified", partition="contiguous", kernel=kernel))
         h = ctx.analyse(csr("uncut"))
         solve(ctx, h, data["uncut/b"], f"uncut/{kernel}")
-    # what a multi-device session does not run yet
-    refused = []
-    for make in (lambda: SpTRSVContext(device="cpu", group=group, plan_store=object()),
-                 lambda: SpTRSVContext(device="cpu", group=group).analyse(
-                     csr("skewed"), PlanOptions(sched="auto"))):
-        try:
-            make()
-        except NotImplementedError as e:
-            refused.append("ROADMAP" in str(e))
-    report["refused"] = refused
+    # "auto" with a plan store at D devices: a cold session tunes and
+    # saves, a warm one hits; IC(0)-PCG and CG on the group
+    from repro_torch.krylov import solve_cg, solve_ic0_pcg, spd_lower_from_triangular
+    from repro_torch.service import PlanStore
+    from repro_torch.sparse import suite
+
+    auto = PlanOptions(block_size=B, sched="auto", comm="auto", kernel="auto")
+    for phase in ("cold", "warm"):
+        ctx = SpTRSVContext(device="cpu", group=group,
+                            plan_store=PlanStore(os.path.join(out, "store")))
+        h = ctx.analyse(csr("skewed"), auto)
+        rec.xs[f"auto/{phase}"] = ctx.solve(h, data["skewed/b"])
+        report[f"auto/{phase}"] = {
+            "chosen": [h.config.sched, h.config.comm, h.config.kernel_backend],
+            "stats": ctx.stats()}
+    spd = spd_lower_from_triangular(suite.grid2d_factor(12, seed=1))
+    b_spd = np.random.default_rng(2).uniform(-1, 1, spd.n)
+    for name, fn in (("pcg", solve_ic0_pcg), ("cg", solve_cg)):
+        res = fn(spd, b_spd, device="cpu", config=PlanOptions(block_size=B), tol=1e-8,
+                 group=group)
+        rec.xs[f"krylov/{name}"] = res.x
+        report[f"krylov/{name}"] = {"n_iters": res.n_iters, "converged": res.converged}
     rec.save(out, rank)
     dist.barrier()
     dist.destroy_process_group()
@@ -287,9 +302,47 @@ def test_empty_cut_runs_one_launch_and_no_exchange(runs, D, kernel):
 
 
 @pytest.mark.parametrize("D", DEVICES)
-def test_auto_and_plan_store_refused_on_several_devices(runs, D):
-    for _, report in runs[2][D]:
-        assert report["refused"] == [True, True]
+def test_auto_and_plan_store_run_on_several_devices(runs, D):
+    """``"auto"`` options with a plan store at D ranks: the cold session
+    analyses once and tunes, the warm one hits the store; every rank picks
+    the same candidate, and the solves are exact on the dyadic suite."""
+    from repro.sparse.matrix import reference_solve
+
+    probs, _, port = runs
+    a, b = probs["skewed"]
+    exact = reference_solve(a, b).astype(np.float32)
+    chosen = {tuple(report["auto/cold"]["chosen"]) for _, report in port[D]}
+    assert len(chosen) == 1
+    for xs, report in port[D]:
+        cold, warm = report["auto/cold"], report["auto/warm"]
+        assert cold["stats"]["analyses"] == 1 and not cold["stats"].get("plan_store_hits")
+        assert warm["stats"]["plan_store_hits"] == 1 and not warm["stats"].get("analyses")
+        assert warm["chosen"] == cold["chosen"]
+        np.testing.assert_array_equal(xs["auto/cold"], exact)
+        np.testing.assert_array_equal(xs["auto/warm"], exact)
+
+
+@pytest.mark.parametrize("D", DEVICES)
+def test_krylov_runs_on_several_devices(runs, D):
+    """IC(0)-PCG and CG on D ranks: converged, within 1e-5 of ``spsolve``,
+    the same iterations and bits on every rank, PCG in fewer iterations."""
+    import scipy.sparse.linalg as spla
+
+    from repro.krylov import spd_lower_from_triangular, symmetric_full_csr
+    from repro.sparse import suite
+    from repro.sparse.matrix import to_scipy
+
+    spd = spd_lower_from_triangular(suite.grid2d_factor(12, seed=1))
+    b = np.random.default_rng(2).uniform(-1, 1, spd.n)
+    want = spla.spsolve(to_scipy(symmetric_full_csr(spd)).tocsc(), b)
+    (xs0, rep0), *others = runs[2][D]
+    assert rep0["krylov/pcg"]["n_iters"] < rep0["krylov/cg"]["n_iters"]
+    for name in ("pcg", "cg"):
+        assert rep0[f"krylov/{name}"]["converged"]
+        np.testing.assert_allclose(xs0[f"krylov/{name}"], want, rtol=1e-5, atol=1e-5)
+        for xs, rep in others:
+            assert rep[f"krylov/{name}"] == rep0[f"krylov/{name}"]
+            np.testing.assert_array_equal(xs[f"krylov/{name}"], xs0[f"krylov/{name}"])
 
 
 def test_plan_digest_tells_plans_apart():
@@ -314,9 +367,7 @@ def test_plan_digest_tells_plans_apart():
 def test_multi_device_plans_need_a_matching_group():
     """A multi-device plan of D > 1 devices without a group of D ranks
     raises ``ValueError``, under either comm mode and every scheduler (all
-    of them execute at D > 1 now); the multi-device SpMV, ``"auto"`` and a
-    plan store in a multi-device session raise ``NotImplementedError``
-    naming ROADMAP."""
+    of them execute at D > 1 now), and so does the multi-device SpMV."""
     import torch.distributed as dist
 
     import strategies
@@ -329,7 +380,7 @@ def test_multi_device_plans_need_a_matching_group():
     plan = tsolver.build_plan(a, 2, tsolver.SolverConfig(block_size=B, comm="unified"))
     with pytest.raises(ValueError, match="group"):
         tsolver.Solver(plan, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group"):
         SpMV(plan, "cpu")
     store = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"unified-{os.getpid()}")
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
