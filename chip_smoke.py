@@ -178,7 +178,25 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    --dyadic --solo-check`` under ``torch.distributed.run`` on the two gloo
    ranks (``SERVE_REQUESTS`` requests, hot pattern
    ``grid2d_factor(SERVICE_SIDE)``, plain ``fused``) exits 0: every ticket
-   exact and its solo solve's bits.
+   exact and its solo solve's bits;
+14. the streamed megakernel at B > 169, where it copies each tile in row
+   chunks (wall time printed): on ``grid2d_factor(PCG_SIDE)`` (n = 262,144)
+   and its dyadic twin at each of ``WIDE_BLOCKS`` (176, 256),
+   ``kernel="fused_streamed"`` and the resident ``"fused"`` through
+   ``SpTRSVContext``: forward, transpose and (n, 8) solves each within 2e-4
+   of scipy, streamed bit-equal to resident, one launch each as
+   ``dispatch_stats`` says, no plain version; the twin's solves exactly
+   ``x``; the shape (rows a stage, shared bytes, bytes copied per solve);
+   ms per solve (median, min, max of 5) for both forms and cuSPARSE, the
+   kernels alone in turns (CUDA events and ``torch.profiler``), the
+   streamed kernel against its plain version; plain ``fused`` takes the
+   form measured faster there; the split forms at B = 176 on a merged step
+   of a two-device unified plan (bit-equal to their plain versions on a
+   shallow dyadic problem, to each other on the real factor, timed there);
+   ``perf/stream_crossover.py`` at B = 64, 128, 176, 256. Phase 12's ranks
+   also solve the twin with ``comm="zerocopy"``, ``fused_streamed``, at
+   B = 176 (the split form in row chunks): ``x`` exactly, its launches as
+   ``dispatch_stats`` says.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -236,7 +254,13 @@ KERNELS = {
     # split_delta=True (the carries at :163, the solve's rhs at :237)
     "superstep_split": ("src/repro/kernels/superstep.py:163", "superstep.cu"),
     "superstep_streamed_split": ("src/repro/kernels/superstep.py:237", "superstep.cu"),
+    # the streamed forms at B >= 170, each tile copied in row chunks (phase 14)
+    "superstep_streamed_chunked": ("src/repro/kernels/superstep.py:182", "superstep.cu"),
+    "superstep_streamed_split_chunked": ("src/repro/kernels/superstep.py:237", "superstep.cu"),
 }
+# the wrapper (ops.KERNELS name) that launches each row's kernel
+WRAPPER = {"superstep_streamed_chunked": "superstep_streamed",
+           "superstep_streamed_split_chunked": "superstep_streamed_split"}
 PER_OP = ("block_trsv", "block_trsm", "block_gemv", "block_gemm")
 # the __global__ function that serves each block kernel at the timed shapes
 # (B = 32), matched in the profiler's kernel name whether demangled
@@ -258,6 +282,13 @@ UNIFIED_RANKS = 2  # phase 11: gloo ranks, all on cuda:0
 UNIFIED_TIMEOUT = 720  # seconds phase 11's ranks may take (phases 11-13)
 AUTO_SIDE = 256  # phase 13c: "auto" at D = 2 on grid2d_factor(AUTO_SIDE), B = 32
 SERVE_REQUESTS = 16  # phase 13e: the dyadic mix served on two ranks
+WIDE_BLOCKS = (176, 256)  # phase 14: the streamed kernel in row chunks, on grid2d_factor(PCG_SIDE)
+CROSSOVER_BLOCKS = (64, 128, 176, 256)  # phase 14: perf/stream_crossover.py's ladder
+# each megakernel instantiation's name in the profiler, demangled or not
+MEGAKERNEL_SYMBOL = {
+    (stream, split): rf"superstep_kernel(<{str(stream).lower()}, {str(split).lower()}>"
+                     rf"|ILb{int(stream)}ELb{int(split)}E)"
+    for stream in (False, True) for split in (False, True)}
 
 
 def fail(msg: str) -> None:
@@ -896,7 +927,7 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
     a = suite.grid2d_factor(int(data["side"]), seed=6)
     a_dy = dyadic(a, seed=SEED)
     ctx = SpTRSVContext(device=str(data["device"]), group=group)
-    res = {"rank": rank, "forms": {}, "zc": {}, "seconds": {}}
+    res = {"rank": rank, "forms": {}, "zc": {}, "wide": {}, "seconds": {}}
     sent = []  # bytes of each all_reduce of the solve being counted
     all_reduce = comm.all_reduce_sum_
 
@@ -957,7 +988,7 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
             e = rel_err(x, want)
             check(np.isfinite(e) and e <= TOL_SOLVE, f"{tag}: rel err {e:.3e}")
             row["rel_err"] = e
-        res["forms" if phase == 11 else "zc"][name] = row
+        res[{11: "forms", 14: "wide"}.get(phase, "zc")][name] = row
         return x
 
     def verified(h, transpose=False):
@@ -1040,6 +1071,16 @@ def unified_rank(rank: int, inputs: str, rdv: str, out) -> None:
                                             f"on rank {rank}")
         res["seconds"][f"12 {name}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+    # phase 14's two-rank path: zerocopy fused_streamed at WIDE_BLOCKS[0], the
+    # streamed split form in row chunks, on the dyadic twin of a_p, x exactly
+    hw = ctx.analyse(dyadic(a_p, seed=SEED), PlanOptions(
+        block_size=WIDE_BLOCKS[0], comm="zerocopy", kernel="fused_streamed"), tag="wide")
+    verified(hw)
+    ctx.executor(hw)
+    x = one_solve("wide_dyadic", hw, data["b_wide"], phase=14)
+    check(np.array_equal(x, data["x_wide"]), f"phase 14 zerocopy B={WIDE_BLOCKS[0]}: x != "
+                                            f"x_int on rank {rank}")
+    res["seconds"]["14 wide"] = time.perf_counter() - t0
     # phase 13: fresh sessions; phase 12's plans and executors go
     ctx = None
     gc.collect()
@@ -1402,6 +1443,8 @@ def split_kernel_rows(a, r0: dict, rng, device: str = "cuda:0") -> list:
                 "plain_ms": time_ms(lambda: ref.superstep_ref(
                     *tables, diag, tiles, b_pad, acc, x, stp, delta=delta), 3, warmup=1),
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "device_ms": device_ms(launch, MEGAKERNEL_SYMBOL[
+                    form == "superstep_streamed_split", True], 50),
                 "shape": [a.n, plan.bs.B, 1], "superstep": s,
                 "levels": [int(so[s]), int(so[s + 1])],
                 "launches_per_solve": r0["forms"][path]["supersteps"]})
@@ -1516,13 +1559,16 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
 
     import numpy as np
 
+    from repro_torch.launch.serve_solve import dyadic
     from repro_torch.sparse import suite
-    from repro_torch.sparse.matrix import reference_solve
+    from repro_torch.sparse.matrix import reference_solve, to_scipy
 
     sub_s = {}
     t0 = time.perf_counter()
     a_p = suite.grid2d_factor(panel_side, seed=6)
     panel_p = rng.uniform(-1, 1, (a_p.n, 8))
+    x_wide = rng.integers(-4, 5, a_p.n).astype(np.float64)
+    b_wide = (to_scipy(dyadic(a_p, seed=SEED)) @ x_wide).astype(np.float32)
     spawn = multiprocessing.get_context("spawn")
     out = spawn.Queue()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1530,7 +1576,7 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
         np.savez(inputs, b=b, b_dy=b_dy, x_int=x_int, want_forward=want["forward"],
                  want_transpose=want["transpose"], panel_p=panel_p,
                  want_panel_p=reference_solve(a_p, panel_p), store_bytes=store_bytes,
-                 side=side, panel_side=panel_side, device=device,
+                 side=side, panel_side=panel_side, device=device, x_wide=x_wide, b_wide=b_wide,
                  calibration=str(Path(tmp) / "calibration.json"),
                  plan_store=str(Path(tmp) / "plan_store"), **tail)
         procs = [spawn.Process(target=unified_rank,
@@ -1599,6 +1645,12 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
         f"{r0['forms']['cuda']['ms']:.1f}; seconds per sub-step on rank 0: "
         + ", ".join(f"{k}={v:.1f}" for k, v in r0["seconds"].items()))
 
+    w = r0["wide"]["wide_dyadic"]
+    log(f"phase 14 zerocopy fused_streamed at B={WIDE_BLOCKS[0]} on the dyadic twin of "
+        f"grid2d_factor({panel_side}) ({UNIFIED_RANKS} ranks, phase 12's): {w['ms']:.1f} "
+        f"ms/solve on rank 0, {w['levels']} levels, {w['exchanges']} exchanges, launches "
+        f"{json.dumps({k: v for k, v in w['launches'].items() if v})}, x exact on every rank; "
+        f"{r0['seconds']['14 wide']:.1f} s")
     t0 = time.perf_counter()
     rows_out = split_kernel_rows(a, r0, rng, device)
     sub_s["b split kernels"] = time.perf_counter() - t0
@@ -1722,6 +1774,354 @@ def phase_tail(results: list, card: str, device: str = "cuda:0") -> tuple:
     zeros = dict.fromkeys(next(iter(r0["paths"].values())), 0)
     paths = {f"d2_{name}": {**zeros, **counts} for name, counts in r0["paths"].items()}
     return paths, sum(sec.values())
+
+
+def cusparse_ms(a, b, want) -> tuple:
+    """``torch.triangular_solve`` on ``a``'s CSR on the card (cuSPARSE): its
+    ms per solve (CUDA events, 5 solves) where it agrees with scipy within
+    ``TOL_SOLVE``, else ``None``, and a note. A yardstick only: the port
+    never calls it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sparse.matrix import to_scipy
+
+    bvec = torch.from_numpy(np.asarray(b, np.float32)).cuda().reshape(-1, 1)
+    sp = to_scipy(a)
+    L_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(sp.indptr.astype(np.int64)), torch.from_numpy(sp.indices.astype(np.int64)),
+        torch.from_numpy(sp.data.astype(np.float32)), size=sp.shape).cuda()
+    try:
+        lib_x = torch.triangular_solve(bvec, L_csr, upper=False).solution
+        lib_err = rel_err(lib_x.cpu().numpy().ravel(), want)
+        ms = (time_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), 5, warmup=1)
+              if lib_err <= TOL_SOLVE else None)
+        return ms, f"rel err {lib_err:.2e} vs scipy"
+    except (RuntimeError, NotImplementedError) as e:  # a yardstick only, never on the path
+        return None, f"refused: {str(e).splitlines()[0][:160]}"
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the streamed megakernel at B > 169 (row chunks), one device
+# ---------------------------------------------------------------------------
+
+
+def wide_split_row(a, a_dy, B: int, rng, launches: int, device: str = "cuda:0") -> dict:
+    """The split forms at block size ``B`` (the streamed one copying row
+    chunks) against their plain versions on one launch of a merged step of
+    a ``UNIFIED_RANKS``-device unified dagpart plan, with non-zero carries.
+    On the dyadic problem ``a_dy``, bit-equal, at the merged step and device
+    solving the most rows whose float32 plain result is its float64 one
+    (nothing rounds, so every correct order gives those bits); on ``a``, at
+    the step and device solving
+    the most rows, within ``TOL_SOLVE`` of the plain version, streamed
+    bit-equal to resident, and timed. Returns the chunked split row
+    (``launches``: phase 14's two-rank path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solver import SolverConfig, build_plan, level_widths, step_offsets
+    from repro_torch.kernels import ref, superstep
+
+    def launch_inputs(plan, so, s, d, values):
+        """Tables, layout and carries of one split launch of step ``s`` on device ``d``."""
+        host = [np.array([s, 1])] + [plan.lvl_off, level_widths(plan), plan.solve_rows[d],
+                                     plan.upd_tiles[d], plan.tile_row[d], plan.tile_col[d]]
+        tables = [torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(device)
+                  for t in host]
+        host_layout = superstep.segmented_layout(*host[1:], n_rows=plan.bs.nb + 1, stp=so,
+                                                 bounds=np.arange(len(so)))
+        shape = (plan.bs.nb + 1, B)
+        vecs = [(rng.uniform(-1, 1, shape) if values == "real"
+                 else rng.integers(-3, 4, shape)).astype(np.float32) for _ in range(4)]
+        for v in vecs:
+            v[-1] = 0
+        return (tables, host_layout, host_layout.to(device),
+                [torch.from_numpy(v).to(device) for v in vecs])
+
+    out = {}
+    for values, src in (("dyadic", a_dy), ("real", a)):
+        plan = build_plan(src, UNIFIED_RANKS, SolverConfig(block_size=B, comm="unified",
+                                                           sched="dagpart"))
+        so = step_offsets(plan)
+        sw = level_widths(plan)[:, 0]
+        stp = torch.from_numpy(np.ascontiguousarray(so, dtype=np.int32)).to(device)
+        diag = torch.from_numpy(plan.diag).to(device)
+        merged = np.nonzero(np.diff(so) > 1)[0]
+        # (rows solved, step, device), most rows first
+        cands = sorted(((int((plan.solve_rows[d][plan.lvl_off[so[t], 0]:plan.lvl_off[so[t], 0]
+                                                   + sw[so[t]:so[t + 1]].sum()] >= 0).sum()),
+                         int(t), d) for t in merged for d in range(UNIFIED_RANKS)), reverse=True)
+        cands = [c for c in cands if c[0] > 0]
+        check(bool(cands), f"phase 14 split B={B} ({values}): no merged step solves a row")
+        for rows, s, d in cands:
+            tables, host_layout, layout, (b_pad, acc, delta, x) = launch_inputs(
+                plan, so, s, d, values)
+            tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[d])).to(device)
+            plain = ref.superstep_ref(*tables, diag, tiles, b_pad, acc, x, stp, delta=delta)
+            if values == "real":
+                break
+            exact = ref.superstep_ref(*tables, diag.double(), tiles.double(), b_pad.double(),
+                                      acc.double(), x.double(), stp, delta=delta.double())
+            if all(torch.equal(p_, e_.float()) for p_, e_ in zip(plain, exact)):
+                break
+        else:
+            fail(f"phase 14 split B={B}: every dyadic merged step rounds: no bit check")
+        table = layout.segments[s]
+        check(superstep.streamed_shape(B, layout.max_item_tiles)[2] < B,
+              f"phase 14 split B={B}: the streamed form does not take row chunks")
+        values_ = superstep.streamed_values(layout, diag, tiles)
+        flags = superstep.ReadyFlags(plan.bs.nb + 1, device)
+
+        def launch(form, d_, x_):
+            if form == "resident":
+                superstep.superstep_split_(*tables, diag, tiles, b_pad, acc, d_, x_, stp,
+                                           table=table, flags=flags)
+            else:
+                superstep.superstep_streamed_split_(*tables, values_, b_pad, acc, d_, x_, stp,
+                                                    layout=layout, table=table, flags=flags)
+
+        got = {}
+        for form in ("resident", "streamed"):
+            d_, x_ = delta.clone(), x.clone()
+            launch(form, d_, x_)
+            torch.cuda.synchronize()
+            got[form] = (acc, d_, x_)
+            if values == "dyadic":
+                check(all(torch.equal(g, w) for g, w in zip(got[form], plain)),
+                      f"phase 14 split B={B} {form} != its plain version on the dyadic step")
+        check(all(torch.equal(g, w) for g, w in zip(got["streamed"], got["resident"])),
+              f"phase 14 split B={B} ({values}): streamed != resident bit for bit")
+        step = {"superstep": s, "levels": [int(so[s]), int(so[s + 1])], "device": d,
+                "rows_solved": rows, "orphans": table.n_orphans}
+        if values == "dyadic":
+            log(f"phase 14 split kernels at B={B}, shallow dyadic problem (device {d} of "
+                f"{UNIFIED_RANKS}, merged step {s}: levels {so[s]}..{so[s + 1] - 1}, {rows} "
+                f"rows solved, {table.n_orphans} orphans): resident and streamed bit-identical "
+                f"to the plain version")
+            continue
+        e = max(float((g - w).abs().max()) for g, w in zip(got["streamed"], plain))
+        scale = max(float(w.abs().max()) for w in plain)
+        check(e <= TOL_SOLVE * scale, f"phase 14 split B={B} vs plain: max abs err {e:.3e}")
+        d_, x_ = delta.clone(), x.clone()
+        turns = [time_ms(lambda form=form: launch(form, d_, x_), 20)
+                 for form in ("resident", "streamed", "streamed", "resident")]
+        bound_ms, bound_by = split_bound(plan, d, host_layout.segments[s], 1)
+        out = {
+            "name": "superstep_streamed_split_chunked", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/superstep.cu",
+            "replaces": KERNELS["superstep_streamed_split_chunked"][0], "launches": launches,
+            "max_abs_err": e, "ms": (turns[1] + turns[2]) / 2,
+            "plain_ms": time_ms(lambda: ref.superstep_ref(*tables, diag, tiles, b_pad, acc, x,
+                                                          stp, delta=delta), 2, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": device_ms(lambda: launch("streamed", d_, x_),
+                                   MEGAKERNEL_SYMBOL[True, True], 20),
+            "resident_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+            "resident_device_ms": device_ms(lambda: launch("resident", d_, x_),
+                                            MEGAKERNEL_SYMBOL[False, True], 20),
+            "shape": [a.n, B, 1], **step}
+    log(f"phase 14 split kernels at B={B}, real values (device {out['device']} of "
+        f"{UNIFIED_RANKS}, merged step {out['superstep']}: levels {out['levels'][0]}.."
+        f"{out['levels'][1] - 1}, {out['rows_solved']} rows solved, {out['orphans']} "
+        f"orphans): max abs {out['max_abs_err']:.2e} vs plain, streamed bit-equal to "
+        f"resident; ms per launch (CUDA events, 20 launches, turns resident, streamed, "
+        f"streamed, resident {[round(t, 4) for t in out['turns_ms']]}) streamed "
+        f"{out['ms']:.4f} (device {out['device_ms']}), resident {out['resident_ms']:.4f} "
+        f"(device {out['resident_device_ms']}), plain {out['plain_ms']:.2f}, bound "
+        f"{out['bound_ms']:.5f} ({out['bound_by']})")
+    return out
+
+
+def phase_wide(rng, wide_rank: dict) -> tuple:
+    """Phase 14 on ``grid2d_factor(PCG_SIDE)`` and its dyadic twin, at each
+    of ``WIDE_BLOCKS``: ``kernel="fused_streamed"`` (row chunks) and the
+    resident ``"fused"`` (``REPRO_TORCH_STREAM_LIMIT`` above every store)
+    through ``SpTRSVContext``; forward, transpose and (n, 8) solves within
+    ``TOL_SOLVE`` of scipy, streamed bit-equal to resident, one launch
+    each as ``dispatch_stats`` says, no plain version; the dyadic twin
+    exact; ms per solve (median, min, max of 5) and per launch (in turns)
+    for both forms and cuSPARSE; the kernel against its plain version; the
+    split forms at the first block (:func:`wide_split_row`); then
+    ``perf/stream_crossover.py`` at ``CROSSOVER_BLOCKS``. ``wide_rank`` is
+    rank 0's two-rank zerocopy solve at ``WIDE_BLOCKS[0]`` (phase 12's
+    ranks). Returns the two kernel rows and the launches of each path."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from repro_torch.api import PlanOptions, SpTRSVContext
+    from repro_torch.core.blocking import pad_rhs
+    from repro_torch.core.solver import (
+        SolverConfig, build_plan, dispatch_stats, fused_streaming, resident_store_bytes,
+    )
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref, superstep
+    from repro_torch.launch.serve_solve import dyadic
+    from repro_torch.sparse import suite
+    from repro_torch.sparse.matrix import reference_solve, to_scipy
+
+    sys.path.insert(0, str(ROOT / "perf"))
+    import stream_crossover
+
+    t_start = time.perf_counter()
+    a = suite.grid2d_factor(PCG_SIDE, seed=6)
+    a_dy = dyadic(a, seed=SEED)
+    x_int = rng.integers(-4, 5, a.n).astype(np.float64)
+    L_dy = to_scipy(a_dy)
+    b_dy, bt_dy = ((M @ x_int).astype(np.float32) for M in (L_dy, L_dy.T.tocsr()))
+    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 8))
+    want = {"forward": reference_solve(a, b),
+            "transpose": spla.spsolve_triangular(to_scipy(a).T.tocsr(), b, lower=False),
+            "panel_r8": reference_solve(a, panel)}
+    library_ms, lib_note = cusparse_ms(a, b, want["forward"])
+    paths, chunked, faster = {}, {}, {}
+    for B in WIDE_BLOCKS:
+        t0 = time.perf_counter()
+        forms = {}
+        with stream_crossover.stream_limit_env(2**62):  # "fused" held resident
+            for name, kernel in (("streamed", "fused_streamed"), ("resident", "fused")):
+                c = SpTRSVContext(options=PlanOptions(block_size=B, kernel=kernel))
+                h = c.analyse(a)
+                c.executor(h), c.executor(h, transpose=True)  # plans, tables, stores, upload
+                forms[name] = (c, h)
+            torch.cuda.synchronize()
+            analyse_s = time.perf_counter() - t0
+            plan = forms["streamed"][0].plan(forms["streamed"][1])
+            stats = dispatch_stats(plan)
+            fused = forms["streamed"][0].executor(forms["streamed"][1])._fused
+            warps, cap, rows = superstep.streamed_shape(B, fused.layout.max_item_tiles)
+            check(stats["streamed"] and (warps, cap) == (1, 1) and rows < B,
+                  f"phase 14 B={B}: the streamed plan's shape {(warps, cap, rows)}")
+            check(not dispatch_stats(forms["resident"][0].plan(forms["resident"][1]))["streamed"],
+                  f"phase 14 B={B}: fused did not stay resident under the raised limit")
+            log(f"phase 14 B={B}: n={a.n} nb={plan.bs.nb} levels={plan.n_levels}, "
+                f"resident_store_bytes {resident_store_bytes(plan)}, streamed store "
+                f"{fused.values.numel() * 4} B; {warps} warp/CTA, two stages of {rows} tile "
+                f"rows ({len(superstep.stream_chunks(B, rows))} bulk copies a tile), "
+                f"{stats['fused_vmem_bytes']} B shared memory/CTA; bulk-copied per solve "
+                f"{stats['stream_dma_bytes']} B (vector); analyse+plan+layout+upload "
+                f"(forward and transpose, both forms) {analyse_s:.1f} s")
+            xs, ms = {}, {}
+            for name, (c, h) in forms.items():
+                mega = "superstep_streamed" if name == "streamed" else "superstep"
+                kops.reset_launch_counts()
+                with PlainCalls(ref) as plain:
+                    xs[name] = {"forward": c.solve(h, b),
+                                "transpose": c.solve(h, b, transpose=True),
+                                "panel_r8": c.solve(h, panel)}
+                made = kops.launch_counts()
+                n_launch = sum(dispatch_stats(c.plan(h, transpose=t))["fused_launches"]
+                               for t in (False, True, False))
+                check(made == {**dict.fromkeys(made, 0), mega: n_launch},
+                      f"phase 14 B={B} {name}: launches {made}, dispatch_stats {n_launch}")
+                check(plain.calls == 0, f"phase 14 B={B} {name}: {plain.calls} plain calls")
+                paths[f"wide_B{B}_{name}"] = made
+                for form, x in xs[name].items():
+                    e = rel_err(x, want[form])
+                    check(np.isfinite(e) and e <= TOL_SOLVE,
+                          f"phase 14 B={B} {name} {form}: rel err {e:.3e}")
+                ms[name] = solve_times(c, h, b, panel)
+            for form in want:
+                check(np.array_equal(xs["streamed"][form], xs["resident"][form]),
+                      f"phase 14 B={B} {form}: streamed != resident bit for bit")
+            # the kernels alone, in turns, and the streamed one against its plain version
+            solver_r = forms["resident"][0].executor(forms["resident"][1])
+            res_f = solver_r._fused
+            b_pad = torch.from_numpy(np.concatenate(
+                [pad_rhs(np.asarray(b, np.float32), plan.bs),
+                 np.zeros((1, B), np.float32)])).cuda()
+            zeros = torch.zeros_like(b_pad)
+
+            def streamed_fn():
+                return superstep.superstep_streamed_call(
+                    *fused.tables, fused.values, b_pad, zeros, zeros, stp=fused.stp,
+                    layout=fused.layout, flags=fused.flags)
+
+            def resident_fn():
+                return superstep.superstep_call(
+                    *res_f.tables, solver_r._diag, solver_r._tiles, b_pad, zeros, zeros,
+                    stp=res_f.stp, table=res_f.table, flags=res_f.flags)
+
+            turns = [time_ms(fn, 5, warmup=1)
+                     for fn in (resident_fn, streamed_fn, streamed_fn, resident_fn)]
+            r_ms, s_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            faster[B] = s_ms <= r_ms
+            got = streamed_fn()[1]
+            plain_fn = (lambda: ref.superstep_streamed_ref(
+                *fused.tables, fused.values, fused.layout.diag_entry, fused.layout.tile_entry,
+                b_pad, zeros, zeros, fused.stp))
+            plain_x = plain_fn()[1]
+            torch.cuda.synchronize()
+            check(torch.equal(got, resident_fn()[1]),
+                  f"phase 14 B={B}: the streamed launch != the resident one bit for bit")
+            e_plain = float((got - plain_x).abs().max())
+            check(e_plain <= TOL_SOLVE * float(plain_x.abs().max()),
+                  f"phase 14 B={B}: kernel vs plain max abs err {e_plain:.3e}")
+            bound_ms, bound_by = superstep_bound(plan, fused.layout.table, 1)
+            chunked[B] = {
+                "ms": s_ms, "resident_ms": r_ms, "turns_ms": turns, "max_abs_err": e_plain,
+                "plain_ms": time_ms(plain_fn, 1, warmup=0), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms(streamed_fn, MEGAKERNEL_SYMBOL[True, False], 5),
+                "resident_device_ms": device_ms(resident_fn, MEGAKERNEL_SYMBOL[False, False], 3),
+                "solve_ms": {k: v["forward"] for k, v in ms.items()},
+                "shape": [a.n, B, 1], "rows": rows, "shared_bytes": stats["fused_vmem_bytes"],
+                "copied_bytes": stats["stream_dma_bytes"]}
+            log(f"phase 14 B={B} rel err vs scipy: " + ", ".join(
+                f"{f}={rel_err(xs['streamed'][f], want[f]):.2e}" for f in want)
+                + "; streamed bit-equal to resident in each form; no plain-version call")
+            log(f"phase 14 B={B} ms/solve (ctx.solve, median of 5; min, max): " + "; ".join(
+                f"{name} " + ", ".join(f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})"
+                                       for k, v in t.items()) for name, t in ms.items())
+                + f"; cuSPARSE (torch.triangular_solve on the CSR) "
+                f"{'n/a' if library_ms is None else f'{library_ms:.3f}'} ms ({lib_note})")
+            log(f"phase 14 B={B} kernel alone, ms per launch (CUDA events, 5 launches, turns "
+                f"resident, streamed, streamed, resident {[round(t, 4) for t in turns]}): "
+                f"streamed {s_ms:.4f} (device {chunked[B]['device_ms']}), resident {r_ms:.4f} "
+                f"(device {chunked[B]['resident_device_ms']}), streamed/resident "
+                f"{s_ms / r_ms:.4f}; plain {chunked[B]['plain_ms']:.1f}; kernel vs plain max "
+                f"abs {e_plain:.2e}; bound {bound_ms:.4f} ({bound_by})")
+            # the dyadic twin: any correct order gives x_int exactly
+            for name, (c, h) in forms.items():
+                c.factorize(a_dy, h)
+                check(np.array_equal(c.solve(h, b_dy), x_int)
+                      and np.array_equal(c.solve(h, bt_dy, transpose=True), x_int),
+                      f"phase 14 B={B} {name}: the dyadic twin's solve is not x_int")
+        del forms, fused, solver_r, res_f
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain_fused = build_plan(a, 1, SolverConfig(block_size=B, kernel_backend="fused"))
+        check(fused_streaming(plain_fused) == faster[B],
+              f"phase 14 B={B}: plain fused {'streams' if faster[B] else 'stays resident'} "
+              f"by the rule, but the {'resident' if faster[B] else 'streamed'} kernel "
+              f"measured faster")
+        log(f"phase 14 B={B}: dyadic twin exact (forward, transpose) in both forms; plain "
+            f"fused by the rule: {'streamed' if fused_streaming(plain_fused) else 'resident'}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # the dyadic split check on a shallow problem (12 row levels, 24 block
+    # rows): a merged step of the factor's twin is too deep to stay exact
+    # under non-zero carries
+    shallow = dyadic(suite.random_levelled(24 * WIDE_BLOCKS[0], 12, 4.0, seed=6), seed=SEED)
+    split_row = wide_split_row(a, shallow, WIDE_BLOCKS[0], rng,
+                               wide_rank["launches"]["superstep_streamed_split"])
+    t0 = time.perf_counter()
+    table = stream_crossover.measure(blocks=CROSSOVER_BLOCKS, solves=10)
+    for r in table:
+        log("phase 14 crossover " + stream_crossover.format_row(r))
+    log(f"phase 14 crossover ({time.perf_counter() - t0:.1f} s) crossover_bytes "
+        f"{stream_crossover.crossover_bytes(table)}")
+    B0 = WIDE_BLOCKS[0]
+    row = {"name": "superstep_streamed_chunked", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/superstep.cu",
+           "replaces": KERNELS["superstep_streamed_chunked"][0],
+           "launches": sum(p["superstep_streamed"] for p in paths.values()),
+           **{k: v for k, v in chunked[B0].items() if k != "solve_ms"},
+           "at_B": {str(B): v for B, v in chunked.items() if B != B0}}
+    paths[f"wide_zerocopy_B{B0}"] = wide_rank["launches"]
+    log(f"phase 14 the streamed kernel in row chunks: {time.perf_counter() - t_start:.1f} s")
+    return [row, split_row], paths
 
 
 def main() -> None:
@@ -1999,19 +2399,7 @@ def main() -> None:
     fms8 = time_ms(lambda: superstep.superstep_call(*ftab, *fvec[:2], b8, z8, z8, stp=fstp,
                                                     table=ftable, flags=ready), 10)
     fplain_ms = time_ms(lambda: ref.superstep_ref(*ftab, *fvec, stp=fstp), 3, warmup=1)
-    bvec = torch.from_numpy(np.asarray(b, np.float32)).cuda().reshape(-1, 1)
-    sp = to_scipy(a)
-    L_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(sp.indptr.astype(np.int64)), torch.from_numpy(sp.indices.astype(np.int64)),
-        torch.from_numpy(sp.data.astype(np.float32)), size=sp.shape).cuda()
-    try:
-        lib_x = torch.triangular_solve(bvec, L_csr, upper=False).solution
-        lib_err = rel_err(lib_x.cpu().numpy().ravel(), want["forward"])
-        library_ms = (time_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), 5,
-                              warmup=1) if lib_err <= TOL_SOLVE else None)
-        lib_note = f"rel err {lib_err:.2e} vs scipy"
-    except (RuntimeError, NotImplementedError) as e:  # a yardstick only, never on the path
-        library_ms, lib_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+    library_ms, lib_note = cusparse_ms(a, b, want["forward"])
     log(f"phase 5 megakernel {fms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) panel "
         f"{fms8:.3f} ms, 10 solves), plain version "
         f"{fplain_ms:.1f} ms, torch.triangular_solve(CSR L) "
@@ -2023,6 +2411,9 @@ def main() -> None:
         "replaces": KERNELS["superstep"][0], "launches": fused_launches["superstep"],
         "max_abs_err": e_full, "ms": fms, "plain_ms": fplain_ms,
         "bound_ms": fbound[0], "bound_by": fbound[1], "library_ms": library_ms,
+        "device_ms": device_ms(lambda: superstep.superstep_call(
+            *ftab, *fvec, stp=fstp, table=ftable, flags=ready), MEGAKERNEL_SYMBOL[False, False],
+            10),
         "shape": [a.n, fplan.bs.B, 1],
     }
 
@@ -2037,7 +2428,7 @@ def main() -> None:
     splan, slayout = ssolver.plan, ssolver._fused.layout
     S = slayout.table.n_solve_slots
     pulls = np.diff(slayout.table.pull_ptr[:S + 1].cpu().numpy())[splan.solve_rows[0] >= 0]
-    warps, cap = superstep.streamed_shape(splan.bs.B, slayout.max_item_tiles)
+    warps, cap, _ = superstep.streamed_shape(splan.bs.B, slayout.max_item_tiles)
     sstats = sctx.dispatch_stats(sh)
     log(f"phase 6 streamed analyse+plan+layout+store+upload (forward and transpose) "
         f"{time.perf_counter() - t0:.1f} s; incoming tiles per solved row: most "
@@ -2192,7 +2583,11 @@ def main() -> None:
         "replaces": KERNELS["superstep_streamed"][0],
         "launches": streamed_launches["superstep_streamed"], "max_abs_err": se_full,
         "ms": sms, "plain_ms": splain_ms, "bound_ms": sbound[0], "bound_by": sbound[1],
-        "library_ms": library_ms, "shape": [a.n, splan.bs.B, 1],
+        "library_ms": library_ms,
+        "device_ms": device_ms(lambda: superstep.superstep_streamed_call(
+            *stab, *svec, stp=sstp, layout=slay, flags=ready), MEGAKERNEL_SYMBOL[True, False],
+            10),
+        "shape": [a.n, splan.bs.B, 1],
     }
 
     # 7. the syncfree executor at full size: its dense scan (kernel="cuda")
@@ -2609,6 +3004,11 @@ def main() -> None:
     log(f"phase 13 the multi-device tail: {phase13_s:.1f} s (its share of the ranks, and "
         f"the service)")
 
+    # 14. the streamed megakernel at B > 169 (row chunks), one device, and the
+    # split forms (the two-rank zerocopy path ran in phase 12's ranks)
+    phase_start["14 wide blocks"] = time.perf_counter()
+    wide_rows, wide_paths = phase_wide(rng, rank_results[0]["wide"]["wide_dyadic"])
+
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
     s0, ws = widest(plan, 0)
@@ -2735,14 +3135,19 @@ def main() -> None:
     log("block kernels' device-only ms at the widest level (kernel / torch library call): "
         + ", ".join(f"{r['name']}={r['device_ms']} / {r['library_device_ms']}"
                     for r in rows_out))
-    rows_out += [superstep_row, streamed_row] + split_rows
-    # each later path's launches, counted from 0 around that path alone
+    rows_out += [superstep_row, streamed_row] + split_rows + wide_rows
+    # each later path's launches, counted from 0 around that path alone; the
+    # chunked rows' wrappers over phase 14's paths (B > 169) alone
     paths = {**{f"syncfree_{k}": v for k, v in path_launches7.items()},
              "syncfree_pcg": ypcg_launches, "service": service_launches,
              **{f"bicgstab_{k}": v for k, v in path_launches8.items()},
              **path_launches9, **unified_paths, **tail_paths}
     for row in rows_out:
-        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
+        wrapper = WRAPPER.get(row["name"], row["name"])
+        row["launches_by_path"] = {path: counts[wrapper] for path, counts in
+                                   (wide_paths if row["name"] in WRAPPER else paths).items()}
+    for row in wide_rows:
+        check(row["launches"] > 0, f"{row['name']}: no launch on phase 14's paths")
     torch.cuda.synchronize()
     phase_start["end"] = time.perf_counter()
     names = list(phase_start)

@@ -17,8 +17,9 @@ form's two turns), the ratio streamed / resident, and the four turns; then
 :func:`crossover_bytes` of the table, the store size from which streaming
 is no slower at every larger size measured (the rule behind
 ``core.solver.DEFAULT_STREAM_LIMIT``). ``chip_smoke.py`` phase 9 runs
-:func:`measure` at the default sides and blocks. Needs a CUDA device and
-``nvcc``.
+:func:`measure` at the default sides and blocks, phase 14 at B = 64, 128,
+176 and 256 (from B = 170 the streamed kernel copies row chunks). Needs a
+CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 

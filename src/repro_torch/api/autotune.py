@@ -114,7 +114,8 @@ def estimate_plan_cost(plan: Plan, R: int = 1, device=None) -> float:
     :func:`calibrate_weights` for the plan's backend on the device.
     Comm term: ``comm_bytes_per_solve`` at the model's byte balance, in
     units of one B²-flop block op. Bulk-copy term: the bytes the streamed
-    megakernel copies (the port's kernel copies once per column). Overhead
+    megakernel copies (the port's kernel copies once per column; at ``B >=
+    170`` in row chunks, the same bytes). Overhead
     term: dispatch/launch counts from :func:`dispatch_stats` (levelset) or
     two dispatches per sweep (syncfree)."""
     dev = resolve_device(device)

@@ -117,7 +117,7 @@ def measured_tile_ms(B: int = 32, backend: str | None = None, device=None) -> di
     (``"gemm"``), each over ``MEASURE_CALLS`` calls on ``MEASURE_TILES``
     tiles (:func:`repro_torch.obs.timing.device_time_ms`). The fused
     backends time their per-op backend
-    (:func:`repro_torch.kernels.ops.per_op_backend`). Cached per (B, per-op
+    (:func:`repro_torch.kernels.ops.op_backend`). Cached per (B, per-op
     backend, card name). Raises unless every time is finite and positive."""
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
@@ -126,7 +126,7 @@ def measured_tile_ms(B: int = 32, backend: str | None = None, device=None) -> di
     if dev.type != "cuda":
         raise ValueError(f"measured weights time the card's kernels, not {dev}")
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return dict(_measured(int(B), ops.per_op_backend(backend, dev),
+    return dict(_measured(int(B), ops.op_backend(backend, dev),
                           torch.cuda.get_device_name(idx), idx))
 
 

@@ -630,8 +630,10 @@ def fused_vmem_bytes(plan: Plan, *, streamed: bool = False,
     or the panel width (a panel column is a work item of its own).
     Streamed: :func:`repro_torch.kernels.superstep.streamed_shared_bytes`,
     two stages of the widest work item (a row's incoming tiles and its
-    diagonal tile) per warp, on the busiest device. ``layouts`` is
-    :func:`fused_layouts` of ``plan`` where the caller has it already.
+    diagonal tile) per warp, on the busiest device; at ``B >= 170``, where
+    two stages of one whole tile do not fit, one warp with two stages of
+    ``rows`` padded tile rows. ``layouts`` is :func:`fused_layouts` of
+    ``plan`` where the caller has it already.
     """
     B = plan.bs.B
     if not streamed:
@@ -646,7 +648,9 @@ def stream_dma_bytes_per_solve(plan: Plan, R: int = 1, *,
     an ``R``-column right-hand side, on the busiest device: every live work
     item's store entries (its incoming tiles and its diagonal tile, rows
     padded to B + 1 floats), once per column, since each column's warp
-    copies its own. ``layouts`` as for :func:`fused_vmem_bytes`."""
+    copies its own. Cutting a tile into row chunks (``B >= 170``) changes
+    the number of copies, not the bytes: the chunks cover each entry once.
+    ``layouts`` as for :func:`fused_vmem_bytes`."""
     if plan.n_levels == 0:
         return 0
     entries = max(layout.copied_entries for layout in (layouts or fused_layouts(plan)))
@@ -656,20 +660,21 @@ def stream_dma_bytes_per_solve(plan: Plan, R: int = 1, *,
 def fused_streaming(plan: Plan, R: int | None = None) -> bool:
     """Whether ``plan``'s fused levelset executor uses the streamed store:
     always for ``kernel_backend="fused_streamed"``; for ``"fused"`` when
-    :func:`resident_store_bytes` exceeds :func:`stream_limit` and two stages
-    of one tile fit a CTA's shared memory (``B <= 169``; above it the plan
-    stays resident rather than raising).
-    Never for syncfree plans (the frontier form makes per-op calls). ``R``
-    is accepted for the reference's signature; the port's rule does not
-    depend on it (the stores do not grow with the panel width)."""
+    :func:`resident_store_bytes` exceeds :func:`stream_limit`, at every
+    block size. At ``B >= 170`` the streamed kernel copies each tile in row
+    chunks; measured on an H100 (``chip_smoke.py`` phase 14,
+    ``grid2d_factor(512)``, ms per launch) it is still the faster form:
+    74.78 against the resident kernel's 415.29 at B = 176, 40.91 against
+    241.23 at B = 256. Never for syncfree plans (the frontier form makes
+    per-op calls). ``R`` is accepted for the reference's signature; the port's
+    rule does not depend on it (the stores do not grow with the panel
+    width)."""
     if plan.config.sched not in LEVELSET_SCHEDS:
         return False
     backend = plan.config.kernel_backend
     if backend == "fused_streamed":
         return True
-    return (backend == "fused"
-            and superstep.streamed_shared_bytes(plan.bs.B, 1) <= superstep.SHARED_LIMIT
-            and resident_store_bytes(plan) > stream_limit())
+    return backend == "fused" and resident_store_bytes(plan) > stream_limit()
 
 
 def schedule_table_bytes(plan: Plan) -> int:
@@ -880,6 +885,8 @@ class _FusedSchedule:
         self.split = self.mode is not None
         self.table = self.layout = self.values = None
         self.flags = superstep.ReadyFlags(plan.bs.nb + 1, device)
+        if streamed:
+            superstep.check_streamed_fits(plan.bs.B)
         if self.split:
             # each launch's superstep range: segments start at superstep starts
             segs = fused_segments(plan)
@@ -889,16 +896,11 @@ class _FusedSchedule:
             self.pulls = (_pull_rows(plan, segs[:, 0], device) if self.mode == "zerocopy"
                           else [None] * len(segs))
             if streamed or device.type == "cuda":
-                layout = superstep.segmented_layout(
+                self.layout = superstep.segmented_layout(
                     *host[1:], n_rows=plan.bs.nb + 1, stp=so,
-                    bounds=np.concatenate([lo, [plan.n_supersteps]]))
-                if streamed:
-                    superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
-                self.layout = layout.to(device)
+                    bounds=np.concatenate([lo, [plan.n_supersteps]])).to(device)
         elif streamed:
-            layout = fused_layout(plan, rank)
-            superstep.check_streamed_fits(plan.bs.B, layout.max_item_tiles)
-            self.layout = layout.to(device)
+            self.layout = fused_layout(plan, rank).to(device)
         elif device.type == "cuda":
             self.table = superstep.superstep_table(
                 *host, n_rows=plan.bs.nb + 1, stp=so).to(device)
@@ -1156,7 +1158,7 @@ class Solver:
     other backends run the per-level switch executor. Syncfree plans run the
     syncfree executor: its dense scan under ``reference`` and ``cuda``, its
     frontier-bucketed form under the fused backends, whose block ops resolve
-    by :func:`repro_torch.kernels.ops.per_op_backend` (the CUDA kernels on a
+    by :func:`repro_torch.kernels.ops.op_backend` (the CUDA kernels on a
     card).
 
     A multi-device plan (``n_devices = D``) runs on a ``torch.distributed``
@@ -1286,7 +1288,7 @@ class Solver:
             x = self._fused.run(self._diag, self._tiles, b_pad, self._exchange)
         elif self._syncfree is not None:
             x = _run_syncfree(self._syncfree, self._diag, self._tiles, b_pad,
-                              ops.per_op_backend(self.backend, self.device),
+                              ops.op_backend(self.backend, self.device),
                               self.plan.config.gemv_group,
                               self._combine_sweep if self.plan.n_devices > 1 else None)
         else:

@@ -101,14 +101,27 @@
 // own, so each column's warp copies its slot's tiles (R times the bytes of
 // a vector solve, counted in stream_dma_bytes).
 // kernels/superstep.py::streamed_shape picks warps per CTA and tiles per
-// stage so the CTA fits 227 KB of shared memory.
+// stage so the CTA fits 227 KB of shared memory. Where two stages of one
+// whole tile do not fit (B >= 170), one warp per CTA streams each tile in
+// row chunks, as the resident ring does: a stage holds `rows` padded tile
+// rows (a multiple of four, so a chunk's offset i0 (B + 1) 4 bytes is a
+// multiple of 16 for odd and even B), a tile's last chunk runs to the
+// entry's padded end (a multiple of 16 bytes too), and a work item's
+// sequence is, for each incoming tile, its chunks, then the diagonal
+// tile's. Each chunk is one bulk copy completing its stage's mbarrier,
+// issued one chunk ahead, and each is computed by the resident form's
+// steps on the same rows (chunked_item, resident_item's twin), so the two
+// forms give the same bits at every B.
 //
 // Bound: the bytes of the stores (each solved row's lower triangle and each
 // pulled tile read once) over the memory rate, about 0.1 ms for the 1M-row
 // factor. The kernel is far from it: a solve is a chain of dependent levels,
 // and each level's time is its latency chain: the flag round trip through
 // L2, the source column's read, the tile FMAs and the B-column sweep
-// (PERF.md).
+// (PERF.md). In row chunks (B >= 170) a row's work is one warp's: about
+// 52 us a level at B = 176 (74.8 ms for the 1444 levels of
+// grid2d_factor(512), against a 0.19 ms bound), mostly its tile FMAs and
+// its 176-column sweep; the resident ring's 4-byte gathers take 5.6x that.
 //
 // Layout: b, acc, x (n_rows, B, R) row-major float32 (R = 1 for vectors),
 // diag (n_rows, B, B), tiles (ML+1, B, B); the streamed store (entries,
@@ -160,6 +173,7 @@ struct Args {
   int t_lo, t_hi;  // level range of the launch
   int B, R, S, n_orphans, n_copy;
   int cap, stride;  // streamed: tiles per stage, floats per store entry
+  int rows;         // streamed: tile rows per stage (B: whole tiles; < B: row chunks)
   int chunk;        // resident: tile rows per stage
   int epoch;        // this launch's flag value, never 0
 };
@@ -170,12 +184,19 @@ size_t shared_bytes(int B) {
   return sizeof(float) * kWarpsPerCta * (kRing * kStage + (1 + kGather) * B);
 }
 
-// Streamed: per warp, two 8-byte mbarriers, two stages of `cap` store
-// entries, the same columns; laid out in that order
-// (kernels/superstep.py::_streamed_bytes is the same formula).
-size_t streamed_bytes(int warps, int cap, int B, int stride) {
+// Floats of one streamed stage: `cap` store entries, or `rows` padded tile
+// rows where a stage holds less than a tile (kernels/superstep.py::
+// stage_floats).
+__host__ __device__ __forceinline__ size_t stage_floats(int cap, int rows, int B, int stride) {
+  return rows < B ? static_cast<size_t>(rows) * (B + 1) : static_cast<size_t>(cap) * stride;
+}
+
+// Streamed: per warp, two 8-byte mbarriers, two stages, the same columns;
+// laid out in that order (kernels/superstep.py::_streamed_bytes is the same
+// formula).
+size_t streamed_bytes(int warps, int cap, int rows, int B, int stride) {
   return static_cast<size_t>(warps) *
-         (16 + 2 * static_cast<size_t>(cap) * 4 * stride + 4 * (1 + kGather) * B);
+         (16 + 2 * 4 * stage_floats(cap, rows, B, stride) + 4 * (1 + kGather) * B);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -525,29 +546,43 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const float* src, uint32
 }
 
 // A warp's double buffer. Its items' entries, cut into chunks of at most
-// `cap`, form one sequence; chunk j lands in stage j % 2 and completes that
-// stage's mbarrier for the (j / 2)-th time. While chunk j is computed,
-// chunk j + 1 is in flight. Target k < S holds store entries from
-// pull_ptr[k] + k, orphan q (target S + q) from pull_ptr[S + q] + S.
+// `cap` whole entries (or, rows < B, each entry into chunks of `rows` tile
+// rows), form one sequence; chunk j lands in stage j % 2 and completes that
+// stage's mbarrier for the (j / 2)-th time, whatever the number of chunks
+// of an item. While chunk j is computed, chunk j + 1 is in flight. Target
+// k < S holds store entries from pull_ptr[k] + k, orphan q (target S + q)
+// from pull_ptr[S + q] + S.
 struct Stream {
   float* stage[2];
   uint32_t bar[2];
   Cursor cur;  // the item being issued
   int e;       // its first entry still to issue
+  int i0;      // rows < B: that entry's first row still to issue
   bool live;
   unsigned issued, used;  // chunks issued; chunks computed
 };
 
 __device__ void issue_next(const Args& a, Stream& st, int gwarp, int n_warps, int lane) {
   if (!st.live) return;  // the warp's last chunk is already in flight
-  const int n = min(a.cap, st.cur.n_ent - st.e);
   const int first = st.cur.p0 + min(st.cur.target, a.S) + st.e;
   const int sl = st.issued & 1;
-  if (lane == 0)
-    bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(first) * a.stride,
-              static_cast<uint32_t>(n) * a.stride * 4, st.bar[sl]);
+  if (a.rows < a.B) {  // rows [i0, i1) of entry e; the last chunk to the entry's end
+    const int i1 = min(st.i0 + a.rows, a.B);
+    const int from = st.i0 * (a.B + 1), to = i1 == a.B ? a.stride : i1 * (a.B + 1);
+    if (lane == 0)
+      bulk_load(smem_addr(st.stage[sl]),
+                a.store + static_cast<size_t>(first) * a.stride + from,
+                static_cast<uint32_t>(to - from) * 4, st.bar[sl]);
+    st.i0 = i1 == a.B ? 0 : i1;
+    if (st.i0 == 0) ++st.e;
+  } else {
+    const int n = min(a.cap, st.cur.n_ent - st.e);
+    if (lane == 0)
+      bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(first) * a.stride,
+                static_cast<uint32_t>(n) * a.stride * 4, st.bar[sl]);
+    st.e += n;
+  }
   ++st.issued;
-  st.e += n;
   if (st.e == st.cur.n_ent) {
     st.e = 0;
     st.cur.item += n_warps;
@@ -558,7 +593,7 @@ __device__ void issue_next(const Args& a, Stream& st, int gwarp, int n_warps, in
 __device__ void stream_init(const Args& a, Stream& st, uint64_t* bars, float* stages,
                             int gwarp, int n_warps, int lane) {
   st.stage[0] = stages;
-  st.stage[1] = stages + static_cast<size_t>(a.cap) * a.stride;
+  st.stage[1] = stages + stage_floats(a.cap, a.rows, a.B, a.stride);
   st.bar[0] = smem_addr(bars);
   st.bar[1] = smem_addr(bars + 1);
   if (lane == 0) {
@@ -569,7 +604,7 @@ __device__ void stream_init(const Args& a, Stream& st, uint64_t* bars, float* st
   __syncwarp();
   st.issued = st.used = 0;
   st.cur = Cursor{a.t_lo, gwarp, 0, 0, 0};
-  st.e = 0;
+  st.e = st.i0 = 0;
   st.live = seek(a, gwarp, n_warps, st.cur);
   issue_next(a, st, gwarp, n_warps, lane);  // the warp's first chunk
 }
@@ -609,13 +644,55 @@ struct StreamedEntries {
   }
 };
 
+// One streamed work item whose tiles arrive in row chunks (rows < B):
+// resident_item's steps on the stream's chunks in place of the ring's
+// pieces. Each group of sources is awaited after the first chunk of its
+// first tile is acquired, so the next chunk is in flight during the wait.
+template <bool kSplit>
+__device__ void chunked_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
+                             int row, int c, bool slot, float* s, float* xcs, int lane) {
+  const int B = a.B, rows = a.rows;
+  const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
+  const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
+  if (p0 == p1) place(in, s, B, lane);
+  for (int pg = p0; pg < p1; pg += kGather) {
+    const int n = min(kGather, p1 - pg);
+    const float* buf = acquire(a, st, gwarp, n_warps, lane);
+    gather_sources(a, pg, n, c, xcs, lane);
+    if (pg == p0) place(in, s, B, lane);
+    for (int g = 0; g < n; ++g) {
+      for (int i0 = 0; i0 < B; i0 += rows) {
+        if (g > 0 || i0 > 0) buf = acquire(a, st, gwarp, n_warps, lane);
+        tile_rows(buf, B + 1, i0, min(i0 + rows, B), xcs + g * B, s, B, lane);
+        release(st);
+      }
+    }
+  }
+  store_sum<kSplit>(a, row, c, slot, in, s, lane);
+  if (!slot) return;
+  for (int i0 = 0; i0 < B; i0 += rows) {
+    const float* buf = acquire(a, st, gwarp, n_warps, lane);
+    const int i1 = min(i0 + rows, B);
+    for (int j0 = i0; j0 < i1; j0 += kWarp)
+      column_sweep(buf + static_cast<size_t>(j0 - i0) * (B + 1), B + 1, j0, min(j0 + kWarp, i1),
+                   s, lane);
+    release(st);
+  }
+  store_x(a, row, c, s, lane);
+}
+
 // One streamed work item: resident_item's steps, operation for operation,
 // on whole tiles as they arrive: the same tile_rows() and column_sweep()
 // on the same values in the same order, so both forms give the same bits.
+// Tiles wider than a stage go to chunked_item.
 template <bool kSplit>
 __device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
                               int row, int c, bool slot, float* s, float* xcs, int lane) {
   const int B = a.B;
+  if (a.rows < B) {
+    chunked_item<kSplit>(a, st, gwarp, n_warps, target, row, c, slot, s, xcs, lane);
+    return;
+  }
   const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
   const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
   const int n_ent = p1 - p0 + (slot ? 1 : 0);
@@ -656,10 +733,10 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
   Ring rg;
   if constexpr (kStream) {
     float* stages = reinterpret_cast<float*>(smem + 16 * warps);
-    s = stages + static_cast<size_t>(warps) * 2 * a.cap * a.stride + warp * (1 + kGather) * a.B;
-    stream_init(a, st, reinterpret_cast<uint64_t*>(smem) + 2 * warp,
-                stages + static_cast<size_t>(warp) * 2 * a.cap * a.stride, gwarp, n_warps,
-                lane);
+    const size_t two = 2 * stage_floats(a.cap, a.rows, a.B, a.stride);
+    s = stages + warps * two + warp * (1 + kGather) * a.B;
+    stream_init(a, st, reinterpret_cast<uint64_t*>(smem) + 2 * warp, stages + warp * two, gwarp,
+                n_warps, lane);
   } else {
     float* mine = reinterpret_cast<float*>(smem) + warp * (kRing * kStage + (1 + kGather) * a.B);
     s = mine + kRing * kStage;
@@ -772,7 +849,8 @@ cudaError_t resident_ctas(int threads, size_t smem, int* out) {
 template <bool kStream, bool kSplit>
 int launch(Args a, int warps, int max_items, int grid, void* stream) {
   if (a.epoch == 0) return cudaErrorInvalidValue;  // 0 is the value of a fresh flag
-  const size_t smem = kStream ? streamed_bytes(warps, a.cap, a.B, a.stride) : shared_bytes(a.B);
+  const size_t smem =
+      kStream ? streamed_bytes(warps, a.cap, a.rows, a.B, a.stride) : shared_bytes(a.B);
   int resident = 0;
   cudaError_t err = resident_ctas<kStream, kSplit>(warps * kWarp, smem, &resident);
   if (err != cudaSuccess) return err;
@@ -791,6 +869,18 @@ int launch(Args a, int warps, int max_items, int grid, void* stream) {
   return cudaGetLastError();
 }
 
+// The streamed shape's rule (kernels/superstep.py::streamed_shape): whole
+// entries (rows == B), or row chunks of a multiple of four rows for one warp
+// with one entry per stage; the CTA within the shared memory; the blocks
+// the resident form takes.
+bool streamed_shape_ok(int warps, int cap, int rows, int B, int stride) {
+  if (B < 1 || B >= kStage || warps < 1 || warps > kWarpsPerCta || cap < 1 || rows < 1 ||
+      rows > B)
+    return false;
+  if (rows < B && (rows % 4 != 0 || cap != 1 || warps != 1)) return false;
+  return streamed_bytes(warps, cap, rows, B, stride) <= kSharedLimit;
+}
+
 int launch_resident(const int* off, const int* wid, const int* sr, const int* pull_ptr,
                     const int* pull_tile, const int* pull_col, const int* pull_wait,
                     const int* orphan_row, const int* copy_row, const float* diag,
@@ -802,7 +892,7 @@ int launch_resident(const int* off, const int* wid, const int* sr, const int* pu
   Args a{off,   wid,   sr,      pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, copy_row,
          diag,  tiles, nullptr, b,        acc_in,    x_in,     acc,       nullptr,    x,
          flags, t_lo,  t_hi,    B,        R,         S,        n_orphans, n_copy,     0,
-         0,     chunk, epoch};
+         0,     0,     chunk,   epoch};
   return launch<false, false>(a, kWarpsPerCta, max_items, grid, stream);
 }
 
@@ -814,13 +904,12 @@ int launch_split(const int* off, const int* wid, const int* sr, const int* pull_
                  const int* orphan_row, const float* diag, const float* tiles,
                  const float* store, const float* b, const float* acc, float* delta, float* x,
                  int* flags, int t_lo, int t_hi, int B, int R, int S, int n_orphans,
-                 int max_items, int grid, int warps, int cap, int epoch, void* stream) {
+                 int max_items, int grid, int warps, int cap, int rows, int epoch,
+                 void* stream) {
   const int stride = (B * (B + 1) + 3) / 4 * 4;
   const int chunk = kStage / (B + 1) < B ? kStage / (B + 1) : B;
   if (B < 1 || R < 1) return cudaErrorInvalidValue;
-  if (kStream ? (warps < 1 || warps > kWarpsPerCta || cap < 1 ||
-                 streamed_bytes(warps, cap, B, stride) > kSharedLimit)
-              : B >= kStage)
+  if (kStream ? !streamed_shape_ok(warps, cap, rows, B, stride) : B >= kStage)
     return cudaErrorInvalidValue;
   if (kStream && reinterpret_cast<uintptr_t>(store) % 16 != 0)
     return cudaErrorMisalignedAddress;
@@ -830,7 +919,7 @@ int launch_split(const int* off, const int* wid, const int* sr, const int* pull_
   Args a{off,   wid,   sr,    pull_ptr, pull_tile, pull_col, pull_wait, orphan_row, nullptr,
          diag,  tiles, store, b,        acc,       x,        nullptr,   delta,      x,
          flags, t_lo,  t_hi,  B,        R,         S,        n_orphans, 0,          cap,
-         stride, chunk, epoch};
+         stride, rows, chunk, epoch};
   return launch<kStream, true>(a, kStream ? warps : kWarpsPerCta, max_items, grid, stream);
 }
 
@@ -868,24 +957,24 @@ int repro_superstep_panel_f32(const int* off, const int* wid, const int* sr,
 
 // The streamed form: `store` is the streamed store (kernels/superstep.py::
 // streamed_values), entries of round_up(B (B + 1), 4) floats; `warps` per
-// CTA and `cap` entries per stage come from kernels/superstep.py::
-// streamed_shape. Vectors and (n, R) panels alike.
+// CTA, `cap` entries per stage and `rows` tile rows per stage (B: whole
+// tiles) come from kernels/superstep.py::streamed_shape. Vectors and (n, R)
+// panels alike.
 int repro_superstep_streamed_f32(const int* off, const int* wid, const int* sr,
                                  const int* pull_ptr, const int* pull_col, const int* pull_wait,
                                  const int* orphan_row, const int* copy_row, const float* store,
                                  const float* b, const float* acc_in, const float* x_in,
                                  float* acc, float* x, int* flags, int t_lo, int t_hi, int B,
                                  int R, int S, int n_orphans, int n_copy, int max_items,
-                                 int grid, int warps, int cap, int epoch, void* stream) {
+                                 int grid, int warps, int cap, int rows, int epoch,
+                                 void* stream) {
   const int stride = (B * (B + 1) + 3) / 4 * 4;
-  if (B < 1 || R < 1 || warps < 1 || warps > kWarpsPerCta || cap < 1 ||
-      streamed_bytes(warps, cap, B, stride) > kSharedLimit)
-    return cudaErrorInvalidValue;
+  if (R < 1 || !streamed_shape_ok(warps, cap, rows, B, stride)) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(store) % 16 != 0) return cudaErrorMisalignedAddress;
   Args a{off,   wid,     sr,      pull_ptr, nullptr, pull_col, pull_wait, orphan_row, copy_row,
          nullptr, nullptr, store,   b,       acc_in,  x_in,     acc,       nullptr,    x,
          flags, t_lo,    t_hi,    B,       R,       S,        n_orphans, n_copy,     cap,
-         stride, 0,       epoch};
+         stride, rows,    0,       epoch};
   return launch<true, false>(a, warps, max_items, grid, stream);
 }
 
@@ -905,7 +994,7 @@ int repro_superstep_split_f32(const int* off, const int* wid, const int* sr,
                               void* stream) {
   return launch_split<false>(off, wid, sr, pull_ptr, pull_tile, pull_col, pull_wait, orphan_row,
                              diag, tiles, nullptr, b, acc, delta, x, flags, t_lo, t_hi, B, R, S,
-                             n_orphans, max_items, grid, kWarpsPerCta, 0, epoch, stream);
+                             n_orphans, max_items, grid, kWarpsPerCta, 0, 0, epoch, stream);
 }
 
 int repro_superstep_streamed_split_f32(const int* off, const int* wid, const int* sr,
@@ -914,18 +1003,21 @@ int repro_superstep_streamed_split_f32(const int* off, const int* wid, const int
                                        const float* store, const float* b, const float* acc,
                                        float* delta, float* x, int* flags, int t_lo, int t_hi,
                                        int B, int R, int S, int n_orphans, int max_items,
-                                       int grid, int warps, int cap, int epoch, void* stream) {
+                                       int grid, int warps, int cap, int rows, int epoch,
+                                       void* stream) {
   return launch_split<true>(off, wid, sr, pull_ptr, nullptr, pull_col, pull_wait, orphan_row,
                             nullptr, nullptr, store, b, acc, delta, x, flags, t_lo, t_hi, B, R, S,
-                            n_orphans, max_items, grid, warps, cap, epoch, stream);
+                            n_orphans, max_items, grid, warps, cap, rows, epoch, stream);
 }
 
 // The dynamic shared memory a launch requests: the resident form's
-// (streamed == 0), or the streamed form's with `warps` per CTA and `cap`
-// entries per stage. The rule the launches above apply, for the host to
-// check its own copy of it against (repro_torch.verify, kc.scratch.shape).
-size_t repro_superstep_shared_bytes(int streamed, int warps, int cap, int B) {
-  return streamed ? streamed_bytes(warps, cap, B, (B * (B + 1) + 3) / 4 * 4) : shared_bytes(B);
+// (streamed == 0), or the streamed form's with `warps` per CTA, `cap`
+// entries and `rows` tile rows per stage. The rule the launches above
+// apply, for the host to check its own copy of it against
+// (repro_torch.verify, kc.scratch.shape).
+size_t repro_superstep_shared_bytes(int streamed, int warps, int cap, int rows, int B) {
+  return streamed ? streamed_bytes(warps, cap, rows, B, (B * (B + 1) + 3) / 4 * 4)
+                  : shared_bytes(B);
 }
 
 // Weak: every source defines it, so the sources also link into one module.

@@ -57,17 +57,17 @@ SIGNATURES = {
     "superstep": {"repro_superstep_f32": (_P,) * 17 + (_I,) * 9 + (_P,),
                   "repro_superstep_panel_f32": (_P,) * 17 + (_I,) * 10 + (_P,),
                   # eight table pointers, seven tensor pointers, then the sizes
-                  "repro_superstep_streamed_f32": (_P,) * 15 + (_I,) * 12 + (_P,),
+                  "repro_superstep_streamed_f32": (_P,) * 15 + (_I,) * 13 + (_P,),
                   # the split form: eight table pointers, seven tensor pointers
                   "repro_superstep_split_f32": (_P,) * 15 + (_I,) * 9 + (_P,),
                   # seven table pointers, six tensor pointers
-                  "repro_superstep_streamed_split_f32": (_P,) * 13 + (_I,) * 11 + (_P,)},
+                  "repro_superstep_streamed_split_f32": (_P,) * 13 + (_I,) * 12 + (_P,)},
 }
 
 
 # entry points that launch nothing: (argument types, result type)
 QUERIES = {
-    "superstep": {"repro_superstep_shared_bytes": ((_I,) * 4, ctypes.c_size_t)},
+    "superstep": {"repro_superstep_shared_bytes": ((_I,) * 5, ctypes.c_size_t)},
 }
 
 

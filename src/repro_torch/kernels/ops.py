@@ -24,12 +24,12 @@ as one launch of the megakernel's split form per superstep
 between launches.
 
 Per-op calls (:func:`batched_block_trsv`, :func:`batched_block_gemv`) under
-either fused backend raise: the fused executor makes none, and a caller that
-wants the per-op kernels beside a fused solve resolves its own backend with
-:func:`per_op_backend`. Two callers do: the Krylov SpMV, and the syncfree
-executor's frontier-bucketed form, which the fused backends select and
-whose block ops launch the CUDA kernels on a card (the reference maps
-``fused`` to the platform default the same way).
+either fused backend run on the device's default backend
+(:func:`op_backend`: the CUDA kernels on a card, the plain versions on the
+CPU), as the reference's ``op_backend`` degrades them to its platform
+default. The fused executor itself makes none; the Krylov SpMV and the
+syncfree executor's frontier-bucketed form (which the fused backends select)
+resolve their block ops the same way.
 
 Every op accepts either a single right-hand side per tile (``(k, B)``) or a
 multi-RHS panel (``(k, B, R)``) and dispatches on that rank.
@@ -55,8 +55,6 @@ KERNELS = {"block_trsv": block_trsv, "block_trsm": block_trsm,
            "superstep_split": superstep_split_,
            "superstep_streamed_split": superstep_streamed_split_}
 
-NOT_PORTED = "not ported to the PyTorch/CUDA package yet (see ROADMAP.md, Queues 1 and 2)"
-
 
 def executor_backend(backend: str | None, device: torch.device) -> str:
     """Resolve the executor-level backend: ``None`` means ``"cuda"`` on a
@@ -68,17 +66,8 @@ def executor_backend(backend: str | None, device: torch.device) -> str:
 
 
 def op_backend(backend: str | None, device: torch.device) -> str:
-    """Resolve the per-op backend; the megakernel backends raise."""
-    b = executor_backend(backend, device)
-    if b in FUSED_BACKENDS:
-        raise NotImplementedError(f"per-op calls under kernel backend {b!r} are {NOT_PORTED}")
-    return b
-
-
-def per_op_backend(backend: str | None, device: torch.device) -> str:
-    """The per-op backend for a caller that runs block ops beside a solve:
-    a fused backend maps to the device's default (``"cuda"`` on a card,
-    ``"reference"`` on the CPU)."""
+    """Resolve the per-op backend: a fused backend maps to the device's
+    default (``"cuda"`` on a card, ``"reference"`` on the CPU)."""
     b = executor_backend(backend, device)
     return executor_backend(None, device) if b in FUSED_BACKENDS else b
 

@@ -251,42 +251,71 @@ def stream_tile_floats(B: int) -> int:
     return -(-B * (B + 1) // 4) * 4
 
 
-def _streamed_bytes(warps: int, cap: int, B: int) -> int:
-    # per warp: two 8-byte mbarriers, two stages of `cap` tiles, the row's
-    # sum and two source columns (B floats each); csrc/superstep.cu lays
-    # the CTA out in this order
-    return warps * (16 + 2 * cap * 4 * stream_tile_floats(B) + 12 * B)
+def stage_floats(B: int, cap: int, rows: int) -> int:
+    """Floats of one stage of the streamed kernel: ``cap`` whole store
+    entries, or, where a stage holds fewer than ``B`` tile rows (``rows <
+    B``, one entry in chunks), ``rows`` rows of ``B + 1`` floats."""
+    return cap * stream_tile_floats(B) if rows >= B else rows * (B + 1)
 
 
-def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int]:
-    """``(warps per CTA, tiles per stage)`` of the streamed kernel: each warp
-    double-buffers whole work items (a solve slot's incoming tiles and its
-    diagonal tile) when eight, four, two or one warps of them fit
-    ``SHARED_LIMIT``; else one warp streams its items in chunks of as many
-    tiles as fit (at least one)."""
+def _streamed_bytes(warps: int, cap: int, rows: int, B: int) -> int:
+    # per warp: two 8-byte mbarriers, two stages, the row's sum and two
+    # source columns (B floats each); csrc/superstep.cu lays the CTA out
+    # in this order
+    return warps * (16 + 2 * 4 * stage_floats(B, cap, rows) + 12 * B)
+
+
+def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int, int]:
+    """``(warps per CTA, entries per stage, tile rows per stage)`` of the
+    streamed kernel.
+
+    Each warp double-buffers whole work items (a solve slot's incoming
+    tiles and its diagonal tile) when eight, four, two or one warps of them
+    fit ``SHARED_LIMIT``; else one warp streams its items in chunks of as
+    many whole tiles as fit. Where two stages of one whole tile do not fit
+    (``B >= 170``), one warp streams each tile in row chunks: a stage holds
+    ``rows`` padded tile rows, the largest multiple of four that fits, so
+    every chunk starts ``i0 (B + 1) 4`` bytes into its entry, a multiple of
+    16 for odd and even ``B``; a tile's last chunk runs to the entry's
+    padded end (:func:`stream_tile_floats`), a multiple of 16 bytes too.
+    ``rows == B`` means whole tiles."""
     need = max(1, int(max_item_tiles))
     for warps in (8, 4, 2, 1):
-        if _streamed_bytes(warps, need, B) <= SHARED_LIMIT:
-            return warps, need
-    cap = (SHARED_LIMIT - _streamed_bytes(1, 0, B)) // (8 * stream_tile_floats(B))
-    return 1, max(1, min(cap, need))
+        if _streamed_bytes(warps, need, B, B) <= SHARED_LIMIT:
+            return warps, need, B
+    if _streamed_bytes(1, 1, B, B) <= SHARED_LIMIT:
+        cap = (SHARED_LIMIT - _streamed_bytes(1, 0, B, B)) // (8 * stream_tile_floats(B))
+        return 1, min(cap, need), B
+    rows = (SHARED_LIMIT - _streamed_bytes(1, 0, 0, B)) // (8 * (B + 1)) // 4 * 4
+    return 1, 1, rows
+
+
+def stream_chunks(B: int, rows: int) -> list[tuple[int, int]]:
+    """The ``[from, to)`` float ranges of one store entry that the streamed
+    kernel copies one after another with ``rows`` tile rows per stage: the
+    whole entry when ``rows >= B``, else ``rows`` padded rows at a time, the
+    last chunk to the entry's padded end."""
+    if rows >= B:
+        return [(0, stream_tile_floats(B))]
+    return [(i0 * (B + 1), stream_tile_floats(B) if i0 + rows >= B else (i0 + rows) * (B + 1))
+            for i0 in range(0, B, rows)]
 
 
 def streamed_shared_bytes(B: int, max_item_tiles: int) -> int:
     """Dynamic shared memory of one streamed-kernel CTA: the single source
-    of ``core.solver.fused_vmem_bytes(streamed=True)``. Above
-    ``SHARED_LIMIT`` (a tile too wide for two stages) the launch is
-    refused."""
+    of ``core.solver.fused_vmem_bytes(streamed=True)``. It fits
+    ``SHARED_LIMIT`` at every ``B`` the kernel takes (:func:`check_streamed_fits`)."""
     return _streamed_bytes(*streamed_shape(B, max_item_tiles), B)
 
 
-def check_streamed_fits(B: int, max_item_tiles: int) -> None:
-    """Raise unless two stages of one tile fit a CTA's shared memory: the
-    streamed form takes ``B <= 169`` (the resident form any ``B < 1056``)."""
-    if streamed_shared_bytes(B, max_item_tiles) > SHARED_LIMIT:
-        raise ValueError(f"streamed superstep: two stages of one B={B} tile need "
-                         f"{streamed_shared_bytes(B, 1)} bytes of shared memory, over "
-                         f"{SHARED_LIMIT}")
+def check_streamed_fits(B: int) -> None:
+    """Raise unless the streamed kernel takes block size ``B``: ``B < 1056``,
+    the range of the resident form (whose stage holds one padded tile row
+    of at most ``STAGE_FLOATS`` floats); both forms take the same blocks.
+    Below that, :func:`streamed_shape` always finds a CTA that fits."""
+    if B + 1 > STAGE_FLOATS:
+        raise ValueError(f"streamed superstep: block size B={B} is over the megakernel's "
+                         f"B < {STAGE_FLOATS} (one padded tile row of a resident stage)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -689,7 +718,7 @@ def _check_streamed(values, b_pad, acc, x, tables, layout, table: SuperstepTable
                       table.copy_row)):
         raise ValueError("superstep_streamed_call: layout must be on the operands' device "
                          "(StreamedLayout.to)")
-    check_streamed_fits(B, layout.max_item_tiles)
+    check_streamed_fits(B)
 
 
 def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, acc, x,
@@ -700,12 +729,13 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     (:func:`streamed_values` of ``layout``, the launch's
     :func:`streamed_layout`) instead of ``diag``/``tiles``. On a card, one
     cooperative launch of the streamed kernel, which copies each work
-    item's tiles into shared memory with asynchronous bulk copies issued
-    one item ahead; given CPU tensors, the plain version
+    item's tiles (at ``B >= 170`` each tile in row chunks,
+    :func:`streamed_shape`) into shared memory with asynchronous bulk
+    copies issued one chunk ahead; given CPU tensors, the plain version
     (:func:`repro_torch.kernels.ref.superstep_streamed_ref`). ``layout`` must
     be on the operands' device for a launch; ``flags`` as for
     :func:`superstep_call`, for ``b_pad.shape[0]`` rows. Raises for a block
-    size whose tile does not fit two stages of shared memory. With a
+    size the kernel does not take (:func:`check_streamed_fits`). With a
     ``delta`` carry, the split form (:func:`superstep_streamed_split_` on
     copies of the carries), which returns new ``(acc, delta, x)``."""
     if delta is not None:
@@ -727,13 +757,13 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     acc_out, x_out = torch.empty_like(acc), torch.empty_like(x)
     B = b_pad.shape[1]
     R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
-    warps, cap = streamed_shape(B, layout.max_item_tiles)
+    warps, cap, rows = streamed_shape(B, layout.max_item_tiles)
     ready, epoch = flags.next(R)
     ptrs = [t.data_ptr() for t in (off, wid, sr, table.pull_ptr, table.pull_col,
                                    table.pull_wait, table.orphan_row, table.copy_row, values,
                                    b_pad, acc, x, acc_out, x_out, ready)]
     sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.n_copy,
-             table.max_items, grid, warps, cap, epoch]
+             table.max_items, grid, warps, cap, rows, epoch]
     extension.launch("superstep", "repro_superstep_streamed_f32", values.device, *ptrs, *sizes)
     superstep_streamed_call.launches += 1
     return acc_out, x_out
@@ -770,14 +800,14 @@ def superstep_streamed_split_(seg, off, wid, sr, ut, trow, tcol, values, b_pad, 
         return acc, delta, x
     B = b_pad.shape[1]
     R = 1 if b_pad.ndim == 2 else b_pad.shape[2]
-    warps, cap = streamed_shape(B, layout.max_item_tiles)
+    warps, cap, rows = streamed_shape(B, layout.max_item_tiles)
     ready, epoch = flags.next(R)
     ptrs = [t.data_ptr() for t in (off, wid, sr)]
     ptrs += [_at(table.pull_ptr, table.ptr_at), table.pull_col.data_ptr(),
              table.pull_wait.data_ptr(), _at(table.orphan_row, table.orphan_at)]
     ptrs += [t.data_ptr() for t in (values, b_pad, acc, delta, x, ready)]
     sizes = [t_lo, t_hi, B, R, table.n_solve_slots, table.n_orphans, table.max_items, grid,
-             warps, cap, epoch]
+             warps, cap, rows, epoch]
     extension.launch("superstep", "repro_superstep_streamed_split_f32", values.device, *ptrs,
                      *sizes)
     superstep_streamed_split_.launches += 1

@@ -53,7 +53,7 @@ class SpMV:
         self.device = resolve_device(device)
         # a fused plan's solves are megakernel launches; its matvec keeps the
         # per-tile GEMV kernels
-        self.backend = ops.per_op_backend(plan.config.kernel_backend, self.device)
+        self.backend = ops.op_backend(plan.config.kernel_backend, self.device)
         self.n_matvecs = self.exchanges = 0
         nb, r = plan.bs.nb, self.rank
 

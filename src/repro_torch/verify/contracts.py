@@ -41,13 +41,18 @@ Rule catalogue (``kc.*``; all errors):
 * ``kc.stream.bytes`` (*port*) — ``stream_dma_bytes_per_solve(plan, R)``
   equals ``R x copied_entries x 4 x stream_tile_floats(B)`` with the copied
   entries (each live solve slot's diagonal tile and each in-launch update's
-  tile) counted from the plan's slices, on the busiest device.
+  tile) counted from the plan's slices, on the busiest device; and the
+  bulk copies of one entry (``kernels.superstep.stream_chunks``: the whole
+  entry, or at ``B >= 170`` chunks of ``rows`` padded tile rows) cover it
+  once, each starting and ending on a 16-byte boundary and fitting a stage.
 * ``kc.scratch.shape`` (*port*) — the shared memory a fused launch requests
   (``core.solver.fused_vmem_bytes``) is the kernel's rule: resident,
   ``kernels.superstep.shared_bytes(B)``; streamed,
   ``streamed_shared_bytes(B, max_item_tiles)`` with the widest work item
-  counted from the plan's slices; and each fits ``SHARED_LIMIT`` where the
-  plan runs that form. The streamed form fails here at ``B > 169``.
+  counted from the plan's slices (row chunks where two stages of one whole
+  tile do not fit); and each fits ``SHARED_LIMIT`` where the plan runs that
+  form. Either form fails here at ``B >= 1056`` (one padded tile row over
+  the resident stage; both forms take the same blocks).
 * ``kc.carry.donation`` (*port*) — the megakernel wrappers
   (``superstep_call``, ``superstep_streamed_call``) and their plain
   versions return fresh ``acc``/``x`` (and, split, ``delta``) tensors and
@@ -563,6 +568,21 @@ def _check_streaming(plan: "Plan", sink: RuleSink) -> None:
                 f"{superstep.stream_tile_floats(B)} floats per column ({want} bytes)",
             )
 
+    _, _, rows = superstep.streamed_shape(B, 1)
+    chunks = superstep.stream_chunks(B, rows)
+    ends = [e for chunk in chunks for e in chunk]
+    stage = superstep.stage_floats(B, 1, rows)
+    if (ends[0] != 0 or ends[-1] != superstep.stream_tile_floats(B)
+            or any(a != b for a, b in zip(ends[1:-1:2], ends[2::2]))
+            or any(e % 4 for e in ends) or any(t - f > stage for f, t in chunks)):
+        sink.fail(
+            "kc.stream.bytes",
+            f"the bulk copies of one B={B} entry ({len(chunks)} chunks of at most {rows} "
+            f"rows, float ranges {chunks[:3]}...) do not cover its "
+            f"{superstep.stream_tile_floats(B)} floats once in 16-byte-aligned pieces that "
+            f"fit a stage of {stage} floats",
+        )
+
     widest = max((int(items.max()) for items, _ in work), default=0)
     need = {False: superstep.shared_bytes(B),
             True: superstep.streamed_shared_bytes(B, widest)}
@@ -578,18 +598,19 @@ def _check_streaming(plan: "Plan", sink: RuleSink) -> None:
     # the launch this plan makes, if it makes one, must fit a CTA
     if plan.config.kernel_backend in ("fused", "fused_streamed"):
         streamed = fused_streaming(plan)
+        form = "streamed" if streamed else "resident"
         if need[streamed] > superstep.SHARED_LIMIT:
             sink.fail(
                 "kc.scratch.shape",
-                f"the {'streamed' if streamed else 'resident'} launch needs "
-                f"{need[streamed]} bytes of shared memory per CTA, over the card's "
-                f"{superstep.SHARED_LIMIT} (two stages of one B={B} tile do not fit)",
+                f"the {form} launch needs {need[streamed]} bytes of shared memory per "
+                f"CTA, over the card's {superstep.SHARED_LIMIT}",
             )
-        if not streamed and B + 1 > superstep.STAGE_FLOATS:
+        if B + 1 > superstep.STAGE_FLOATS:
             sink.fail(
                 "kc.scratch.shape",
-                f"the resident launch stages one padded tile row of {B + 1} floats "
-                f"in a stage of {superstep.STAGE_FLOATS}",
+                f"the {form} launch of B={B} tiles is over the card's megakernel "
+                f"limit: one padded tile row of {B + 1} floats in a resident stage of "
+                f"{superstep.STAGE_FLOATS} (both forms take B < {superstep.STAGE_FLOATS})",
             )
     check_pull_wait(plan, [layout.table for layout in layouts], sink)
 

@@ -425,17 +425,21 @@ def test_streamed_refresh_on_the_card(cuda_device):
     assert not np.array_equal(after, before)
 
 
-def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device):
+@pytest.mark.parametrize("B", [32, 176])
+def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device, B):
+    """A refused launch (too many CTAs) raises, is not counted and leaves the
+    next launch clean; at B = 176 the kernel streams row chunks."""
     from repro_torch.kernels import superstep
 
     a = suite.grid2d_factor(32, seed=6)
-    ctx = SpTRSVContext(options=PlanOptions(block_size=32, kernel="fused_streamed"))
+    ctx = SpTRSVContext(options=PlanOptions(block_size=B, kernel="fused_streamed"))
     h = ctx.analyse(a)
     b = np.random.default_rng(6).uniform(-1, 1, a.n)
     x = ctx.solve(h, b)
     solver = ctx.executor(h)
     fused = solver._fused
-    b_pad = torch.zeros(solver.plan.bs.nb + 1, 32, device=cuda_device)
+    assert (superstep.streamed_shape(B, fused.layout.max_item_tiles)[2] < B) == (B > 169)
+    b_pad = torch.zeros(solver.plan.bs.nb + 1, B, device=cuda_device)
     before = superstep.superstep_streamed_call.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         superstep.superstep_streamed_call(*fused.tables, fused.values, b_pad, b_pad, b_pad,
@@ -444,6 +448,95 @@ def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device):
     assert superstep.superstep_streamed_call.launches == before
     np.testing.assert_array_equal(ctx.solve(h, b), x)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the streamed megakernel at B >= 170: each tile in row chunks
+# ---------------------------------------------------------------------------
+
+CHUNKED_B = (170, 176, 203, 256)  # 168, 160, 140 and 108 rows a chunk
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("B", CHUNKED_B)
+def test_chunked_streamed_kernel_bit_identical_to_plain_version(cuda_device, B, R, split):
+    """The streamed kernel where two stages of one whole tile do not fit:
+    a launch over the whole schedule (unsplit) or over its first two
+    supersteps with non-zero carries (split: copy rows and orphans), each
+    bit-identical to its plain version on a dyadic problem and to the
+    resident kernel on the same inputs."""
+    from repro_torch.core.solver import SolverConfig, build_plan
+    from repro_torch.kernels import superstep
+
+    a = _dyadic(suite.random_levelled(4 * B, 6, 4.0, seed=6))
+    plan = build_plan(a, 1, SolverConfig(block_size=B, kernel_backend="fused_streamed"))
+    (seg, *rest), stp = _fused_tables(plan, "cpu")
+    if split:
+        seg = torch.tensor([0, 2], dtype=torch.int32)
+    tables = [seg, *rest]
+    rng = np.random.default_rng(B)
+    shape = (plan.bs.nb + 1, B) if R == 1 else (plan.bs.nb + 1, B, R)
+    vecs = [rng.integers(-3, 4, shape).astype(np.float32) for _ in range(4 if split else 1)]
+    for v in vecs:
+        v[-1] = 0
+    if not split:
+        vecs += [np.zeros(shape, np.float32)] * 3
+    layout = superstep.streamed_layout(*[t.numpy() for t in tables], n_rows=shape[0],
+                                       stp=stp.numpy())
+    warps, cap, rows = superstep.streamed_shape(B, layout.max_item_tiles)
+    assert (warps, cap) == (1, 1) and rows < B and rows % 4 == 0
+    assert not split or layout.table.n_orphans > 0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        t = [v.to(dev) for v in tables]
+        b_pad, acc, delta, x = (torch.from_numpy(v.copy()).to(dev) for v in vecs)
+        diag = torch.from_numpy(plan.diag).to(dev)
+        tiles = torch.from_numpy(np.ascontiguousarray(plan.tiles[0])).to(dev)
+        lay = layout.to(dev)
+        values = superstep.streamed_values(lay, diag, tiles)
+        flags = superstep.ReadyFlags(shape[0], dev)
+        carries = dict(delta=delta) if split else {}
+        ops.reset_launch_counts()
+        got = superstep.superstep_streamed_call(*t, values, b_pad, acc, x, stp=stp.to(dev),
+                                                layout=lay, flags=flags, **carries)
+        name = "superstep_streamed_split" if split else "superstep_streamed"
+        assert ops.launch_counts()[name] == (0 if dev == "cpu" else 1)
+        outs[str(dev)] = [g.cpu().numpy() for g in got]
+        if dev != "cpu":
+            resident = superstep.superstep_call(*t, diag, tiles, b_pad, acc, x, stp=stp.to(dev),
+                                                flags=flags, **carries)
+            for g, r in zip(got, resident):
+                np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sched", ["levelset", "dagpart"])
+@pytest.mark.parametrize("B", CHUNKED_B)
+def test_chunked_streamed_bit_identical_to_resident_on_real_values(cuda_device, B, sched):
+    """The chunked streamed kernel runs the resident kernel's FMAs and
+    divisions in the same order (row chunks of other lengths): forward,
+    transpose and an (n, 3) panel of a real-valued factor give the
+    resident kernel's bits, one streamed launch a solve, within 2e-4 of the
+    CPU."""
+    a = suite.grid2d_factor(48, seed=6)
+    rng = np.random.default_rng(B)
+    b, panel = rng.uniform(-1, 1, a.n), rng.uniform(-1, 1, (a.n, 3))
+    ctx = {k: SpTRSVContext(options=PlanOptions(block_size=B, sched=sched, kernel=k))
+           for k in ("fused", "fused_streamed")}
+    h = {k: c.analyse(a) for k, c in ctx.items()}
+    cpu = SpTRSVContext(device="cpu", options=PlanOptions(block_size=B, sched=sched))
+    hc = cpu.analyse(a)
+    for rhs, transpose in ((b, False), (b, True), (panel, False)):
+        ops.reset_launch_counts()
+        x = ctx["fused_streamed"].solve(h["fused_streamed"], rhs, transpose=transpose)
+        counts = ops.launch_counts()
+        assert counts["superstep_streamed"] == 1 and sum(counts.values()) == 1, counts
+        np.testing.assert_array_equal(
+            x, ctx["fused"].solve(h["fused"], rhs, transpose=transpose))
+        np.testing.assert_allclose(x, cpu.solve(hc, rhs, transpose=transpose),
+                                   rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -1238,7 +1331,7 @@ def test_background_engine_launches_on_its_one_stream(cuda_device, monkeypatch):
         np.testing.assert_array_equal(t.result(0), results[i])
 
 
-@pytest.mark.parametrize("B", [8, 16, 32, 64])
+@pytest.mark.parametrize("B", [8, 16, 32, 64, 176, 256])
 def test_scratch_shape_rule_is_the_launchs(cuda_device, B):
     """The verifier's kc.scratch.shape holds the host's copy of the shared
     memory rule; the launch code's own (csrc/superstep.cu) agrees."""
@@ -1252,11 +1345,11 @@ def test_scratch_shape_rule_is_the_launchs(cuda_device, B):
         report = verify_plan(plan, level="strict")
         assert report.passed and "kc.scratch.shape" in report.rules_checked
         layout = tsolver.fused_layouts(plan)[0]
-        warps, cap = superstep.streamed_shape(B, layout.max_item_tiles)
-        launch = extension.query("superstep", "repro_superstep_shared_bytes", 1, warps, cap, B)
+        shape = superstep.streamed_shape(B, layout.max_item_tiles)
+        launch = extension.query("superstep", "repro_superstep_shared_bytes", 1, *shape, B)
         assert tsolver.fused_vmem_bytes(plan, streamed=True) == launch
         assert tsolver.fused_vmem_bytes(plan) == extension.query(
-            "superstep", "repro_superstep_shared_bytes", 0, 0, 0, B)
+            "superstep", "repro_superstep_shared_bytes", 0, 0, 0, 0, B)
         # and the launch runs with that much: a solve of the plan's own executor
         ctx = SpTRSVContext(options=PlanOptions(block_size=B, kernel=kernel))
         b = np.ones(a.n, np.float32)

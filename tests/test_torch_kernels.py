@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.block_spmv import (
     block_gemm as jgemm, block_gemv as jgemv, block_gemv_grouped as jgemv_grouped,
@@ -112,17 +113,30 @@ def test_backend_resolution():
         ops.executor_backend("pallas", torch.device("cpu"))
 
 
-@pytest.mark.parametrize("call", [
-    lambda L, r: ops.batched_block_trsv(L, r, backend="fused_streamed"),
-    lambda L, r: ops.batched_block_gemv(L, r, backend="fused"),
-    lambda L, r: ops.batched_block_trsv(L, r, backend="fused"),
-    lambda L, r: ops.batched_block_gemv(L, r, backend="fused_streamed"),
+@pytest.mark.parametrize("op,backend", [
+    ("batched_block_trsv", "fused_streamed"), ("batched_block_gemv", "fused"),
+    ("batched_block_trsv", "fused"), ("batched_block_gemv", "fused_streamed"),
 ])
-def test_unported_variants_raise(call):
-    """Per-op calls under a fused backend: the fused executor makes none."""
+def test_unported_variants_raise(op, backend):
+    """Per-op calls under a fused backend no longer raise: like the
+    reference's ``op_backend``, the port degrades them to the device's
+    default (``reference`` on the CPU) and returns the reference's result
+    on the same inputs, vectors and panels, bit for bit on a dyadic batch
+    (``2 I`` against ``[8, 12, 0, -12]`` gives ``[4, 6, 0, -6]``)."""
+    assert ops.op_backend(backend, torch.device("cpu")) == "reference"
     L, r = _tri(2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(_t(L), _t(r))
+    rp = np.random.default_rng(3).uniform(-1, 1, (2, 8, 3)).astype(np.float32)
+    for rhs in (r, rp):
+        got = getattr(ops, op)(_t(L), _t(rhs), backend=backend).numpy()
+        want = getattr(jops, op)(jnp.asarray(L), jnp.asarray(rhs), backend=backend)
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    two = 2 * np.eye(4, dtype=np.float32)[None]
+    b = np.array([[8.0, 12.0, 0.0, -12.0]], np.float32)
+    got = getattr(ops, op)(_t(two), _t(b), backend=backend).numpy()
+    want = np.asarray(getattr(jops, op)(jnp.asarray(two), jnp.asarray(b), backend=backend))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        want, [[4.0, 6.0, 0.0, -6.0]] if op == "batched_block_trsv" else [[16.0, 24.0, 0.0, -24.0]])
 
 
 @pytest.mark.parametrize("variant", ["panel", "group"])

@@ -406,18 +406,24 @@ def test_fused_streams_exactly_above_the_limit(monkeypatch, sched):
         assert tsolver.fused_streaming(p) == tsolver.dispatch_stats(p)["streamed"] == want
 
 
-@pytest.mark.parametrize("B,fits", [(169, True), (170, False)])
+@pytest.mark.parametrize("B,fits", [(169, True), (170, True), (1056, False)])
 def test_fused_stays_resident_where_the_streamed_form_does_not_fit(B, fits):
-    """Above B = 169 two stages of one tile exceed shared memory: plain
-    ``fused`` stays resident there instead of raising (``fused_streamed``
-    is refused when its ``Solver`` is built)."""
+    """The streamed kernel takes every B < 1056 (from B = 170 in row
+    chunks, measured faster than the resident kernel there: PERF.md), so
+    plain ``fused`` above the stream limit streams at every such B; at B =
+    1056, which neither form takes, both fused ``Solver``s are refused
+    when built."""
     a = to_torch_csr(strategies.random_triangular(n=2 * B, seed=1, m=8 * B))
-    plan = tsolver.build_plan(a, 1, tsolver.SolverConfig(block_size=B, kernel_backend="fused"))
-    assert (tss.streamed_shared_bytes(B, 1) <= tss.SHARED_LIMIT) == fits
-    assert tsolver.fused_streaming(plan) == tsolver.dispatch_stats(plan)["streamed"] == fits
-    assert _solver_form(plan) == fits
-    streamed = tsolver.build_plan(a, 1, tsolver.SolverConfig(block_size=B,
-                                                             kernel_backend="fused_streamed"))
-    if not fits:
-        with pytest.raises(ValueError, match="shared memory"):
-            tsolver.Solver(streamed, "cpu")
+    plans = {k: tsolver.build_plan(a, 1, tsolver.SolverConfig(block_size=B, kernel_backend=k))
+             for k in ("fused", "fused_streamed")}
+    assert tss.streamed_shared_bytes(B, 1) <= tss.SHARED_LIMIT
+    for plan in plans.values():
+        assert tsolver.fused_streaming(plan) and tsolver.dispatch_stats(plan)["streamed"]
+        if not fits:
+            with pytest.raises(ValueError, match="block size"):
+                tsolver.Solver(plan, "cpu")
+    if fits:
+        assert _solver_form(plans["fused"])
+        b = np.random.default_rng(3).uniform(-1, 1, a.n)
+        np.testing.assert_array_equal(tsolver.Solver(plans["fused"], "cpu").solve(b),
+                                      tsolver.Solver(plans["fused_streamed"], "cpu").solve(b))

@@ -20,7 +20,10 @@ import scipy.sparse.linalg as spla
 import torch
 
 import strategies
-from torch_parity import flatten_plan, hopper_fused_stats, port_config, to_torch_csr
+from torch_parity import (
+    SHARED_LIMIT, flatten_plan, hopper_fused_stats, port_config, stream_chunk_bytes,
+    stream_chunk_rows, to_torch_csr,
+)
 from repro import krylov as jkrylov
 from repro.core import DistributedSolver, SolverConfig, build_plan
 from repro.core import solver as jsolver
@@ -173,36 +176,53 @@ def test_layout_puts_each_item_in_one_contiguous_run(B):
 
 def test_streamed_shape_fits_the_shared_memory():
     """Whole items while 8, 4, 2 or 1 warps of them fit; else one warp in
-    chunks; a tile too wide for two stages is refused."""
-    assert tss.streamed_shape(32, 3) == (8, 3)
-    assert tss.streamed_shape(32, 6) == (4, 6)
-    assert tss.streamed_shape(32, 100) == (1, 27)
-    for B, item in ((32, 3), (7, 2), (64, 5), (160, 1)):
+    chunks of whole tiles; where two stages of one tile do not fit (B >=
+    170), one warp in chunks of tile rows; the CTA fits at every B < 1056,
+    and a call at B = 1056 is refused."""
+    assert tss.streamed_shape(32, 3) == (8, 3, 32)
+    assert tss.streamed_shape(32, 6) == (4, 6, 32)
+    assert tss.streamed_shape(32, 100) == (1, 27, 32)
+    assert tss.streamed_shape(169, 4) == (1, 1, 169)
+    assert tss.streamed_shape(200, 4) == (1, 1, stream_chunk_rows(200)) == (1, 1, 140)
+    for B, item in ((32, 3), (7, 2), (64, 5), (160, 1), (200, 1), (1055, 9)):
         assert tss.streamed_shared_bytes(B, item) <= tss.SHARED_LIMIT
-    assert tss.streamed_shared_bytes(200, 1) > tss.SHARED_LIMIT
-    plan = _ref_plan("skewed", 8, "levelset", False)
+    a = strategies.diagonal_matrix(1056)
+    plan = build_plan(a, 1, SolverConfig(block_size=1056, kernel_backend="fused_streamed"))
     tab = _tables(plan)
     layout = _layout(plan, tab)
-    zeros = torch.zeros(plan.bs.nb + 1, 200)
+    zeros = torch.zeros(plan.bs.nb + 1, 1056)
     t = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)) for k, v in tab.items()}
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="block size B=1056"):
         tss.superstep_streamed_call(
             t["seg"], t["off"], t["wid"], t["sr"], t["ut"], t["trow"], t["tcol"],
-            torch.zeros(layout.source.shape[0], tss.stream_tile_floats(200)), zeros, zeros,
+            torch.zeros(layout.source.shape[0], tss.stream_tile_floats(1056)), zeros, zeros,
             zeros, stp=t["stp"], layout=layout, flags=tss.ReadyFlags(zeros.shape[0], "cpu"))
 
 
 def test_streamed_shared_memory_rule():
     """Per warp: two mbarriers, two stages of the widest item's padded
-    tiles and three columns of B floats (the row's sum and two source
-    columns); the widest block that fits stays 169."""
-    for B, item in ((32, 3), (7, 2), (169, 1)):
-        warps, cap = tss.streamed_shape(B, item)
-        assert tss.streamed_shared_bytes(B, item) == warps * (
-            16 + 2 * cap * 4 * tss.stream_tile_floats(B) + 12 * B)
+    tiles (or, from B = 170, of ``rows`` padded tile rows) and three
+    columns of B floats (the row's sum and two source columns); the widest
+    block whose two whole tiles fit stays 169. Each chunk of an entry
+    starts and ends on a 16-byte boundary, fits a stage, and the chunks
+    cover the entry once (the mirror in ``tests/torch_parity.py``)."""
+    for B, item in ((32, 3), (7, 2), (169, 1), (170, 1), (203, 5), (256, 2), (1055, 1)):
+        warps, cap, rows = tss.streamed_shape(B, item)
+        stage = cap * tss.stream_tile_floats(B) if rows == B else rows * (B + 1)
+        assert tss.stage_floats(B, cap, rows) == stage
+        assert tss.streamed_shared_bytes(B, item) == warps * (16 + 2 * 4 * stage + 12 * B)
+        assert (rows < B) == (B >= 170)
+        chunks = [(4 * f, 4 * t) for f, t in tss.stream_chunks(B, rows)]
+        if rows < B:
+            assert (warps, cap, rows) == (1, 1, stream_chunk_rows(B)) and rows % 4 == 0
+            assert chunks == stream_chunk_bytes(B)
+        assert chunks[0][0] == 0 and chunks[-1][1] == 4 * tss.stream_tile_floats(B)
+        assert all(t0 == f1 for (_, t0), (f1, _) in zip(chunks, chunks[1:]))
+        assert all(f % 16 == 0 and t % 16 == 0 and 0 < t - f <= 4 * stage for f, t in chunks)
     assert tss.streamed_shared_bytes(32, 3) == 8 * (16 + 2 * 3 * 4 * 1056 + 12 * 32) == 205_952
-    assert tss.streamed_shared_bytes(169, 1) <= tss.SHARED_LIMIT
-    assert tss.streamed_shared_bytes(170, 1) > tss.SHARED_LIMIT
+    assert tss.streamed_shared_bytes(169, 1) == 16 + 2 * 4 * 28_732 + 12 * 169 <= SHARED_LIMIT
+    assert tss.streamed_shared_bytes(170, 1) == 16 + 2 * 4 * 168 * 171 + 12 * 170 <= SHARED_LIMIT
+    assert 16 + 2 * 4 * tss.stream_tile_floats(170) + 12 * 170 > SHARED_LIMIT
 
 
 def test_streamed_layout_table_carries_the_wait_marks():
@@ -396,16 +416,16 @@ def test_streamed_solver_keeps_only_the_store():
     np.testing.assert_array_equal(streamed.solve(b), solvers["fused"].solve(b))
 
 
-@pytest.mark.parametrize("B,fits", [(169, True), (170, False)])
+@pytest.mark.parametrize("B,fits", [(169, True), (170, True), (1056, False)])
 def test_streamed_solver_refuses_a_block_too_wide_when_built(B, fits):
-    """Two stages of one tile must fit a CTA's shared memory (B <= 169):
-    a wider block is refused when the ``Solver`` is built, not at its
-    first solve."""
+    """The streamed kernel takes every B < 1056 (from B = 170 in row
+    chunks): a wider block is refused when the ``Solver`` is built, not at
+    its first solve."""
     a = strategies.random_triangular(n=2 * B, seed=1, m=8 * B)
     plan = tsolver.build_plan(to_torch_csr(a), 1, tsolver.SolverConfig(
         block_size=B, kernel_backend="fused_streamed"))
     if not fits:
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="block size"):
             tsolver.Solver(plan, "cpu")
         return
     b = np.random.default_rng(9).uniform(-1, 1, a.n)

@@ -457,11 +457,20 @@ def test_fused_streamed_form_runs_and_matches_the_reference():
 
 
 def test_per_op_calls_under_fused_raise_and_spmv_keeps_the_gemv():
+    """Per-op calls under a fused backend run the device's default backend,
+    as the reference's do (the two packages agree bit for bit on a dyadic
+    batch); the SpMV keeps the GEMV; the megakernels are counted."""
+    from repro.kernels import ops as jops
+
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.batched_block_gemv(torch.zeros(1, 8, 8), torch.zeros(1, 8), backend="fused")
-    assert ops.per_op_backend("fused", cpu) == "reference"
-    assert ops.per_op_backend("cuda", cpu) == "cuda"
+    rng = np.random.default_rng(2)
+    tiles = rng.integers(-2, 3, (3, 8, 8)).astype(np.float32)
+    xs = rng.integers(-4, 5, (3, 8)).astype(np.float32)
+    got = ops.batched_block_gemv(torch.from_numpy(tiles), torch.from_numpy(xs), backend="fused")
+    want = jops.batched_block_gemv(jnp.asarray(tiles), jnp.asarray(xs), backend="fused")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert ops.op_backend("fused", cpu) == ops.op_backend("fused_streamed", cpu) == "reference"
+    assert ops.op_backend("cuda", cpu) == "cuda"
     assert "superstep" in ops.launch_counts()
 
 

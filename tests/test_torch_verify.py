@@ -433,16 +433,19 @@ def test_scratch_shape_fires_on_a_stage_sized_by_the_whole_store(clean_plan, mon
     assert rules_of(tverify.verify_plan(clean_plan, "contracts")) == {"kc.scratch.shape"}
 
 
-@pytest.mark.parametrize("B,fits", [(169, True), (170, False)])
+@pytest.mark.parametrize("B,fits", [(169, True), (170, True), (1056, False)])
 def test_scratch_shape_refuses_the_streamed_form_above_b169(B, fits):
+    """The streamed form is clean at every B < 1056 (from B = 170 it copies
+    row chunks); at B = 1056 both fused forms fail ``kc.scratch.shape``,
+    and ``cuda``, which makes no fused launch, passes."""
     a = to_torch_csr(suite.random_levelled(600, 4, 2.0, seed=3))
-    for kernel, streams in (("fused_streamed", True), ("fused", False), ("cuda", False)):
+    for kernel, fused in (("fused_streamed", True), ("fused", True), ("cuda", False)):
         plan = tsolver.build_plan(a, 1, tsolver.SolverConfig(block_size=B, kernel_backend=kernel),
                                   device="cpu")
         report = tverify.verify_plan(plan, level="strict")
         bad = report.by_rule("kc.scratch.shape")
-        # plain fused stays resident above B = 169, and cuda makes no fused launch
-        assert bool(bad) == (streams and not fits), [str(f) for f in bad]
+        assert bool(bad) == (fused and not fits), [str(f) for f in bad]
+        assert report.passed == (not bad)
         if bad:
             assert "over the card's" in bad[0].message
 

@@ -79,7 +79,7 @@ def assert_plans_identical(ref_plan, port_plan) -> None:
 # "streamed" is true for kernel_backend="fused_streamed", and for "fused"
 # when the resident store (diag + tiles bytes) exceeds the port's stream
 # limit (measured on the card; 0 unless REPRO_TORCH_STREAM_LIMIT or paired
-# calibration samples set it) and one tile fits the streamed kernel;
+# calibration samples set it), at every block size;
 # "fused_vmem_bytes" is the megakernel's dynamic shared memory per CTA and
 # "stream_dma_bytes" the bytes the streamed kernel copies per vector solve
 HOPPER_FUSED_KEYS = ("streamed", "fused_vmem_bytes", "stream_dma_bytes")
@@ -126,7 +126,10 @@ def hopper_fused_stats(ref_plan) -> dict:
     but does not solve (incoming tiles only). Store entries are tiles with
     rows padded to B + 1 floats, then to a multiple of four; each warp
     double-buffers its widest item when 8, 4, 2 or 1 warps of them fit the
-    shared memory, besides two mbarriers and three B-float columns.
+    shared memory, besides two mbarriers and three B-float columns; where
+    not even one warp's two stages of one tile fit, one warp's two stages
+    hold the most padded tile rows that fit, a multiple of four
+    (:func:`stream_chunk_rows`).
     """
     B = ref_plan.bs.B
     entry = 4 * (-(-B * (B + 1) // 4) * 4)
@@ -137,7 +140,7 @@ def hopper_fused_stats(ref_plan) -> dict:
     kernel = ref_plan.config.kernel_backend
     streamed = ref_plan.config.sched in ("levelset", "dagpart") and (
         kernel == "fused_streamed"
-        or (kernel == "fused" and size(1, 1) <= SHARED_LIMIT
+        or (kernel == "fused"
             and ref_plan.diag.nbytes + ref_plan.tiles.nbytes > tsolver.stream_limit()))
     if not streamed:
         # 8 warps, each with a ring of three 1056-float prefetch stages and
@@ -156,10 +159,33 @@ def hopper_fused_stats(ref_plan) -> dict:
 
     need = max(1, widest)
     fits = [w for w in (8, 4, 2, 1) if size(w, need) <= SHARED_LIMIT]
-    vmem = (size(fits[0], need) if fits
-            else size(1, max(1, min(need, (SHARED_LIMIT - size(1, 0)) // (2 * entry)))))
+    if fits:
+        vmem = size(fits[0], need)
+    elif size(1, 1) <= SHARED_LIMIT:
+        vmem = size(1, min(need, (SHARED_LIMIT - size(1, 0)) // (2 * entry)))
+    else:
+        vmem = 16 + 2 * 4 * stream_chunk_rows(B) * (B + 1) + 12 * B
     return {"streamed": True, "fused_vmem_bytes": vmem,
             "stream_dma_bytes": copied * entry if ref_plan.n_levels else 0}
+
+
+def stream_chunk_rows(B: int) -> int:
+    """Padded tile rows (B + 1 floats each) of one stage of the one-warp
+    streamed kernel: the largest multiple of four whose two stages, two
+    mbarriers and three B-float columns fit the shared memory."""
+    rows = 0
+    while 16 + 2 * 4 * (rows + 4) * (B + 1) + 12 * B <= SHARED_LIMIT:
+        rows += 4
+    return rows
+
+
+def stream_chunk_bytes(B: int) -> list:
+    """Byte ranges of the bulk copies of one store entry at a B whose tile
+    is copied in row chunks: ``rows`` padded rows at a time from the
+    entry's start, the last chunk to the entry's padded end."""
+    rows, end = stream_chunk_rows(B), 4 * (-(-B * (B + 1) // 4) * 4)
+    return [(4 * i0 * (B + 1), 4 * (i0 + rows) * (B + 1) if i0 + rows < B else end)
+            for i0 in range(0, B, rows)]
 
 
 def assert_dispatch_stats_match(ref_stats: dict, ref_plan, port_stats: dict) -> None:
