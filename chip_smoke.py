@@ -186,10 +186,12 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    ``SpTRSVContext``: forward, transpose and (n, 8) solves each within 2e-4
    of scipy, streamed bit-equal to resident, one launch each as
    ``dispatch_stats`` says, no plain version; the twin's solves exactly
-   ``x``; the shape (rows a stage, shared bytes, bytes copied per solve);
-   ms per solve (median, min, max of 5) for both forms and cuSPARSE, the
-   kernels alone in turns (CUDA events and ``torch.profiler``), the
-   streamed kernel against its plain version; plain ``fused`` takes the
+   ``x``; the shape (W warps a CTA, one CTA an item; rows a stage, shared
+   bytes, bytes copied per solve); ms per solve (median, min, max of 5) for
+   both forms and cuSPARSE (and its device ms), the kernels alone in turns
+   (CUDA events and ``torch.profiler``), the streamed kernel against its
+   plain version, its split per level (``perf/profile_solve.py``) and one
+   CTA's bulk-copy rate (``perf/bulk_copy.py``); plain ``fused`` takes the
    form measured faster there; the split forms at B = 176 on a merged step
    of a two-device unified plan (bit-equal to their plain versions on a
    shallow dyadic problem, to each other on the real factor, timed there);
@@ -1778,9 +1780,10 @@ def phase_tail(results: list, card: str, device: str = "cuda:0") -> tuple:
 
 def cusparse_ms(a, b, want) -> tuple:
     """``torch.triangular_solve`` on ``a``'s CSR on the card (cuSPARSE): its
-    ms per solve (CUDA events, 5 solves) where it agrees with scipy within
-    ``TOL_SOLVE``, else ``None``, and a note. A yardstick only: the port
-    never calls it."""
+    ms per solve (CUDA events, 5 solves) and its device ms (``torch.profiler``,
+    every kernel of the call, 5 calls) where it agrees with scipy within
+    ``TOL_SOLVE``, else ``None`` for both, and a note. A yardstick only: the
+    port never calls it."""
     import numpy as np
     import torch
 
@@ -1794,11 +1797,13 @@ def cusparse_ms(a, b, want) -> tuple:
     try:
         lib_x = torch.triangular_solve(bvec, L_csr, upper=False).solution
         lib_err = rel_err(lib_x.cpu().numpy().ravel(), want)
-        ms = (time_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), 5, warmup=1)
-              if lib_err <= TOL_SOLVE else None)
-        return ms, f"rel err {lib_err:.2e} vs scipy"
+        if lib_err > TOL_SOLVE:
+            return None, None, f"rel err {lib_err:.2e} vs scipy"
+        ms = time_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), 5, warmup=1)
+        dev = device_ms(lambda: torch.triangular_solve(bvec, L_csr, upper=False), ".", 5)
+        return ms, dev, f"rel err {lib_err:.2e} vs scipy"
     except (RuntimeError, NotImplementedError) as e:  # a yardstick only, never on the path
-        return None, f"refused: {str(e).splitlines()[0][:160]}"
+        return None, None, f"refused: {str(e).splitlines()[0][:160]}"
 
 
 # ---------------------------------------------------------------------------
@@ -1892,7 +1897,8 @@ def wide_split_row(a, a_dy, B: int, rng, launches: int, device: str = "cuda:0") 
                       f"phase 14 split B={B} {form} != its plain version on the dyadic step")
         check(all(torch.equal(g, w) for g, w in zip(got["streamed"], got["resident"])),
               f"phase 14 split B={B} ({values}): streamed != resident bit for bit")
-        step = {"superstep": s, "levels": [int(so[s]), int(so[s + 1])], "device": d,
+        step = {"superstep": s, "levels": [int(so[s]), int(so[s + 1])],
+                "n_levels": int(so[s + 1] - so[s]), "device": d,
                 "rows_solved": rows, "orphans": table.n_orphans}
         if values == "dyadic":
             log(f"phase 14 split kernels at B={B}, shallow dyadic problem (device {d} of "
@@ -1933,7 +1939,7 @@ def wide_split_row(a, a_dy, B: int, rng, launches: int, device: str = "cuda:0") 
     return out
 
 
-def phase_wide(rng, wide_rank: dict) -> tuple:
+def phase_wide(rng, wide_rank: dict, copy_lib) -> tuple:
     """Phase 14 on ``grid2d_factor(PCG_SIDE)`` and its dyadic twin, at each
     of ``WIDE_BLOCKS``: ``kernel="fused_streamed"`` (row chunks) and the
     resident ``"fused"`` (``REPRO_TORCH_STREAM_LIMIT`` above every store)
@@ -1945,7 +1951,11 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
     split forms at the first block (:func:`wide_split_row`); then
     ``perf/stream_crossover.py`` at ``CROSSOVER_BLOCKS``. ``wide_rank`` is
     rank 0's two-rank zerocopy solve at ``WIDE_BLOCKS[0]`` (phase 12's
-    ranks). Returns the two kernel rows and the launches of each path."""
+    ranks). Per B, the streamed kernel's split per level
+    (``perf/profile_solve.py``'s: whole, without tile products, launch and
+    level walk alone) and one CTA's bulk-copy rate at its chunk size
+    (``perf/bulk_copy.py``, ``copy_lib`` its library). Returns the two
+    kernel rows and the launches of each path."""
     import numpy as np
     import scipy.sparse.linalg as spla
     import torch
@@ -1962,6 +1972,8 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
     from repro_torch.sparse.matrix import reference_solve, to_scipy
 
     sys.path.insert(0, str(ROOT / "perf"))
+    import bulk_copy
+    import profile_solve
     import stream_crossover
 
     t_start = time.perf_counter()
@@ -1974,7 +1986,7 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
     want = {"forward": reference_solve(a, b),
             "transpose": spla.spsolve_triangular(to_scipy(a).T.tocsr(), b, lower=False),
             "panel_r8": reference_solve(a, panel)}
-    library_ms, lib_note = cusparse_ms(a, b, want["forward"])
+    library_ms, library_device_ms, lib_note = cusparse_ms(a, b, want["forward"])
     paths, chunked, faster = {}, {}, {}
     for B in WIDE_BLOCKS:
         t0 = time.perf_counter()
@@ -1991,14 +2003,16 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
             stats = dispatch_stats(plan)
             fused = forms["streamed"][0].executor(forms["streamed"][1])._fused
             warps, cap, rows = superstep.streamed_shape(B, fused.layout.max_item_tiles)
-            check(stats["streamed"] and (warps, cap) == (1, 1) and rows < B,
-                  f"phase 14 B={B}: the streamed plan's shape {(warps, cap, rows)}")
+            check(stats["streamed"] and (warps, cap) == (superstep.chunk_warps(B), 1)
+                  and rows < B, f"phase 14 B={B}: the streamed plan's shape "
+                  f"{(warps, cap, rows)}")
             check(not dispatch_stats(forms["resident"][0].plan(forms["resident"][1]))["streamed"],
                   f"phase 14 B={B}: fused did not stay resident under the raised limit")
             log(f"phase 14 B={B}: n={a.n} nb={plan.bs.nb} levels={plan.n_levels}, "
                 f"resident_store_bytes {resident_store_bytes(plan)}, streamed store "
-                f"{fused.values.numel() * 4} B; {warps} warp/CTA, two stages of {rows} tile "
-                f"rows ({len(superstep.stream_chunks(B, rows))} bulk copies a tile), "
+                f"{fused.values.numel() * 4} B; W = {warps} warps a CTA, one CTA an item, "
+                f"sharing two stages of {rows} tile rows "
+                f"({len(superstep.stream_chunks(B, rows))} bulk copies a tile), "
                 f"{stats['fused_vmem_bytes']} B shared memory/CTA; bulk-copied per solve "
                 f"{stats['stream_dma_bytes']} B (vector); analyse+plan+layout+upload "
                 f"(forward and transpose, both forms) {analyse_s:.1f} s")
@@ -2063,10 +2077,12 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
                 "ms": s_ms, "resident_ms": r_ms, "turns_ms": turns, "max_abs_err": e_plain,
                 "plain_ms": time_ms(plain_fn, 1, warmup=0), "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
+                "library_device_ms": library_device_ms,
                 "device_ms": device_ms(streamed_fn, MEGAKERNEL_SYMBOL[True, False], 5),
                 "resident_device_ms": device_ms(resident_fn, MEGAKERNEL_SYMBOL[False, False], 3),
                 "solve_ms": {k: v["forward"] for k, v in ms.items()},
-                "shape": [a.n, B, 1], "rows": rows, "shared_bytes": stats["fused_vmem_bytes"],
+                "shape": [a.n, B, 1], "n_levels": plan.n_levels, "warps": warps, "rows": rows,
+                "shared_bytes": stats["fused_vmem_bytes"],
                 "copied_bytes": stats["stream_dma_bytes"]}
             log(f"phase 14 B={B} rel err vs scipy: " + ", ".join(
                 f"{f}={rel_err(xs['streamed'][f], want[f]):.2e}" for f in want)
@@ -2075,13 +2091,27 @@ def phase_wide(rng, wide_rank: dict) -> tuple:
                 f"{name} " + ", ".join(f"{k}={v[2]:.2f} ({v[0]:.2f}, {v[-1]:.2f})"
                                        for k, v in t.items()) for name, t in ms.items())
                 + f"; cuSPARSE (torch.triangular_solve on the CSR) "
-                f"{'n/a' if library_ms is None else f'{library_ms:.3f}'} ms ({lib_note})")
+                f"{'n/a' if library_ms is None else f'{library_ms:.3f}'} ms (device "
+                f"{library_device_ms}; {lib_note})")
             log(f"phase 14 B={B} kernel alone, ms per launch (CUDA events, 5 launches, turns "
                 f"resident, streamed, streamed, resident {[round(t, 4) for t in turns]}): "
                 f"streamed {s_ms:.4f} (device {chunked[B]['device_ms']}), resident {r_ms:.4f} "
                 f"(device {chunked[B]['resident_device_ms']}), streamed/resident "
                 f"{s_ms / r_ms:.4f}; plain {chunked[B]['plain_ms']:.1f}; kernel vs plain max "
                 f"abs {e_plain:.2e}; bound {bound_ms:.4f} ({bound_by})")
+            # where a level's time goes, and what one CTA's copies can carry
+            split = profile_solve.megakernel_split(
+                forms["streamed"][0].executor(forms["streamed"][1]),
+                torch.from_numpy(pad_rhs(b, plan.bs)).cuda())
+            copy = bulk_copy.rates(copy_lib, B)
+            chunked[B]["split_ms"] = split
+            chunked[B]["copy_bytes_per_us"] = {k: v[2] for k, v in copy.items()}
+            log(f"phase 14 B={B} streamed kernel split over {plan.n_levels} levels "
+                f"(perf/profile_solve.py), ms per launch (us per level): " + "; ".join(
+                    f"{k} {v:.3f} ({1e3 * v / plan.n_levels:.3f})" for k, v in split.items())
+                + f"; bulk copies of one CTA (perf/bulk_copy.py) "
+                + bulk_copy.format_rates(B, copy) + f"; bytes copied a level "
+                f"{stats['stream_dma_bytes'] / plan.n_levels:.0f}")
             # the dyadic twin: any correct order gives x_int exactly
             for name, (c, h) in forms.items():
                 c.factorize(a_dy, h)
@@ -2157,6 +2187,7 @@ def main() -> None:
         from repro_torch.sparse import suite
         from repro_torch.sparse.matrix import CSR, reference_solve, to_scipy
         sys.path.insert(0, str(ROOT / "perf"))
+        import bulk_copy
         import chain_latency
         import stream_crossover
     except ImportError as e:
@@ -2174,11 +2205,12 @@ def main() -> None:
     # 1. build (the chain-latency microbenchmark alongside the kernels)
     phase_start["1 build"] = time.perf_counter()
     t0 = time.perf_counter()
-    chain_build = chain_latency.start_build()
+    chain_build, copy_build = chain_latency.start_build(), bulk_copy.start_build()
     libs = extension.build()
-    chain_lib = chain_latency.load(chain_build)
+    chain_lib, copy_lib = chain_latency.load(chain_build), bulk_copy.load(copy_build)
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(p.name for p in libs.values())}, {chain_latency.LIBRARY.name})")
+        f"({', '.join(p.name for p in libs.values())}, {chain_latency.LIBRARY.name}, "
+        f"{bulk_copy.LIBRARY.name})")
 
     # 2. kernels against their plain versions
     phase_start["2 kernels"] = time.perf_counter()
@@ -2399,11 +2431,12 @@ def main() -> None:
     fms8 = time_ms(lambda: superstep.superstep_call(*ftab, *fvec[:2], b8, z8, z8, stp=fstp,
                                                     table=ftable, flags=ready), 10)
     fplain_ms = time_ms(lambda: ref.superstep_ref(*ftab, *fvec, stp=fstp), 3, warmup=1)
-    library_ms, lib_note = cusparse_ms(a, b, want["forward"])
+    library_ms, library_device_ms, lib_note = cusparse_ms(a, b, want["forward"])
     log(f"phase 5 megakernel {fms:.3f} ms/solve (CUDA events, 20 solves; (n, 8) panel "
         f"{fms8:.3f} ms, 10 solves), plain version "
         f"{fplain_ms:.1f} ms, torch.triangular_solve(CSR L) "
-        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'} ({lib_note})")
+        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'} (device "
+        f"{library_device_ms} ms; {lib_note})")
     fbound = superstep_bound(fplan, ftable, 1)
     superstep_row = {
         "name": "superstep", "route": "cuda",
@@ -2411,6 +2444,7 @@ def main() -> None:
         "replaces": KERNELS["superstep"][0], "launches": fused_launches["superstep"],
         "max_abs_err": e_full, "ms": fms, "plain_ms": fplain_ms,
         "bound_ms": fbound[0], "bound_by": fbound[1], "library_ms": library_ms,
+        "library_device_ms": library_device_ms,
         "device_ms": device_ms(lambda: superstep.superstep_call(
             *ftab, *fvec, stp=fstp, table=ftable, flags=ready), MEGAKERNEL_SYMBOL[False, False],
             10),
@@ -2583,7 +2617,7 @@ def main() -> None:
         "replaces": KERNELS["superstep_streamed"][0],
         "launches": streamed_launches["superstep_streamed"], "max_abs_err": se_full,
         "ms": sms, "plain_ms": splain_ms, "bound_ms": sbound[0], "bound_by": sbound[1],
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
         "device_ms": device_ms(lambda: superstep.superstep_streamed_call(
             *stab, *svec, stp=sstp, layout=slay, flags=ready), MEGAKERNEL_SYMBOL[True, False],
             10),
@@ -3007,7 +3041,7 @@ def main() -> None:
     # 14. the streamed megakernel at B > 169 (row chunks), one device, and the
     # split forms (the two-rank zerocopy path ran in phase 12's ranks)
     phase_start["14 wide blocks"] = time.perf_counter()
-    wide_rows, wide_paths = phase_wide(rng, rank_results[0]["wide"]["wide_dyadic"])
+    wide_rows, wide_paths = phase_wide(rng, rank_results[0]["wide"]["wide_dyadic"], copy_lib)
 
     # kernel timings at the main path's widest level (B = 32, R = 8 panels)
     phase_start["kernel timings"] = time.perf_counter()
@@ -3135,6 +3169,11 @@ def main() -> None:
     log("block kernels' device-only ms at the widest level (kernel / torch library call): "
         + ", ".join(f"{r['name']}={r['device_ms']} / {r['library_device_ms']}"
                     for r in rows_out))
+    # the row-chunked kernels' chain floor: B dependent divisions and FMAs a
+    # level, over the launch's levels
+    for row in wide_rows:
+        for at in [row, *row.get("at_B", {}).values()]:
+            at["chain_bound_ms"] = at["n_levels"] * at["shape"][1] * step_ms
     rows_out += [superstep_row, streamed_row] + split_rows + wide_rows
     # each later path's launches, counted from 0 around that path alone; the
     # chunked rows' wrappers over phase 14's paths (B > 169) alone

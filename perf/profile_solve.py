@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one triangular solve's time goes on the card.
 
-    python3 perf/profile_solve.py [--side 1024] [--rhs 1] [--backend cuda|fused|fused_streamed]
+    python3 perf/profile_solve.py [--side 1024] [--block-size 32] [--rhs 1]
+                                  [--backend cuda|fused|fused_streamed]
                                   [--sched levelset|syncfree]
 
 Builds the ``chip_smoke.py`` main-path problem (``grid2d_factor(side,
-seed=6)``, B = 32) for the switch executor (``cuda``, the default) or the
+seed=6)``, B = 32; phase 14's is ``--side 512 --block-size 176`` or 256,
+where the streamed form copies row chunks) for the switch executor (``cuda``, the default) or the
 superstep megakernel (``fused``, or its streamed form ``fused_streamed``);
 with ``--sched syncfree``, for the syncfree executor's dense scan
 (``cuda``) or its frontier-bucketed form (``fused``, ``fused_streamed``),
@@ -36,6 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--side", type=int, default=1024)
+    parser.add_argument("--block-size", type=int, default=32)
     parser.add_argument("--rhs", type=int, default=1, help="RHS panel width (1 = vector)")
     parser.add_argument("--backend", choices=("cuda", "fused", "fused_streamed"),
                         default="cuda")
@@ -53,7 +56,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_solve.py needs a CUDA device")
     a = suite.grid2d_factor(args.side, seed=6)
-    ctx = SpTRSVContext(options=PlanOptions(kernel=args.backend, sched=args.sched))
+    ctx = SpTRSVContext(options=PlanOptions(block_size=args.block_size, kernel=args.backend,
+                                            sched=args.sched))
     solver = ctx.executor(ctx.analyse(a))
     shape = (a.n,) if args.rhs == 1 else (a.n, args.rhs)
     b = np.random.default_rng(0).uniform(-1, 1, shape)
@@ -80,7 +84,7 @@ def main() -> None:
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"[profile] {torch.cuda.get_device_name(0)} ({card_line()}); n={a.n} "
-          f"levels={solver.plan.n_levels} "
+          f"levels={solver.plan.n_levels} B={args.block_size} "
           f"R={args.rhs} backend={args.backend} sched={args.sched}")
     print(f"[profile] solve wall: untraced {untraced_ms:.2f} ms (median of 5; "
           f"{', '.join(f'{t:.2f}' for t in untraced)}), traced {traced_ms:.2f} ms; "
@@ -95,7 +99,11 @@ def main() -> None:
               f"form: {solver._syncfree.sweeps} sweeps, {solver._syncfree.host_reads} "
               f"host reads per solve")
     elif args.backend != "cuda":
-        megakernel_split(solver, b_blocks)
+        split = megakernel_split(solver, b_blocks)
+        levels = max(1, solver.plan.n_levels)
+        print(f"[profile] megakernel split over {solver.plan.n_levels} levels, ms per launch "
+              f"(µs per level): " + "; ".join(f"{k} {v:.3f} ({1e3 * v / levels:.3f})"
+                                             for k, v in split.items()))
 
 
 def card_line() -> str:
@@ -106,10 +114,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def megakernel_split(solver, b_blocks) -> None:
-    """ms of the whole megakernel launch and of two stripped launches over
-    the same levels (CUDA events, mean of 10 after a warm call), per launch
-    and in µs per level."""
+def megakernel_split(solver, b_blocks) -> dict:
+    """ms per launch of the whole megakernel launch and of two stripped
+    launches over the same levels (CUDA events, mean of 10 after a warm
+    call): ``whole``, ``without tile products``, ``without solves (launch
+    and level walk)``. ``chip_smoke.py`` phase 14 logs it too."""
     import numpy as np
     import torch
 
@@ -163,10 +172,7 @@ def megakernel_split(solver, b_blocks) -> None:
                                             fused.stp),
              "without solves (launch and level walk)": timed(
                  [seg, off, dev(no_updates), dev(pads), ut, trow, tcol], fused.stp)}
-    levels = max(1, plan.n_levels)
-    print(f"[profile] megakernel split over {plan.n_levels} levels, ms per launch "
-          f"(µs per level): " + "; ".join(f"{k} {v:.3f} ({1e3 * v / levels:.3f})"
-                                         for k, v in split.items()))
+    return split
 
 
 if __name__ == "__main__":

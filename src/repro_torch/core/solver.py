@@ -631,9 +631,9 @@ def fused_vmem_bytes(plan: Plan, *, streamed: bool = False,
     Streamed: :func:`repro_torch.kernels.superstep.streamed_shared_bytes`,
     two stages of the widest work item (a row's incoming tiles and its
     diagonal tile) per warp, on the busiest device; at ``B >= 170``, where
-    two stages of one whole tile do not fit, one warp with two stages of
-    ``rows`` padded tile rows. ``layouts`` is :func:`fused_layouts` of
-    ``plan`` where the caller has it already.
+    two stages of one whole tile do not fit, one set of two stages of
+    ``rows`` padded tile rows that the CTA's warps share. ``layouts`` is
+    :func:`fused_layouts` of ``plan`` where the caller has it already.
     """
     B = plan.bs.B
     if not streamed:

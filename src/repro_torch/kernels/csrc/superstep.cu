@@ -101,27 +101,51 @@
 // own, so each column's warp copies its slot's tiles (R times the bytes of
 // a vector solve, counted in stream_dma_bytes).
 // kernels/superstep.py::streamed_shape picks warps per CTA and tiles per
-// stage so the CTA fits 227 KB of shared memory. Where two stages of one
-// whole tile do not fit (B >= 170), one warp per CTA streams each tile in
-// row chunks, as the resident ring does: a stage holds `rows` padded tile
-// rows (a multiple of four, so a chunk's offset i0 (B + 1) 4 bytes is a
-// multiple of 16 for odd and even B), a tile's last chunk runs to the
-// entry's padded end (a multiple of 16 bytes too), and a work item's
-// sequence is, for each incoming tile, its chunks, then the diagonal
-// tile's. Each chunk is one bulk copy completing its stage's mbarrier,
-// issued one chunk ahead, and each is computed by the resident form's
-// steps on the same rows (chunked_item, resident_item's twin), so the two
-// forms give the same bits at every B.
+// stage so the CTA fits 227 KB of shared memory.
+//
+// Row chunks (B >= 170), where two stages of one whole tile do not fit.
+// One CTA of W = min(8, ceil(B / 32)) warps runs each work item (cta_item),
+// and its warps share one ring of kChunkStages stages of `rows` padded tile
+// rows: as few chunks a tile as fit, evened out, `rows` a multiple of four
+// (so a chunk's offset i0 (B + 1) 4 bytes is a multiple of 16 for odd and
+// even B; a tile's last chunk runs to the entry's padded end, a multiple of
+// 16 bytes too; rows <= 32 W). A level's items are dealt round the grid in
+// slot order (cta_first), so consecutive levels go to different CTAs: each
+// CTA, its items in level order (so the co-residency argument above holds
+// per CTA), copies and multiplies what its next item pulls from earlier
+// levels while the levels before it finish. An item's chunks are,
+// for each incoming tile, its rows in chunks, then the diagonal tile's;
+// one producer thread walks the items and issues each chunk's bulk copy
+// kChunkStages - 1 chunks ahead, every thread waits on the stage's
+// mbarrier, and a stage is refilled only after a CTA barrier shows every
+// warp is done with it (then the producer's fence.proxy.async). Warp 0
+// waits for the sources and reads them, as a warp does above, before a
+// CTA barrier; the last pull, the newest source, is a group of its own, so
+// the pulls before it need not wait for it. Tile products: thread t
+// computes chunk row i0 + t, the same FMA chain over the row in column
+// order as tile_rows, so an 88-row chunk is one pass of 88 threads. The
+// sweep (cta_sweep): warp k owns the chunk's 32-row block k; every warp
+// first subtracts the columns of earlier chunks from its rows, all at once,
+// then the blocks run as a wavefront: warp k waits on named barrier 1 + m
+// for each earlier block m and applies its 32 columns, then sweeps its own
+// block as column_sweep does and publishes it with bar.arrive. Row i still
+// takes columns 0 .. i - 1 in order, then its division, so the bits are
+// the resident form's at every B. x is stored by every thread, then a CTA
+// barrier, then one thread's release of the flag, which is cumulative over
+// the stores the barrier ordered before it.
 //
 // Bound: the bytes of the stores (each solved row's lower triangle and each
 // pulled tile read once) over the memory rate, about 0.1 ms for the 1M-row
 // factor. The kernel is far from it: a solve is a chain of dependent levels,
 // and each level's time is its latency chain: the flag round trip through
 // L2, the source column's read, the tile FMAs and the B-column sweep
-// (PERF.md). In row chunks (B >= 170) a row's work is one warp's: about
-// 52 us a level at B = 176 (74.8 ms for the 1444 levels of
-// grid2d_factor(512), against a 0.19 ms bound), mostly its tile FMAs and
-// its 176-column sweep; the resident ring's 4-byte gathers take 5.6x that.
+// (PERF.md). In row chunks the floor is the sweep's chain, B dependent
+// divisions and FMAs a level: 6.0 ms for the 1444 levels of
+// grid2d_factor(512) at B = 176, 3.1 ms for its 513 at B = 256, against a
+// bytes bound of 0.19 / 0.16 ms. This form takes 24.1 / 16.5 ms there (one
+// warp an item took 74.8 / 40.9): the division alone is ~30 ns a column of
+// it, and one CTA's bulk copies move ~72 bytes a ns (perf/chain_variants.py,
+// perf/bulk_copy.py; PERF.md).
 //
 // Layout: b, acc, x (n_rows, B, R) row-major float32 (R = 1 for vectors),
 // diag (n_rows, B, B), tiles (ML+1, B, B); the streamed store (entries,
@@ -145,6 +169,11 @@ constexpr int kStage = 33 * kWarp;  // floats of a resident stage: a B = 32 tile
 constexpr int kRing = 3;            // resident stages per warp
 constexpr int kGather = 2;          // source columns a warp waits for and reads at once
 constexpr size_t kSharedLimit = 232448;  // dynamic shared memory a Hopper block may use
+// The row-chunked streamed form's ring (kernels/superstep.py::CHUNK_STAGES)
+// and the bytes of its mbarriers, rounded up so the stages are 16-byte
+// aligned.
+constexpr int kChunkStages = 2;
+constexpr int kChunkBarBytes = (8 * kChunkStages + 15) / 16 * 16;
 // Polls of one flag before the wait is taken for lost (a schedule that
 // cannot finish): the kernel traps, and the launch fails, instead of
 // spinning for ever. Each poll is an L2 round trip, so this is many seconds.
@@ -192,11 +221,19 @@ __host__ __device__ __forceinline__ size_t stage_floats(int cap, int rows, int B
 }
 
 // Streamed: per warp, two 8-byte mbarriers, two stages, the same columns;
-// laid out in that order (kernels/superstep.py::_streamed_bytes is the same
-// formula).
+// in row chunks, once for the CTA, whose warps share them, with
+// kChunkStages stages. Laid out in that order (kernels/superstep.py::
+// _streamed_bytes is the same formula).
 size_t streamed_bytes(int warps, int cap, int rows, int B, int stride) {
-  return static_cast<size_t>(warps) *
-         (16 + 2 * 4 * stage_floats(cap, rows, B, stride) + 4 * (1 + kGather) * B);
+  const size_t columns = 4 * (1 + kGather) * B, stage = 4 * stage_floats(cap, rows, B, stride);
+  if (rows < B) return kChunkBarBytes + kChunkStages * stage + columns;
+  return static_cast<size_t>(warps) * (16 + 2 * stage + columns);
+}
+
+// Warps of the CTA that runs each work item in row chunks: one per 32 rows
+// of the tile, at most kWarpsPerCta (kernels/superstep.py::streamed_shape).
+int chunk_warps(int B) {
+  return (B + kWarp - 1) / kWarp < kWarpsPerCta ? (B + kWarp - 1) / kWarp : kWarpsPerCta;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -546,43 +583,29 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const float* src, uint32
 }
 
 // A warp's double buffer. Its items' entries, cut into chunks of at most
-// `cap` whole entries (or, rows < B, each entry into chunks of `rows` tile
-// rows), form one sequence; chunk j lands in stage j % 2 and completes that
-// stage's mbarrier for the (j / 2)-th time, whatever the number of chunks
-// of an item. While chunk j is computed, chunk j + 1 is in flight. Target
-// k < S holds store entries from pull_ptr[k] + k, orphan q (target S + q)
-// from pull_ptr[S + q] + S.
+// `cap`, form one sequence; chunk j lands in stage j % 2 and completes that
+// stage's mbarrier for the (j / 2)-th time. While chunk j is computed,
+// chunk j + 1 is in flight. Target k < S holds store entries from
+// pull_ptr[k] + k, orphan q (target S + q) from pull_ptr[S + q] + S.
 struct Stream {
   float* stage[2];
   uint32_t bar[2];
   Cursor cur;  // the item being issued
   int e;       // its first entry still to issue
-  int i0;      // rows < B: that entry's first row still to issue
   bool live;
   unsigned issued, used;  // chunks issued; chunks computed
 };
 
 __device__ void issue_next(const Args& a, Stream& st, int gwarp, int n_warps, int lane) {
   if (!st.live) return;  // the warp's last chunk is already in flight
+  const int n = min(a.cap, st.cur.n_ent - st.e);
   const int first = st.cur.p0 + min(st.cur.target, a.S) + st.e;
   const int sl = st.issued & 1;
-  if (a.rows < a.B) {  // rows [i0, i1) of entry e; the last chunk to the entry's end
-    const int i1 = min(st.i0 + a.rows, a.B);
-    const int from = st.i0 * (a.B + 1), to = i1 == a.B ? a.stride : i1 * (a.B + 1);
-    if (lane == 0)
-      bulk_load(smem_addr(st.stage[sl]),
-                a.store + static_cast<size_t>(first) * a.stride + from,
-                static_cast<uint32_t>(to - from) * 4, st.bar[sl]);
-    st.i0 = i1 == a.B ? 0 : i1;
-    if (st.i0 == 0) ++st.e;
-  } else {
-    const int n = min(a.cap, st.cur.n_ent - st.e);
-    if (lane == 0)
-      bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(first) * a.stride,
-                static_cast<uint32_t>(n) * a.stride * 4, st.bar[sl]);
-    st.e += n;
-  }
+  if (lane == 0)
+    bulk_load(smem_addr(st.stage[sl]), a.store + static_cast<size_t>(first) * a.stride,
+              static_cast<uint32_t>(n) * a.stride * 4, st.bar[sl]);
   ++st.issued;
+  st.e += n;
   if (st.e == st.cur.n_ent) {
     st.e = 0;
     st.cur.item += n_warps;
@@ -604,7 +627,7 @@ __device__ void stream_init(const Args& a, Stream& st, uint64_t* bars, float* st
   __syncwarp();
   st.issued = st.used = 0;
   st.cur = Cursor{a.t_lo, gwarp, 0, 0, 0};
-  st.e = st.i0 = 0;
+  st.e = 0;
   st.live = seek(a, gwarp, n_warps, st.cur);
   issue_next(a, st, gwarp, n_warps, lane);  // the warp's first chunk
 }
@@ -644,55 +667,302 @@ struct StreamedEntries {
   }
 };
 
-// One streamed work item whose tiles arrive in row chunks (rows < B):
-// resident_item's steps on the stream's chunks in place of the ring's
-// pieces. Each group of sources is awaited after the first chunk of its
-// first tile is acquired, so the next chunk is in flight during the wait.
+// ---------------------------------------------------------------------------
+// The streamed form in row chunks (rows < B): one CTA per work item, its
+// warps on one chunk sequence (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kSweepBar = 1;  // named barrier of sweep block m: kSweepBar + m (0 is the CTA's)
+
+// The CTA's ring: kChunkStages stages of `rows` padded tile rows, stage k
+// completing mbarrier k. Its work items' entries, each cut into chunks of
+// `rows` tile rows (the last to the entry's padded end), form one
+// sequence; chunk j lands in stage j % kChunkStages and completes that
+// stage's mbarrier for the (j / kChunkStages)-th time. While chunk j is
+// computed, chunks j + 1 .. j + kChunkStages - 1 are in flight. One
+// thread, the producer, walks the items (the tables' dependent loads) and
+// issues the copies: lane 0 of the last warp, which holds a chunk's last
+// rows or none, so the walk stays off the warps that hold the first ones
+// (warp 0 also waits for the sources, and the sweep starts there). Only
+// the producer keeps the cursor; every thread counts the chunks it used.
+struct ChunkRing {
+  float* stage;  // stage k at stage + k rows (B + 1)
+  uint32_t bar;  // mbarrier k at bar + 8 k
+  Cursor cur;    // the producer's: the item being issued
+  int e, i0;     // its entry and that entry's first row still to issue
+  bool live;
+  unsigned issued, used;  // chunks issued (the producer's); chunks computed
+};
+
+// Row chunks deal a level's work items round the grid in slot order: CTA
+// u runs item `item` of the level whose first solve slot is o when
+// (o R + item) mod n_ctas == u, so consecutive levels go to different CTAs
+// and each CTA, its items still in level order, copies and computes what
+// its next item needs from earlier levels while those levels finish. The
+// first item of such a level that CTA u runs:
+__device__ __forceinline__ int cta_first(int o, int R, int u, int n_ctas) {
+  const int at = (o % n_ctas) * (R % n_ctas) % n_ctas;
+  return u >= at ? u - at : u - at + n_ctas;
+}
+
+// seek() for the CTA's items as cta_first deals them.
+__device__ bool cta_seek(const Args& a, int cta, int n_ctas, Cursor& c) {
+  for (;;) {
+    if (c.t < a.t_hi) {
+      if (c.item < __ldg(a.wid + 3 * c.t) * a.R) {
+        const int k = __ldg(a.off + 3 * c.t) + c.item / a.R;
+        if (__ldg(a.sr + k) >= 0) {
+          c.target = k;
+          c.p0 = __ldg(a.pull_ptr + k);
+          c.n_ent = __ldg(a.pull_ptr + k + 1) - c.p0 + 1;
+          return true;
+        }
+        c.item += n_ctas;  // pad slot: no work, nothing copied
+      } else if (++c.t < a.t_hi) {
+        c.item = cta_first(__ldg(a.off + 3 * c.t), a.R, cta, n_ctas);
+      } else {
+        c.item = cta;
+      }
+    } else {
+      if (c.item >= a.n_orphans * a.R) return false;
+      c.target = a.S + c.item / a.R;
+      c.p0 = __ldg(a.pull_ptr + c.target);
+      c.n_ent = __ldg(a.pull_ptr + c.target + 1) - c.p0;
+      return true;
+    }
+  }
+}
+
+__device__ __forceinline__ bool ring_producer() {
+  return threadIdx.x == blockDim.x - kWarp;
+}
+
+// The producer issues the next chunk of the sequence into its stage (freed
+// by the release of the chunk kChunkStages before it).
+__device__ void ring_next(const Args& a, ChunkRing& rg, int cta, int n_ctas) {
+  if (!ring_producer() || !rg.live) return;  // or the CTA's last chunk is already in flight
+  const int first = rg.cur.p0 + min(rg.cur.target, a.S) + rg.e;
+  const int i1 = min(rg.i0 + a.rows, a.B);
+  const int from = rg.i0 * (a.B + 1), to = i1 == a.B ? a.stride : i1 * (a.B + 1);
+  const int k = rg.issued % kChunkStages;
+  bulk_load(smem_addr(rg.stage + static_cast<size_t>(k) * a.rows * (a.B + 1)),
+            a.store + static_cast<size_t>(first) * a.stride + from,
+            static_cast<uint32_t>(to - from) * 4, rg.bar + 8 * k);
+  ++rg.issued;
+  rg.i0 = i1 == a.B ? 0 : i1;
+  if (rg.i0 == 0 && ++rg.e == rg.cur.n_ent) {
+    rg.e = 0;
+    rg.cur.item += n_ctas;
+    rg.live = cta_seek(a, cta, n_ctas, rg.cur);
+  }
+}
+
+// The producer initialises the mbarriers (at `smem`, the stages after
+// them) and issues the first kChunkStages - 1 chunks; the CTA barrier shows
+// the mbarriers to every warp before any waits.
+__device__ void ring_start(const Args& a, ChunkRing& rg, unsigned char* smem, int cta,
+                           int n_ctas) {
+  rg.bar = smem_addr(smem);
+  rg.stage = reinterpret_cast<float*>(smem + kChunkBarBytes);
+  rg.issued = rg.used = 0;
+  if (ring_producer()) {
+    for (int k = 0; k < kChunkStages; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(rg.bar + 8 * k) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int first = a.t_lo < a.t_hi ? cta_first(__ldg(a.off + 3 * a.t_lo), a.R, cta, n_ctas)
+                                      : cta;
+    rg.cur = Cursor{a.t_lo, first, 0, 0, 0};
+    rg.e = rg.i0 = 0;
+    rg.live = cta_seek(a, cta, n_ctas, rg.cur);
+    for (int k = 0; k + 1 < kChunkStages; ++k) ring_next(a, rg, cta, n_ctas);
+  }
+  __syncthreads();
+}
+
+// Every thread: the next chunk, once it has landed.
+__device__ __forceinline__ const float* ring_wait(const Args& a, const ChunkRing& rg) {
+  const int k = rg.used % kChunkStages;
+  mbar_wait(rg.bar + 8 * k, (rg.used / kChunkStages) & 1);
+  return rg.stage + static_cast<size_t>(k) * a.rows * (a.B + 1);
+}
+
+// The next chunk, once it has landed; the producer first issues the chunk
+// kChunkStages - 1 after it into the stage the previous chunk freed.
+__device__ __forceinline__ const float* ring_take(const Args& a, ChunkRing& rg, int cta,
+                                                  int n_ctas) {
+  ring_next(a, rg, cta, n_ctas);
+  return ring_wait(a, rg);
+}
+
+// The CTA is done with the chunk: a CTA barrier shows every warp has read
+// it, then the producer, which issues the copy that refills the stage,
+// orders those reads (generic proxy) before it (async proxy).
+__device__ __forceinline__ void ring_free(ChunkRing& rg) {
+  __syncthreads();
+  if (ring_producer()) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  ++rg.used;
+}
+
+// item_inputs for the CTA: thread t keeps row t's carry and b in registers,
+// every other row's carry goes to s at once.
 template <bool kSplit>
-__device__ void chunked_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
-                             int row, int c, bool slot, float* s, float* xcs, int lane) {
-  const int B = a.B, rows = a.rows;
-  const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
+__device__ __forceinline__ Carry cta_item_inputs(const Args& a, int row, int c, bool slot,
+                                                 float* s) {
+  const int t = threadIdx.x;
+  Carry in{0.f, 0.f};
+  for (int j = t; j < a.B; j += blockDim.x) {
+    const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
+    if (j == t) {
+      in.acc = carry_in<kSplit>(a, at);
+      if (slot) in.b = rhs_base<kSplit>(a, at);
+    } else {
+      s[j] = carry_in<kSplit>(a, at);
+    }
+  }
+  return in;
+}
+
+// store_sum for the CTA. Thread t handles rows t, t + blockDim.x, ... here
+// and in cta_item_inputs, so it reads only what it wrote itself or what a
+// chunk's CTA barrier ordered before; the sweep's first chunk reads row i
+// (< rows <= blockDim.x) in thread i, which wrote it here.
+template <bool kSplit>
+__device__ __forceinline__ void cta_store_sum(const Args& a, int row, int c, bool slot,
+                                              const Carry& in, float* s) {
+  const int t = threadIdx.x;
+  for (int j = t; j < a.B; j += blockDim.x) {
+    const size_t at = (static_cast<size_t>(row) * a.B + j) * a.R + c;
+    if constexpr (kSplit)
+      a.delta[at] = s[j];
+    else
+      a.acc[at] = s[j];
+    if (slot) s[j] = (j == t ? in.b : rhs_base<kSplit>(a, at)) - s[j];
+  }
+}
+
+// x[row, :, c] = s by every thread, then the flag: after the CTA barrier,
+// the release store (cumulative) of lane 0 of the last warp but one orders
+// every thread's x before the epoch it publishes. The release waits for
+// the stores, so it is made off warp 0, which waits for the next sources,
+// and off the ring's producer.
+__device__ __forceinline__ void cta_store_x(const Args& a, int row, int c, const float* s) {
+  for (int j = threadIdx.x; j < a.B; j += blockDim.x)
+    a.x[(static_cast<size_t>(row) * a.B + j) * a.R + c] = s[j];
+  __syncthreads();
+  if (threadIdx.x == blockDim.x - 2 * kWarp)
+    store_release(a.flags + static_cast<size_t>(row) * a.R + c, a.epoch);
+}
+
+// s[i0 + t] += (chunk row t) . xc for the chunk's n <= blockDim.x rows,
+// thread t one row: tile_rows's FMA chain over the row in column order,
+// unrolled so the shared loads run ahead of the chain; xc four floats a
+// load where it is 16-byte aligned (B a multiple of four).
+__device__ __forceinline__ void cta_tile_rows(const float* T, int ld, int i0, int n,
+                                              const float* xc, float* s, int B) {
+  const int t = threadIdx.x;
+  if (t >= n) return;
+  const float* ti = T + t * ld;
+  float q = 0.f;
+  if (B % 4 == 0) {
+#pragma unroll 4
+    for (int j = 0; j < B; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(xc + j);
+      q += ti[j] * v.x;
+      q += ti[j + 1] * v.y;
+      q += ti[j + 2] * v.z;
+      q += ti[j + 3] * v.w;
+    }
+  } else {
+#pragma unroll 8
+    for (int j = 0; j < B; ++j) q += ti[j] * xc[j];
+  }
+  s[i0 + t] = s[i0 + t] + q;
+}
+
+// Rows [i0, i1) of the forward substitution, a chunk of at most 32 W rows
+// (T its first row in shared memory, rows ld floats apart), warp k sweeping
+// the chunk's 32-row block k, lane l its row l. Every warp first subtracts
+// the columns of earlier chunks (j < i0) from its rows, all warps at once;
+// then warp k, for each earlier block m of the chunk, waits for it on named
+// barrier kSweepBar + m and applies its 32 columns, sweeps its own block as
+// column_sweep does, and publishes it to the later blocks (bar.arrive: its
+// stores of x are performed for them when the barrier completes). Row i so
+// takes columns 0 .. i - 1 in order, then its division, as in
+// column_sweep. Every block but the chunk's last is 32 rows.
+__device__ void cta_sweep(const float* T, int ld, int i0, int i1, float* s) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int blocks = (i1 - i0 + kWarp - 1) / kWarp;
+  if (warp >= blocks) return;
+  const int j0 = i0 + warp * kWarp, n = min(kWarp, i1 - j0);
+  const bool own = lane < n;
+  const float* ti = T + (warp * kWarp + (own ? lane : 0)) * ld;
+  float r = own ? s[j0 + lane] : 0.f;
+  const float lii = own ? ti[j0 + lane] : 1.f;
+#pragma unroll 8
+  for (int j = 0; j < i0; ++j) r = fmaf(-ti[j], s[j], r);
+  for (int m = 0; m < warp; ++m) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(kSweepBar + m), "r"(kWarp * (blocks - m))
+                 : "memory");
+    const int m0 = i0 + m * kWarp;
+#pragma unroll 8
+    for (int j = m0; j < m0 + kWarp; ++j) r = fmaf(-ti[j], s[j], r);
+  }
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float xj = __shfl_sync(0xffffffffu, __fdiv_rn(r, lii), o);
+    if (lane > o) r = fmaf(-ti[j0 + o], xj, r);
+    if (lane == o) s[j0 + o] = xj;
+  }
+  __syncwarp();
+  if (warp + 1 < blocks)
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(kSweepBar + warp), "r"(kWarp * (blocks - warp))
+                 : "memory");
+}
+
+// One streamed work item whose tiles arrive in row chunks (rows < B), run
+// by the whole CTA: resident_item's steps on the ring's chunks. For each
+// group of sources the producer issues the next chunk, warp 0 waits for
+// the sources and reads them while the group's first chunk lands, and a
+// CTA barrier hands them to every warp.
+template <bool kSplit>
+__device__ void cta_item(const Args& a, ChunkRing& rg, int cta, int n_ctas, int target,
+                         int row, int c, bool slot, float* s, float* xcs) {
+  const int B = a.B, rows = a.rows, t = threadIdx.x;
+  const Carry in = cta_item_inputs<kSplit>(a, row, c, slot, s);
   const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
-  if (p0 == p1) place(in, s, B, lane);
-  for (int pg = p0; pg < p1; pg += kGather) {
-    const int n = min(kGather, p1 - pg);
-    const float* buf = acquire(a, st, gwarp, n_warps, lane);
-    gather_sources(a, pg, n, c, xcs, lane);
-    if (pg == p0) place(in, s, B, lane);
+  if (p0 == p1 && t < B) s[t] = in.acc;
+  for (int pg = p0, n; pg < p1; pg += n) {
+    n = max(1, min(kGather, p1 - 1 - pg));  // the last pull, the newest source, alone
+    ring_next(a, rg, cta, n_ctas);  // ring_take(), with the sources' wait inside it
+    if (t < kWarp) gather_sources(a, pg, n, c, xcs, t);
+    const float* buf = ring_wait(a, rg);
+    __syncthreads();  // xcs holds the sources
+    if (pg == p0 && t < B) s[t] = in.acc;
     for (int g = 0; g < n; ++g) {
       for (int i0 = 0; i0 < B; i0 += rows) {
-        if (g > 0 || i0 > 0) buf = acquire(a, st, gwarp, n_warps, lane);
-        tile_rows(buf, B + 1, i0, min(i0 + rows, B), xcs + g * B, s, B, lane);
-        release(st);
+        if (g > 0 || i0 > 0) buf = ring_take(a, rg, cta, n_ctas);
+        cta_tile_rows(buf, B + 1, i0, min(rows, B - i0), xcs + g * B, s, B);
+        ring_free(rg);
       }
     }
   }
-  store_sum<kSplit>(a, row, c, slot, in, s, lane);
+  cta_store_sum<kSplit>(a, row, c, slot, in, s);
   if (!slot) return;
   for (int i0 = 0; i0 < B; i0 += rows) {
-    const float* buf = acquire(a, st, gwarp, n_warps, lane);
-    const int i1 = min(i0 + rows, B);
-    for (int j0 = i0; j0 < i1; j0 += kWarp)
-      column_sweep(buf + static_cast<size_t>(j0 - i0) * (B + 1), B + 1, j0, min(j0 + kWarp, i1),
-                   s, lane);
-    release(st);
+    cta_sweep(ring_take(a, rg, cta, n_ctas), B + 1, i0, min(i0 + rows, B), s);
+    ring_free(rg);
   }
-  store_x(a, row, c, s, lane);
+  cta_store_x(a, row, c, s);
 }
 
 // One streamed work item: resident_item's steps, operation for operation,
 // on whole tiles as they arrive: the same tile_rows() and column_sweep()
 // on the same values in the same order, so both forms give the same bits.
-// Tiles wider than a stage go to chunked_item.
+// Tiles wider than a stage go to cta_item.
 template <bool kSplit>
 __device__ void streamed_item(const Args& a, Stream& st, int gwarp, int n_warps, int target,
                               int row, int c, bool slot, float* s, float* xcs, int lane) {
   const int B = a.B;
-  if (a.rows < B) {
-    chunked_item<kSplit>(a, st, gwarp, n_warps, target, row, c, slot, s, xcs, lane);
-    return;
-  }
   const Carry in = item_inputs<kSplit>(a, row, c, slot, s, lane);
   const int p0 = __ldg(a.pull_ptr + target), p1 = __ldg(a.pull_ptr + target + 1);
   const int n_ent = p1 - p0 + (slot ? 1 : 0);
@@ -725,18 +995,28 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
-  const int gwarp = blockIdx.x * warps + warp;
-  const int n_warps = gridDim.x * warps;
+  // The unit that runs a work item: a warp, or in row chunks the whole CTA
+  // (every warp of it on the same items, with one set of stages).
+  const bool cta = kStream && a.rows < a.B;
+  const int gwarp = cta ? blockIdx.x : blockIdx.x * warps + warp;
+  const int n_warps = cta ? gridDim.x : gridDim.x * warps;
   const int R = a.R, row_el = a.B * a.R;
   float* s;
   Stream st;
+  ChunkRing cr;
   Ring rg;
   if constexpr (kStream) {
-    float* stages = reinterpret_cast<float*>(smem + 16 * warps);
-    const size_t two = 2 * stage_floats(a.cap, a.rows, a.B, a.stride);
-    s = stages + warps * two + warp * (1 + kGather) * a.B;
-    stream_init(a, st, reinterpret_cast<uint64_t*>(smem) + 2 * warp, stages + warp * two, gwarp,
-                n_warps, lane);
+    if (cta) {
+      s = reinterpret_cast<float*>(smem + kChunkBarBytes) +
+          static_cast<size_t>(kChunkStages) * a.rows * (a.B + 1);
+      ring_start(a, cr, smem, gwarp, n_warps);
+    } else {
+      float* stages = reinterpret_cast<float*>(smem + 16 * warps);
+      const size_t two = 2 * stage_floats(a.cap, a.rows, a.B, a.stride);
+      s = stages + warps * two + warp * (1 + kGather) * a.B;
+      stream_init(a, st, reinterpret_cast<uint64_t*>(smem) + 2 * warp, stages + warp * two,
+                  gwarp, n_warps, lane);
+    }
   } else {
     float* mine = reinterpret_cast<float*>(smem) + warp * (kRing * kStage + (1 + kGather) * a.B);
     s = mine + kRing * kStage;
@@ -790,14 +1070,17 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
       o_next = __ldg(a.off + 3 * (t + 1));
       w_next = __ldg(a.wid + 3 * (t + 1));
     }
-    for (int item = gwarp; item < w * R; item += n_warps) {
+    for (int item = cta ? cta_first(o, R, gwarp, n_warps) : gwarp; item < w * R;
+         item += n_warps) {
       const int k = o + item / R, c = item % R;
       const int row = __ldg(a.sr + k);
       if (row < 0) continue;  // pad slot
-      if constexpr (kStream)
-        streamed_item<kSplit>(a, st, gwarp, n_warps, k, row, c, true, s, xcs, lane);
-      else
+      if constexpr (!kStream)
         resident_item<kSplit>(a, rg, gwarp, n_warps, k, row, c, true, s, xcs, lane);
+      else if (cta)
+        cta_item<kSplit>(a, cr, gwarp, n_warps, k, row, c, true, s, xcs);
+      else
+        streamed_item<kSplit>(a, st, gwarp, n_warps, k, row, c, true, s, xcs, lane);
     }
     o = o_next;
     w = w_next;
@@ -805,10 +1088,12 @@ __global__ void __launch_bounds__(kMaxThreads) superstep_kernel(Args a) {
 
   for (int item = gwarp; item < a.n_orphans * R; item += n_warps) {
     const int q = item / R, row = __ldg(a.orphan_row + q);
-    if constexpr (kStream)
-      streamed_item<kSplit>(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
-    else
+    if constexpr (!kStream)
       resident_item<kSplit>(a, rg, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
+    else if (cta)
+      cta_item<kSplit>(a, cr, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs);
+    else
+      streamed_item<kSplit>(a, st, gwarp, n_warps, a.S + q, row, item % R, false, s, xcs, lane);
   }
   if constexpr (!kStream) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -846,6 +1131,15 @@ cudaError_t resident_ctas(int threads, size_t smem, int* out) {
   return cudaSuccess;
 }
 
+// The grid a launch with grid <= 0 takes: enough units (warps, or in row
+// chunks CTAs) for the widest phase's work items, no more CTAs than fit at
+// once (`resident`).
+int auto_grid(const Args& a, int warps, int max_items, int resident, bool stream) {
+  const int per_cta = stream && a.rows < a.B ? 1 : warps;  // work items a CTA runs at once
+  const int need = (max_items * a.R + per_cta - 1) / per_cta;
+  return need < 1 ? 1 : (need < resident ? need : resident);
+}
+
 template <bool kStream, bool kSplit>
 int launch(Args a, int warps, int max_items, int grid, void* stream) {
   if (a.epoch == 0) return cudaErrorInvalidValue;  // 0 is the value of a fresh flag
@@ -854,10 +1148,7 @@ int launch(Args a, int warps, int max_items, int grid, void* stream) {
   int resident = 0;
   cudaError_t err = resident_ctas<kStream, kSplit>(warps * kWarp, smem, &resident);
   if (err != cudaSuccess) return err;
-  if (grid <= 0) {  // enough warps for the widest level, no more than fit at once
-    const int need = (max_items * a.R + warps - 1) / warps;
-    grid = need < 1 ? 1 : (need < resident ? need : resident);
-  }
+  if (grid <= 0) grid = auto_grid(a, warps, max_items, resident, kStream);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(superstep_kernel<kStream, kSplit>), dim3(grid),
@@ -870,14 +1161,17 @@ int launch(Args a, int warps, int max_items, int grid, void* stream) {
 }
 
 // The streamed shape's rule (kernels/superstep.py::streamed_shape): whole
-// entries (rows == B), or row chunks of a multiple of four rows for one warp
-// with one entry per stage; the CTA within the shared memory; the blocks
-// the resident form takes.
+// entries (rows == B), or row chunks of a multiple of four rows, one entry
+// per stage, for a CTA of chunk_warps(B) warps with at most one chunk row a
+// thread (so at most one sweep block a warp); the CTA within the shared
+// memory; the blocks the resident form takes.
 bool streamed_shape_ok(int warps, int cap, int rows, int B, int stride) {
   if (B < 1 || B >= kStage || warps < 1 || warps > kWarpsPerCta || cap < 1 || rows < 1 ||
       rows > B)
     return false;
-  if (rows < B && (rows % 4 != 0 || cap != 1 || warps != 1)) return false;
+  if (rows < B &&
+      (rows % 4 != 0 || cap != 1 || warps != chunk_warps(B) || rows > warps * kWarp))
+    return false;
   return streamed_bytes(warps, cap, rows, B, stride) <= kSharedLimit;
 }
 
@@ -1018,6 +1312,25 @@ int repro_superstep_streamed_split_f32(const int* off, const int* wid, const int
 size_t repro_superstep_shared_bytes(int streamed, int warps, int cap, int rows, int B) {
   return streamed ? streamed_bytes(warps, cap, rows, B, (B * (B + 1) + 3) / 4 * 4)
                   : shared_bytes(B);
+}
+
+// The grid (CTAs; threads per CTA: 32 warps) a streamed launch of that
+// shape with grid <= 0 takes for `max_items` work items of R columns, or a
+// negative CUDA error: the rule launch() applies, for the host to check.
+int repro_superstep_streamed_grid(int warps, int cap, int rows, int B, int R, int max_items) {
+  const int stride = (B * (B + 1) + 3) / 4 * 4;
+  if (R < 1 || !streamed_shape_ok(warps, cap, rows, B, stride)) return -cudaErrorInvalidValue;
+  Args a{};
+  a.B = B;
+  a.R = R;
+  a.cap = cap;
+  a.stride = stride;
+  a.rows = rows;
+  int resident = 0;
+  const cudaError_t err = resident_ctas<true, false>(
+      warps * kWarp, streamed_bytes(warps, cap, rows, B, stride), &resident);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return auto_grid(a, warps, max_items, resident, true);
 }
 
 // Weak: every source defines it, so the sources also link into one module.

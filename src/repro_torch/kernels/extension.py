@@ -67,7 +67,8 @@ SIGNATURES = {
 
 # entry points that launch nothing: (argument types, result type)
 QUERIES = {
-    "superstep": {"repro_superstep_shared_bytes": ((_I,) * 5, ctypes.c_size_t)},
+    "superstep": {"repro_superstep_shared_bytes": ((_I,) * 5, ctypes.c_size_t),
+                  "repro_superstep_streamed_grid": ((_I,) * 6, ctypes.c_int)},
 }
 
 

@@ -39,6 +39,7 @@ from repro_torch.kernels import extension, ref
 WARPS_PER_CTA = 8  # kWarpsPerCta in csrc/superstep.cu
 STAGE_FLOATS = 33 * 32  # kStage: one stage of tile rows, B + 1 floats apart
 RING = 3  # kRing: the resident kernel's stages per warp
+CHUNK_STAGES = 2  # kChunkStages: the row-chunked streamed kernel's stages per CTA
 SHARED_LIMIT = 232_448  # dynamic shared memory one Hopper block may use (227 KB)
 EPOCH_LIMIT = 2**31 - 1  # the largest flag value (int32); ReadyFlags re-zeros past it
 
@@ -260,9 +261,19 @@ def stage_floats(B: int, cap: int, rows: int) -> int:
 
 def _streamed_bytes(warps: int, cap: int, rows: int, B: int) -> int:
     # per warp: two 8-byte mbarriers, two stages, the row's sum and two
-    # source columns (B floats each); csrc/superstep.cu lays the CTA out
-    # in this order
+    # source columns (B floats each); in row chunks once for the CTA, whose
+    # warps share them, with CHUNK_STAGES stages and their mbarriers (16-byte
+    # aligned); csrc/superstep.cu lays the CTA out in this order
+    if rows < B:
+        bars = -(-8 * CHUNK_STAGES // 16) * 16
+        return bars + CHUNK_STAGES * 4 * stage_floats(B, cap, rows) + 12 * B
     return warps * (16 + 2 * 4 * stage_floats(B, cap, rows) + 12 * B)
+
+
+def chunk_warps(B: int) -> int:
+    """Warps of the CTA that runs each work item where tiles arrive in row
+    chunks: one per 32 tile rows, at most ``WARPS_PER_CTA``."""
+    return min(WARPS_PER_CTA, -(-B // 32))
 
 
 def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int, int]:
@@ -273,12 +284,15 @@ def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int, int]:
     tiles and its diagonal tile) when eight, four, two or one warps of them
     fit ``SHARED_LIMIT``; else one warp streams its items in chunks of as
     many whole tiles as fit. Where two stages of one whole tile do not fit
-    (``B >= 170``), one warp streams each tile in row chunks: a stage holds
-    ``rows`` padded tile rows, the largest multiple of four that fits, so
-    every chunk starts ``i0 (B + 1) 4`` bytes into its entry, a multiple of
-    16 for odd and even ``B``; a tile's last chunk runs to the entry's
-    padded end (:func:`stream_tile_floats`), a multiple of 16 bytes too.
-    ``rows == B`` means whole tiles."""
+    (``B >= 170``), each tile arrives in row chunks and one CTA of
+    :func:`chunk_warps` warps runs each work item, the warps sharing one
+    ring of ``CHUNK_STAGES`` stages and one set of columns: a stage holds
+    ``rows`` padded tile rows, a multiple of four at most one a thread, for
+    as few chunks a tile as fit, evened out (88 rows at B = 176 and 256), so
+    every chunk starts ``i0 (B + 1) 4`` bytes into its entry, a
+    multiple of 16 for odd and even ``B``; a tile's last chunk runs to the
+    entry's padded end (:func:`stream_tile_floats`), a multiple of 16 bytes
+    too. ``rows == B`` means whole tiles."""
     need = max(1, int(max_item_tiles))
     for warps in (8, 4, 2, 1):
         if _streamed_bytes(warps, need, B, B) <= SHARED_LIMIT:
@@ -286,8 +300,9 @@ def streamed_shape(B: int, max_item_tiles: int) -> tuple[int, int, int]:
     if _streamed_bytes(1, 1, B, B) <= SHARED_LIMIT:
         cap = (SHARED_LIMIT - _streamed_bytes(1, 0, B, B)) // (8 * stream_tile_floats(B))
         return 1, min(cap, need), B
-    rows = (SHARED_LIMIT - _streamed_bytes(1, 0, 0, B)) // (8 * (B + 1)) // 4 * 4
-    return 1, 1, rows
+    most = (SHARED_LIMIT - _streamed_bytes(1, 0, 0, B)) // (4 * CHUNK_STAGES * (B + 1)) // 4 * 4
+    per_chunk = -(-B // -(-B // most))  # as few chunks as fit, of rows as even as can be
+    return chunk_warps(B), 1, -(-per_chunk // 4) * 4
 
 
 def stream_chunks(B: int, rows: int) -> list[tuple[int, int]]:
@@ -729,8 +744,9 @@ def superstep_streamed_call(seg, off, wid, sr, ut, trow, tcol, values, b_pad, ac
     (:func:`streamed_values` of ``layout``, the launch's
     :func:`streamed_layout`) instead of ``diag``/``tiles``. On a card, one
     cooperative launch of the streamed kernel, which copies each work
-    item's tiles (at ``B >= 170`` each tile in row chunks,
-    :func:`streamed_shape`) into shared memory with asynchronous bulk
+    item's tiles (at ``B >= 170`` each tile in row chunks, one CTA an item,
+    :func:`streamed_shape`, and by default four CTAs for each item of the
+    widest level, the items dealt round them) into shared memory with asynchronous bulk
     copies issued one chunk ahead; given CPU tensors, the plain version
     (:func:`repro_torch.kernels.ref.superstep_streamed_ref`). ``layout`` must
     be on the operands' device for a launch; ``flags`` as for

@@ -50,8 +50,9 @@ Rule catalogue (``kc.*``; all errors):
   ``kernels.superstep.shared_bytes(B)``; streamed,
   ``streamed_shared_bytes(B, max_item_tiles)`` with the widest work item
   counted from the plan's slices (row chunks where two stages of one whole
-  tile do not fit); and each fits ``SHARED_LIMIT`` where the plan runs that
-  form. Either form fails here at ``B >= 1056`` (one padded tile row over
+  tile do not fit: one CTA of ``chunk_warps(B)`` warps an item, sharing one
+  pair of stages, at most one chunk row a thread); and each fits
+  ``SHARED_LIMIT`` where the plan runs that form. Either form fails here at ``B >= 1056`` (one padded tile row over
   the resident stage; both forms take the same blocks).
 * ``kc.carry.donation`` (*port*) — the megakernel wrappers
   (``superstep_call``, ``superstep_streamed_call``) and their plain
@@ -595,6 +596,16 @@ def _check_streaming(plan: "Plan", sink: RuleSink) -> None:
                 f"bytes of shared memory, the kernel's rule for B={B} (widest work "
                 f"item {widest} tiles) gives {want}",
             )
+    warps, cap, rows = superstep.streamed_shape(B, widest)
+    if rows < B and (warps != superstep.chunk_warps(B) or cap != 1 or rows % 4
+                     or rows > 32 * warps):
+        sink.fail(
+            "kc.scratch.shape",
+            f"the streamed launch of B={B} in row chunks takes {warps} warps, {cap} "
+            f"entries and {rows} rows a stage; the kernel's rule is one CTA of "
+            f"{superstep.chunk_warps(B)} warps an item, one entry's chunks of a multiple "
+            f"of four rows, at most one row a thread",
+        )
     # the launch this plan makes, if it makes one, must fit a CTA
     if plan.config.kernel_backend in ("fused", "fused_streamed"):
         streamed = fused_streaming(plan)

@@ -454,7 +454,8 @@ def test_refused_streamed_launch_raises_and_next_launch_is_clean(cuda_device, B)
 # the streamed megakernel at B >= 170: each tile in row chunks
 # ---------------------------------------------------------------------------
 
-CHUNKED_B = (170, 176, 203, 256)  # 168, 160, 140 and 108 rows a chunk
+# 88, 88, 88, 104, 88 and 24 rows a chunk; 6, 6, 6, 7, 8 and 8 warps a CTA
+CHUNKED_B = (170, 171, 176, 203, 256, 1055)
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -485,7 +486,7 @@ def test_chunked_streamed_kernel_bit_identical_to_plain_version(cuda_device, B, 
     layout = superstep.streamed_layout(*[t.numpy() for t in tables], n_rows=shape[0],
                                        stp=stp.numpy())
     warps, cap, rows = superstep.streamed_shape(B, layout.max_item_tiles)
-    assert (warps, cap) == (1, 1) and rows < B and rows % 4 == 0
+    assert (warps, cap) == (superstep.chunk_warps(B), 1) and rows < B and rows % 4 == 0
     assert not split or layout.table.n_orphans > 0
     outs = {}
     for dev in ("cpu", cuda_device):
@@ -537,6 +538,30 @@ def test_chunked_streamed_bit_identical_to_resident_on_real_values(cuda_device, 
             x, ctx["fused"].solve(h["fused"], rhs, transpose=transpose))
         np.testing.assert_allclose(x, cpu.solve(hc, rhs, transpose=transpose),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+def test_chunked_launch_is_one_cta_of_w_warps_an_item(cuda_device, B):
+    """In row chunks a launch runs one CTA of W = min(8, ceil(B / 32))
+    warps per work item: the launch's own grid rule (csrc/superstep.cu)
+    takes one CTA for each item (and column) of the widest level, at most
+    the CTAs that fit at once, and the launch refuses any other number of
+    warps."""
+    from repro_torch.kernels import extension, superstep
+
+    warps, cap, rows = superstep.streamed_shape(B, 3)
+    assert warps == min(8, -(-B // 32)) and rows <= 32 * warps
+
+    def grid(w, items, R=1):
+        return extension.query("superstep", "repro_superstep_streamed_grid", w, cap, rows, B,
+                               R, items)
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert grid(warps, 5) == 5 and grid(warps, 5, R=3) == 15
+    assert 0 < grid(warps, 10**6) <= 2 * sms  # one or two CTAs an SM fit
+    for other in (1, warps - 1, warps + 1):
+        if other != warps:
+            assert grid(other, 5) < 0, other
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 import strategies
 from torch_parity import (
     SHARED_LIMIT, flatten_plan, hopper_fused_stats, port_config, stream_chunk_bytes,
-    stream_chunk_rows, to_torch_csr,
+    stream_chunk_rows, stream_chunk_warps, to_torch_csr,
 )
 from repro import krylov as jkrylov
 from repro.core import DistributedSolver, SolverConfig, build_plan
@@ -177,13 +177,13 @@ def test_layout_puts_each_item_in_one_contiguous_run(B):
 def test_streamed_shape_fits_the_shared_memory():
     """Whole items while 8, 4, 2 or 1 warps of them fit; else one warp in
     chunks of whole tiles; where two stages of one tile do not fit (B >=
-    170), one warp in chunks of tile rows; the CTA fits at every B < 1056,
-    and a call at B = 1056 is refused."""
+    170), one CTA of W warps an item in chunks of tile rows; the CTA fits at
+    every B < 1056, and a call at B = 1056 is refused."""
     assert tss.streamed_shape(32, 3) == (8, 3, 32)
     assert tss.streamed_shape(32, 6) == (4, 6, 32)
     assert tss.streamed_shape(32, 100) == (1, 27, 32)
     assert tss.streamed_shape(169, 4) == (1, 1, 169)
-    assert tss.streamed_shape(200, 4) == (1, 1, stream_chunk_rows(200)) == (1, 1, 140)
+    assert tss.streamed_shape(200, 4) == (7, 1, stream_chunk_rows(200)) == (7, 1, 100)
     for B, item in ((32, 3), (7, 2), (64, 5), (160, 1), (200, 1), (1055, 9)):
         assert tss.streamed_shared_bytes(B, item) <= tss.SHARED_LIMIT
     a = strategies.diagonal_matrix(1056)
@@ -201,8 +201,10 @@ def test_streamed_shape_fits_the_shared_memory():
 
 def test_streamed_shared_memory_rule():
     """Per warp: two mbarriers, two stages of the widest item's padded
-    tiles (or, from B = 170, of ``rows`` padded tile rows) and three
-    columns of B floats (the row's sum and two source columns); the widest
+    tiles and three columns of B floats (the row's sum and two source
+    columns); from B = 170 one such set of two stages of ``rows`` padded
+    tile rows (as few chunks a tile as fit, evened out) for the CTA, whose W
+    warps share it; the widest
     block whose two whole tiles fit stays 169. Each chunk of an entry
     starts and ends on a 16-byte boundary, fits a stage, and the chunks
     cover the entry once (the mirror in ``tests/torch_parity.py``)."""
@@ -210,18 +212,20 @@ def test_streamed_shared_memory_rule():
         warps, cap, rows = tss.streamed_shape(B, item)
         stage = cap * tss.stream_tile_floats(B) if rows == B else rows * (B + 1)
         assert tss.stage_floats(B, cap, rows) == stage
-        assert tss.streamed_shared_bytes(B, item) == warps * (16 + 2 * 4 * stage + 12 * B)
+        sets = 1 if rows < B else warps  # in row chunks the CTA's warps share one set
+        assert tss.streamed_shared_bytes(B, item) == sets * (16 + 2 * 4 * stage + 12 * B)
         assert (rows < B) == (B >= 170)
         chunks = [(4 * f, 4 * t) for f, t in tss.stream_chunks(B, rows)]
         if rows < B:
-            assert (warps, cap, rows) == (1, 1, stream_chunk_rows(B)) and rows % 4 == 0
+            assert (warps, cap, rows) == (stream_chunk_warps(B), 1, stream_chunk_rows(B))
+            assert rows % 4 == 0
             assert chunks == stream_chunk_bytes(B)
         assert chunks[0][0] == 0 and chunks[-1][1] == 4 * tss.stream_tile_floats(B)
         assert all(t0 == f1 for (_, t0), (f1, _) in zip(chunks, chunks[1:]))
         assert all(f % 16 == 0 and t % 16 == 0 and 0 < t - f <= 4 * stage for f, t in chunks)
     assert tss.streamed_shared_bytes(32, 3) == 8 * (16 + 2 * 3 * 4 * 1056 + 12 * 32) == 205_952
     assert tss.streamed_shared_bytes(169, 1) == 16 + 2 * 4 * 28_732 + 12 * 169 <= SHARED_LIMIT
-    assert tss.streamed_shared_bytes(170, 1) == 16 + 2 * 4 * 168 * 171 + 12 * 170 <= SHARED_LIMIT
+    assert tss.streamed_shared_bytes(170, 1) == 16 + 2 * 4 * 88 * 171 + 12 * 170 <= SHARED_LIMIT
     assert 16 + 2 * 4 * tss.stream_tile_floats(170) + 12 * 170 > SHARED_LIMIT
 
 

@@ -31,7 +31,8 @@ import torch
 import strategies
 from torch_parity import (
     RANK_TIMEOUT, SHARED_LIMIT, assert_dispatch_stats_match, port_config, rank_results,
-    stream_chunk_bytes, stream_chunk_rows, to_torch_csr,
+    stream_chunk_bytes, stream_chunk_rows, stream_chunk_shared_bytes, stream_chunk_warps,
+    to_torch_csr,
 )
 from repro.core import DistributedSolver, SolverConfig, build_plan
 from repro.core import solver as jsolver
@@ -39,6 +40,7 @@ from repro.sparse.matrix import reference_solve, to_scipy
 from repro_torch.api import PlanOptions, SpTRSVContext
 from repro_torch.core import solver as tsolver
 from repro_torch.kernels import superstep as tss
+from repro_torch.sparse import suite as tsuite
 from repro_torch.verify import verify_plan
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -92,8 +94,8 @@ def test_reference_executors_agree_on_the_twin(B):
 @pytest.mark.parametrize("B", WIDE_B)
 def test_fused_streamed_bit_identical_to_the_reference(B, form):
     """The port's ``fused_streamed`` Solver takes the chunked shape (one
-    warp, two stages of ``rows < B`` tile rows) and gives the reference's
-    fused bits."""
+    CTA of W warps an item, sharing two stages of ``rows < B`` tile rows)
+    and gives the reference's fused bits."""
     a, b, panel = _problem(B)
     transpose = form == "transpose"
     plan = tsolver.build_plan(to_torch_csr(a), 1, tsolver.SolverConfig(
@@ -101,16 +103,18 @@ def test_fused_streamed_bit_identical_to_the_reference(B, form):
     solver = tsolver.Solver(plan, "cpu")
     layout = solver._fused.layout
     assert layout is not None
-    assert tss.streamed_shape(B, layout.max_item_tiles) == (1, 1, stream_chunk_rows(B))
+    assert tss.streamed_shape(B, layout.max_item_tiles) == (
+        stream_chunk_warps(B), 1, stream_chunk_rows(B))
     x = solver.solve(panel if form == "panel" else b)
     np.testing.assert_array_equal(x, _reference(B, transpose, "fused")[form])
 
 
 def test_chunk_rule_against_the_mirror_at_every_block_size():
     """At every B < 1056: the CTA fits ``SHARED_LIMIT``; from B = 170 the
-    stage holds the mirror's ``rows`` (a multiple of four) and the chunks
-    of an entry start and end on 16-byte boundaries, fit a stage and cover
-    the entry once; below 170 whole tiles. B = 1056 is refused."""
+    CTA has the mirror's W warps, its stage holds the mirror's ``rows`` (a
+    multiple of four) and the chunks of an entry start and end on 16-byte
+    boundaries, fit a stage and cover the entry once; below 170 whole
+    tiles. B = 1056 is refused."""
     for B in range(1, 1056):
         warps, cap, rows = tss.streamed_shape(B, 1)
         assert tss.streamed_shared_bytes(B, 1) <= SHARED_LIMIT, B
@@ -118,7 +122,7 @@ def test_chunk_rule_against_the_mirror_at_every_block_size():
         if B < 170:
             assert rows == B and tss.stream_chunks(B, rows) == [(0, tss.stream_tile_floats(B))]
             continue
-        assert (warps, cap, rows) == (1, 1, stream_chunk_rows(B)), B
+        assert (warps, cap, rows) == (stream_chunk_warps(B), 1, stream_chunk_rows(B)), B
         chunks = [(4 * f, 4 * t) for f, t in tss.stream_chunks(B, rows)]
         assert chunks == stream_chunk_bytes(B), B
         stage = 4 * tss.stage_floats(B, cap, rows)
@@ -132,8 +136,9 @@ def test_chunk_rule_against_the_mirror_at_every_block_size():
 @pytest.mark.parametrize("B", WIDE_B)
 def test_dispatch_stats_match_the_reference(B, kernel):
     """Every key the reference's, but the three of the port's Hopper rule,
-    which follow the chunk rule (``fused_vmem_bytes`` one warp's two
-    stages of ``rows`` tile rows; ``stream_dma_bytes`` whole entries)."""
+    which follow the chunk rule (``fused_vmem_bytes`` one CTA's two stages
+    of ``rows`` tile rows, shared by its W warps; ``stream_dma_bytes``
+    whole entries)."""
     a = _problem(B)[0]
     cfg = SolverConfig(block_size=B, kernel_backend=kernel)
     for transpose in (False, True):
@@ -142,8 +147,50 @@ def test_dispatch_stats_match_the_reference(B, kernel):
         stats = tsolver.dispatch_stats(port)
         assert_dispatch_stats_match(jsolver.dispatch_stats(ref), ref, stats)
         assert stats["streamed"]
+        widest = max(layout.max_item_tiles for layout in tsolver.fused_layouts(port))
+        assert tss.streamed_shape(B, widest) == (stream_chunk_warps(B), 1, stream_chunk_rows(B))
         assert stats["fused_vmem_bytes"] == tsolver.fused_vmem_bytes(port, streamed=True) == (
-            16 + 2 * 4 * stream_chunk_rows(B) * (B + 1) + 12 * B)
+            stream_chunk_shared_bytes(B))
+
+
+def test_cta_rule_at_every_chunked_block_size():
+    """From B = 170 to 1055: one CTA of W = min(8, ceil(B / 32)) warps an
+    item, at most one chunk row a thread (so at most one sweep block a
+    warp); one pair of stages and one set of columns, not one a warp,
+    within ``SHARED_LIMIT``; ``rows`` a multiple of four, as few chunks a
+    tile as any ``rows`` that fits allows, evened out; the bulk copies of
+    an entry 16-byte aligned, each fitting a stage, covering the entry
+    once."""
+    for B in range(170, 1056):
+        warps, cap, rows = tss.streamed_shape(B, 5)
+        assert (warps, cap) == (stream_chunk_warps(B), 1) and warps == tss.chunk_warps(B), B
+        assert rows % 4 == 0 and 0 < rows < B and rows <= 32 * warps, B
+        shared = tss.streamed_shared_bytes(B, 5)
+        assert shared == stream_chunk_shared_bytes(B, rows) <= SHARED_LIMIT, B
+        most = (SHARED_LIMIT - 16 - 12 * B) // (8 * (B + 1)) // 4 * 4  # the most rows that fit
+        n = -(-B // rows)
+        assert rows <= most and (n - 1) * most < B and rows - 4 < -(-B // n), B
+        chunks = tss.stream_chunks(B, rows)
+        assert chunks[0][0] == 0 and chunks[-1][1] == tss.stream_tile_floats(B), B
+        assert all(t0 == f1 for (_, t0), (f1, _) in zip(chunks, chunks[1:])), B
+        assert all(f % 4 == 0 and t % 4 == 0 and 0 < t - f <= rows * (B + 1)
+                   for f, t in chunks), B
+
+
+@pytest.mark.parametrize("B", (176, 203))
+def test_strict_verify_clean_on_a_levelled_plan(B):
+    """Strict verification, ``kc.scratch.shape`` with the CTA rule among its
+    rules, is clean on a real-valued levelled plan in row chunks, both
+    fused backends, forward and transpose."""
+    a = tsuite.random_levelled(5 * B, 4, 3.0, seed=B)
+    for kernel in ("fused", "fused_streamed"):
+        for transpose in (False, True):
+            plan = tsolver.build_plan(a, 1, tsolver.SolverConfig(
+                block_size=B, kernel_backend=kernel), transpose=transpose)
+            report = verify_plan(plan, level="strict")
+            assert report.passed, [str(f) for f in report.findings]
+            assert "kc.scratch.shape" in report.rules_checked
+            assert tsolver.fused_vmem_bytes(plan, streamed=True) == stream_chunk_shared_bytes(B)
 
 
 @pytest.mark.parametrize("B", WIDE_B)

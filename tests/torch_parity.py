@@ -127,9 +127,10 @@ def hopper_fused_stats(ref_plan) -> dict:
     rows padded to B + 1 floats, then to a multiple of four; each warp
     double-buffers its widest item when 8, 4, 2 or 1 warps of them fit the
     shared memory, besides two mbarriers and three B-float columns; where
-    not even one warp's two stages of one tile fit, one warp's two stages
-    hold the most padded tile rows that fit, a multiple of four
-    (:func:`stream_chunk_rows`).
+    not even one warp's two stages of one tile fit, one CTA of
+    :func:`stream_chunk_warps` warps runs each item, the warps sharing two
+    stages of :func:`stream_chunk_rows` padded tile rows and one set of
+    columns (:func:`stream_chunk_shared_bytes`).
     """
     B = ref_plan.bs.B
     entry = 4 * (-(-B * (B + 1) // 4) * 4)
@@ -164,19 +165,36 @@ def hopper_fused_stats(ref_plan) -> dict:
     elif size(1, 1) <= SHARED_LIMIT:
         vmem = size(1, min(need, (SHARED_LIMIT - size(1, 0)) // (2 * entry)))
     else:
-        vmem = 16 + 2 * 4 * stream_chunk_rows(B) * (B + 1) + 12 * B
+        vmem = stream_chunk_shared_bytes(B)
     return {"streamed": True, "fused_vmem_bytes": vmem,
             "stream_dma_bytes": copied * entry if ref_plan.n_levels else 0}
 
 
+def stream_chunk_warps(B: int) -> int:
+    """Warps of the CTA that runs each work item of the streamed kernel in
+    row chunks: one per 32 tile rows, at most eight."""
+    return min(8, (B + 31) // 32)
+
+
 def stream_chunk_rows(B: int) -> int:
-    """Padded tile rows (B + 1 floats each) of one stage of the one-warp
-    streamed kernel: the largest multiple of four whose two stages, two
-    mbarriers and three B-float columns fit the shared memory."""
-    rows = 0
-    while 16 + 2 * 4 * (rows + 4) * (B + 1) + 12 * B <= SHARED_LIMIT:
-        rows += 4
-    return rows
+    """Padded tile rows (B + 1 floats each) of one stage of the streamed
+    kernel in row chunks: the fewest chunks of at most the largest multiple
+    of four rows whose two stages, two mbarriers and three B-float columns
+    (one set for the whole CTA) fit the shared memory, each chunk
+    ``ceil(B / chunks)`` rows rounded up to a multiple of four."""
+    most = 0
+    while stream_chunk_shared_bytes(B, most + 4) <= SHARED_LIMIT:
+        most += 4
+    chunks = -(-B // most)
+    return -(-(-(-B // chunks)) // 4) * 4
+
+
+def stream_chunk_shared_bytes(B: int, rows: int | None = None) -> int:
+    """Shared memory of one CTA of the streamed kernel in row chunks: two
+    8-byte mbarriers, two stages of ``rows`` padded tile rows and three
+    B-float columns."""
+    rows = stream_chunk_rows(B) if rows is None else rows
+    return 16 + 2 * 4 * rows * (B + 1) + 12 * B
 
 
 def stream_chunk_bytes(B: int) -> list:
