@@ -200,6 +200,25 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    B = 176 (the split form in row chunks): ``x`` exactly, its launches as
    ``dispatch_stats`` says.
 
+15. (run last, after the kernel timings below) the LM serving path (no
+   kernel of its own: plain PyTorch on the card),
+   TF32 off: (a) every reduced config in float32, the card against the port
+   on the CPU (``serve.crosscheck.serve_outputs``, same parameters and
+   ``SyntheticLM.batch(0)``): forward logits, the encoder's output, the
+   loss and the prefill's logits within rel_err ``TOL_LM`` (1e-5), the
+   prefill's token and 16 greedy decode steps equal; (b) ``LM_ARCH``
+   (llama3.2-1b) at its full published config, random weights from
+   ``SEED``: in float32, batch 2, a 512-token prompt and 32 greedy steps,
+   each step's logits within 2e-4 of one full forward over the same tokens
+   and the engine's tokens equal to the loop's; ``loss_fn`` at batch 2,
+   S = 2048, where ``_flash`` must run once a layer, against the same loss
+   on the plain path; in bfloat16 as configured, batch 8, a 512-token
+   prompt and 64 new tokens through the engine: prefill tokens/s, decode ms
+   per step beside its bound (parameters and KV cache read once), peak
+   ``torch.cuda.max_memory_allocated`` and one step's device-busy share
+   (``torch.profiler``); (c) ``python -m repro_torch.launch.serve --arch
+   llama3.2-1b`` on the card exits 0.
+
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
 row-sweep kernels also ``chain_bound_ms``: B times one dependent division
@@ -219,6 +238,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -286,6 +306,14 @@ AUTO_SIDE = 256  # phase 13c: "auto" at D = 2 on grid2d_factor(AUTO_SIDE), B = 3
 SERVE_REQUESTS = 16  # phase 13e: the dyadic mix served on two ranks
 WIDE_BLOCKS = (176, 256)  # phase 14: the streamed kernel in row chunks, on grid2d_factor(PCG_SIDE)
 CROSSOVER_BLOCKS = (64, 128, 176, 256)  # phase 14: perf/stream_crossover.py's ladder
+LM_ARCH = "llama3.2-1b"  # phase 15b: the full published config, random weights
+LM_REDUCED_STEPS = 16  # phase 15a: greedy steps after each reduced config's prefill
+LM_PROMPT = 512  # phase 15b: prompt tokens
+LM_FP32 = (2, 32)  # phase 15b: batch, greedy steps each held to a full forward (fp32)
+LM_BF16 = (8, 64)  # phase 15b: batch, new tokens timed in bfloat16
+LM_LOSS_SEQ = 2048  # phase 15b: loss_fn's sequence length, where _flash runs
+TOL_LM = 1e-5  # phase 15a: reduced configs, card vs CPU (rel_err)
+TOL_LM_DECODE = 2e-4  # phase 15b: each fp32 decode step vs the full forward (rel_err)
 # each megakernel instantiation's name in the profiler, demangled or not
 MEGAKERNEL_SYMBOL = {
     (stream, split): rf"superstep_kernel(<{str(stream).lower()}, {str(split).lower()}>"
@@ -2154,6 +2182,240 @@ def phase_wide(rng, wide_rank: dict, copy_lib) -> tuple:
     return [row, split_row], paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM serving path (reduced configs, then llama3.2-1b in full)
+# ---------------------------------------------------------------------------
+
+
+def lm_decode_bound_ms(param_bytes: int, cache_bytes: int) -> float:
+    """Least time (ms) of one greedy decode step: every parameter and the
+    whole KV cache read once at peak bandwidth (the step's operations,
+    2 x parameters x batch, take far less at the bfloat16 peak)."""
+    return 1e3 * (param_bytes + cache_bytes) / PEAK_BYTES_PER_S
+
+
+def device_busy_ms(fn, top: int = 4) -> tuple[float, float, str]:
+    """(wall ms, device-busy ms, its ``top`` kernels) of ``fn()``: the host
+    clock around it (ended by a synchronize), the sum of its CUDA kernels'
+    times in ``torch.profiler`` (one stream, so the kernels do not overlap)
+    and the kernels that took the most, as "name ms xcount"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels)
+    heads = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} x{e.count}"
+                      for e in kernels[:top])
+    return 1e3 * wall, busy / 1e3, f"{sum(e.count for e in kernels)} kernels; {heads}"
+
+
+def phase_lm(card: str) -> dict:
+    """Phase 15 (see the module docstring); returns the numbers it printed."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import attention, init_cache, init_params, param_count
+    from repro_torch.models.layers import vocab_pad_mask
+    from repro_torch.models.model import forward, loss_fn
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.serve.crosscheck import serve_outputs
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    vocab = get_config(LM_ARCH).vocab
+
+    def greedy(logits):
+        return torch.argmax(vocab_pad_mask(logits.float(), vocab), dim=-1).to(torch.int32)
+
+    t_start = time.perf_counter()
+    sub_s = {}
+    out = {}
+    f32 = dict(dtype="float32", param_dtype="float32")
+
+    # (a) every reduced config in float32: the card against the port on the CPU
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_reduced(arch), **f32)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        batch = SyntheticLM(cfg, 2, 32).batch(0)
+        cpu = serve_outputs(cfg, params, batch, device="cpu", steps=LM_REDUCED_STEPS)
+        gpu = serve_outputs(cfg, params, batch, device="cuda", steps=LM_REDUCED_STEPS)
+        errs = {k: rel_err(gpu[k].numpy(), cpu[k].numpy())
+                for k in ("logits", "prefill", "encode") if cpu[k] is not None}
+        errs["loss"] = abs(float(gpu["loss"]) - float(cpu["loss"])) / abs(float(cpu["loss"]))
+        for k, e in errs.items():
+            check(e <= TOL_LM, f"phase 15a {arch}: {k} rel err {e:.3e} (card vs CPU)")
+        check(gpu["tokens"].shape == (2, LM_REDUCED_STEPS + 1)
+              and torch.equal(gpu["tokens"], cpu["tokens"]),
+              f"phase 15a {arch}: greedy tokens differ, card {gpu['tokens'].tolist()} "
+              f"vs CPU {cpu['tokens'].tolist()}")
+        worst[arch] = max(errs.values())
+    sub_s["a reduced"] = time.perf_counter() - t0
+    log("phase 15a reduced configs, float32, card vs CPU: forward logits, encoder, loss, "
+        f"prefill within rel err {TOL_LM:g}, prefill + {LM_REDUCED_STEPS} greedy tokens equal; "
+        "worst rel err per arch: " + ", ".join(f"{a}={e:.2e}" for a, e in worst.items()))
+    out["reduced_rel_err"] = worst
+
+    # (b) the full published config
+    cfg = dataclasses.replace(get_config(LM_ARCH), **f32)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab)
+          == (16, 2048, 32, 8, 8192, 128256), f"phase 15b: {LM_ARCH} is not at full width: {cfg}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, device="cuda")
+    n_params = param_count(params)
+    B, steps = LM_FP32
+    prompt = torch.randint(0, cfg.vocab, (B, LM_PROMPT), generator=gen, device="cuda")
+    with torch.no_grad():
+        # each decode step's logits against one full forward over the same tokens
+        cache = init_cache(cfg, B, LM_PROMPT + steps, device="cuda")
+        last, cache = forward(params, cfg, prompt, cache=cache, last_only=True)
+        step_logits, toks = [last[:, 0]], []
+        for t in range(steps):
+            toks.append(greedy(step_logits[-1]))
+            lg, cache = forward(params, cfg, toks[-1][:, None], cache=cache,
+                                pos_offset=LM_PROMPT + t)
+            step_logits.append(lg[:, 0])
+        full, _ = forward(params, cfg, torch.cat([prompt, torch.stack(toks, 1)], 1))
+        errs = [rel_err(s.cpu().numpy(), full[:, LM_PROMPT - 1 + i].cpu().numpy())
+                for i, s in enumerate(step_logits)]
+        del cache, full
+    check(max(errs) <= TOL_LM_DECODE,
+          f"phase 15b fp32: decode step logits vs the full forward, rel err {max(errs):.3e}")
+    # the engine's greedy tokens are the loop's
+    prefill, decode = make_prefill_step(cfg, device="cuda"), make_decode_step(cfg, device="cuda")
+    cache = init_cache(cfg, B, LM_PROMPT + steps, device="cuda")
+    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    eng = [greedy(logits[:, -1])]
+    for t in range(steps):
+        tok, cache = decode(params, {"tokens": eng[-1][:, None]}, cache, LM_PROMPT + t)
+        eng.append(tok)
+    want = torch.stack(toks + [greedy(step_logits[-1])], 1)
+    check(torch.equal(torch.stack(eng, 1), want),
+          "phase 15b fp32: the engine's greedy tokens differ from the forward loop's")
+    del cache, step_logits
+    sub_s["b fp32 decode"] = time.perf_counter() - t0
+    log(f"phase 15b {LM_ARCH} fp32 ({n_params} parameters), batch {B}, {LM_PROMPT}-token "
+        f"prompt, {steps} greedy steps: each step's logits vs one full forward, rel err max "
+        f"{max(errs):.3e} (prefill {errs[0]:.3e}); the engine's tokens equal")
+    out["fp32_decode_rel_err"] = max(errs)
+
+    # one loss at S = LM_LOSS_SEQ, where _flash runs, against the plain path
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             SyntheticLM(cfg, 2, LM_LOSS_SEQ).batch(0).items()}
+    flash = get_registry().counter("attention.flash")
+    n0 = flash.value
+    with torch.no_grad():
+        loss = float(loss_fn(params, cfg, batch["tokens"], batch["labels"]))
+        n_flash = flash.value - n0
+        saved = attention.FLASH_THRESHOLD
+        attention.FLASH_THRESHOLD = LM_LOSS_SEQ + 1  # the plain path, same inputs
+        try:
+            loss_plain = float(loss_fn(params, cfg, batch["tokens"], batch["labels"]))
+        finally:
+            attention.FLASH_THRESHOLD = saved
+    check(n_flash == cfg.n_layers and flash.value - n0 == n_flash,
+          f"phase 15b loss: _flash ran {n_flash} times, want {cfg.n_layers}")
+    e = abs(loss - loss_plain) / abs(loss_plain)
+    check(math.isfinite(loss) and e <= TOL_KERNEL,
+          f"phase 15b loss: flash {loss} vs plain {loss_plain} (rel {e:.3e})")
+    del batch, params
+    torch.cuda.empty_cache()
+    sub_s["b fp32 loss"] = time.perf_counter() - t0
+    log(f"phase 15b {LM_ARCH} fp32 loss_fn, batch 2, S={LM_LOSS_SEQ}: {loss:.6f} "
+        f"(ln vocab {math.log(cfg.vocab):.6f}); _flash ran {n_flash} times (one a layer); "
+        f"plain path {loss_plain:.6f}, rel {e:.2e}")
+    out.update(loss=loss, flash_calls=n_flash)
+
+    # bfloat16 as configured: prefill rate, decode step time, peak memory
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated()  # earlier phases' tensors, left out of the peak
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, device="cuda")
+    B, new = LM_BF16
+    prompt = torch.randint(0, cfg.vocab, (B, LM_PROMPT), generator=gen, device="cuda")
+    prefill, decode = make_prefill_step(cfg, device="cuda"), make_decode_step(cfg, device="cuda")
+
+    def serve(n_new):
+        cache = init_cache(cfg, B, LM_PROMPT + new, device="cuda")
+        t = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt}, cache)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t
+        toks = [greedy(logits[:, -1])]
+        t = time.perf_counter()
+        for i in range(n_new - 1):
+            tok, cache = decode(params, {"tokens": toks[-1][:, None]}, cache, LM_PROMPT + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        return t_pre, time.perf_counter() - t, torch.stack(toks, 1), cache
+
+    serve(3)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    t_pre, t_dec, toks, cache = serve(new)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(toks.shape == (B, new) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"phase 15b bf16: tokens out of range {toks.shape}")
+    cache_bytes = sum(t.numel() * t.element_size() for st in cache for slot in st["slots"].values()
+                      for t in (slot["attn"]["k"], slot["attn"]["v"]))
+    param_bytes = n_params * 2
+    bound_ms = lm_decode_bound_ms(param_bytes, cache_bytes)
+    # the prefill's and one decode step's device-busy share (torch.profiler)
+    cache = init_cache(cfg, B, LM_PROMPT + new, device="cuda")
+    pre_prof = {}
+
+    def profiled_prefill():
+        pre_prof["logits"], pre_prof["cache"] = prefill(params, {"tokens": prompt}, cache)
+
+    pre_wall, pre_busy, pre_top = device_busy_ms(profiled_prefill)
+    cache, tok = pre_prof["cache"], greedy(pre_prof["logits"][:, -1])
+    steps_prof = [device_busy_ms(lambda i=i: decode(params, {"tokens": tok[:, None]}, cache,
+                                                    LM_PROMPT + i)) for i in range(3)]
+    wall_ms, busy_ms, dec_top = steps_prof[-1]
+    sub_s["b bf16 serve"] = time.perf_counter() - t0
+    out.update(prefill_tok_s=B * LM_PROMPT / t_pre, prefill_ms=1e3 * t_pre,
+               decode_ms=1e3 * t_dec / (new - 1), peak_bytes=peak, decode_bound_ms=bound_ms,
+               decode_wall_ms=wall_ms, decode_busy_ms=busy_ms)
+    log(f"phase 15b {LM_ARCH} bf16, batch {B}, {LM_PROMPT}-token prompt, {new} new tokens "
+        f"(card: {card}): prefill {1e3 * t_pre:.3f} ms = {out['prefill_tok_s']:.1f} tokens/s; "
+        f"decode {out['decode_ms']:.4f} ms per step (host clock over {new - 1} steps); "
+        f"bound {bound_ms:.4f} ms ({param_bytes} parameter + {cache_bytes} KV-cache bytes at "
+        f"{PEAK_BYTES_PER_S:.3g} B/s); peak torch.cuda.max_memory_allocated {peak} bytes above "
+        f"the {base} held before the bf16 parameters")
+    log(f"phase 15b {LM_ARCH} bf16 under torch.profiler (card: {card}): prefill wall "
+        f"{pre_wall:.3f} ms, kernels {pre_busy:.3f} ms (device busy {pre_busy / pre_wall:.1%}; "
+        f"{pre_top}); one decode step wall {wall_ms:.4f} ms, kernels {busy_ms:.4f} ms (device "
+        f"busy {busy_ms / wall_ms:.1%}; {dec_top}); earlier steps wall/kernels "
+        f"{[f'{w:.3f}/{b:.3f}' for w, b, _ in steps_prof[:-1]]}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # (c) the launcher on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH],
+                         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    line = (run.stdout.strip().splitlines() or [""])[-1]
+    check(run.returncode == 0 and "on cuda" in line,
+          f"phase 15c: launch/serve.py exited {run.returncode}: {line} {run.stderr[-2000:]}")
+    sub_s["c launcher"] = time.perf_counter() - t0
+    log(f"phase 15c python -m repro_torch.launch.serve --arch {LM_ARCH}: {line}")
+    log("phase 15 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items())
+        + f"; total {time.perf_counter() - t_start:.1f}")
+    return out
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -3188,6 +3450,10 @@ def main() -> None:
     for row in wide_rows:
         check(row["launches"] > 0, f"{row['name']}: no launch on phase 14's paths")
     torch.cuda.synchronize()
+
+    # 15. the LM serving path: reduced configs card vs CPU, llama3.2-1b in full
+    phase_start["15 lm serving"] = time.perf_counter()
+    phase_lm(card)
     phase_start["end"] = time.perf_counter()
     names = list(phase_start)
     log("seconds per phase: " + ", ".join(

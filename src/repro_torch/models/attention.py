@@ -1,0 +1,204 @@
+"""GQA attention (global / sliding-window / cross) with KV-cache decode.
+
+The reference's arithmetic, op for op: float32 scores, the tanh soft-cap,
+masked scores set to ``-1e30``, softmax in float32. GQA K/V heads are
+repeated to H at use (``repeat_interleave``: head h reads KV head h // g);
+the KV *cache* stays K-headed.
+
+The cache is updated in place. A prefill whose length equals the cache's
+writes the whole cache; any other call with a cache writes its K/V at
+``cache["pos"]`` (a host int) and attends over the whole cache, masked.
+
+Long sequences (S >= FLASH_THRESHOLD, keys as long as the queries) go
+through ``_flash``: a chunked online softmax that holds one (chunk x chunk)
+score block at a time and skips the key chunks the causal mask (and window)
+leave empty, with the loop bounds as host ints.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Init, rotary, softcap
+from repro_torch.obs.metrics import get_registry
+
+FLASH_THRESHOLD = 2048
+FLASH_CHUNK = 1024
+NEG = -1e30  # the masked-score sentinel
+
+
+def head_pad_mask(cfg: ModelConfig, dtype=torch.float32, device=None) -> torch.Tensor | None:
+    """1.0 for real Q-head slots, 0.0 for padding. Padding is per KV group
+    (each group of g real heads pads to g_pad) so the GQA repeat keeps every
+    real head aligned with its own KV head."""
+    H, K = cfg.n_heads, cfg.n_kv
+    Hp = max(H, cfg.head_pad_to)
+    if Hp == H:
+        return None
+    if Hp % K:
+        raise ValueError(f"head_pad_to {Hp} is no multiple of n_kv {K}")
+    g, gp = H // K, Hp // K
+    return ((torch.arange(Hp, device=device) % gp) < g).to(dtype)
+
+
+def init_attn(init: Init, cfg: ModelConfig, dtype: torch.dtype) -> dict:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    Hp = max(H, cfg.head_pad_to)
+    if Hp % K:
+        raise ValueError(f"{Hp} query heads do not split over {K} KV heads")
+    p = {
+        "wq": init.dense(d, H * hd, dtype, (d, Hp, hd)),
+        "wk": init.dense(d, K * hd, dtype, (d, K, hd)),
+        "wv": init.dense(d, K * hd, dtype, (d, K, hd)),
+        "wo": init.dense(H * hd, d, dtype, (Hp, hd, d)),
+    }
+    mask = head_pad_mask(cfg, dtype, init.device)
+    if mask is not None:  # zero padded heads: no contribution, zero gradients
+        p["wq"] = p["wq"] * mask[:, None]
+        p["wo"] = p["wo"] * mask[:, None, None]
+    return p
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool, window: int):
+    m = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        m = m & (k_pos[None, :] > q_pos[:, None] - window)
+    return m
+
+
+def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, S, K, hd) -> (B, S, K*g, hd), each KV head repeated g times in place."""
+    return k if g == 1 else k.repeat_interleave(g, dim=2)
+
+
+def _flash(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, H, hd)  (already repeated to H)
+    v: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    causal: bool,
+    window: int,
+    chunk: int = FLASH_CHUNK,
+) -> torch.Tensor:
+    """Chunked online-softmax attention (the reference's inference form);
+    counts its calls in the registry's ``attention.flash``."""
+    get_registry().counter("attention.flash").inc()
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    cq, ck = min(chunk, Sq), min(chunk, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"sequence lengths {Sq}, {Sk} are no multiple of the chunk {chunk}")
+    nq, nk = Sq // cq, Sk // ck
+    scale = hd ** -0.5
+    dev = q.device
+    out = torch.empty_like(q)
+    for qi in range(nq):
+        qc = q[:, qi * cq:(qi + 1) * cq]
+        q_pos = qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, cq, hd), dtype=q.dtype, device=dev)
+        if causal:  # key chunks past the diagonal (or before the window) add nothing
+            hi = qi + 1
+            lo = max(0, (qi * cq - window) // ck) if window > 0 else 0
+        else:
+            lo, hi = 0, nk
+        for ki in range(lo, hi):
+            kck = k[:, ki * ck:(ki + 1) * ck]
+            vck = v[:, ki * ck:(ki + 1) * ck]
+            k_pos = ki * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bshd,bthd->bhst", qc, kck).float() * scale
+            if cfg.softcap > 0:
+                s = softcap(s, cfg.softcap)
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask[None, None], s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            # fully-masked rows must add zero mass even while the running
+            # max sits at the sentinel
+            p = torch.where(mask[None, None], p, 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None].to(acc.dtype)
+        out[:, qi * cq:(qi + 1) * cq] = o.transpose(1, 2)
+    return out
+
+
+def attention(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (S,) absolute positions of x tokens
+    window: int = 0,  # 0 = global
+    cache: dict | None = None,  # self: {"k","v","pos"}; cross: {"k","v"}
+    kv_source: torch.Tensor | None = None,  # cross-attention memory (B, S_kv, d)
+    causal: bool = True,
+    is_cross: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    B, S, d = x.shape
+    K, hd = cfg.n_kv, cfg.hd
+    H = p["wq"].shape[1]  # may exceed cfg.n_heads under head padding
+    g = H // K
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+
+    if is_cross:
+        if kv_source is not None:  # (pre)fill: compute cross K/V from encoder
+            k = torch.einsum("bsd,dhk->bshk", kv_source, p["wk"])
+            v = torch.einsum("bsd,dhk->bshk", kv_source, p["wv"])
+            cache = {"k": k, "v": v} if cache is not None else None
+        else:  # decode: use precomputed cross K/V
+            k, v = cache["k"], cache["v"]
+        k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+        mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, positions, cfg.rope_theta)
+        if cache is not None and S == cache["k"].shape[1]:
+            # full prefill: the fresh K/V are the cache (positions 0..S-1)
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            cache = {"k": cache["k"], "v": cache["v"], "pos": S}
+            mask = _mask(positions, positions, causal=causal, window=window)
+        elif cache is not None:
+            # decode: write the new k/v at `pos`, attend over the whole cache
+            pos = int(cache["pos"])
+            ck_, cv_ = cache["k"], cache["v"]
+            ck_[:, pos:pos + S] = k
+            cv_[:, pos:pos + S] = v
+            k, v = ck_, cv_
+            k_pos = torch.arange(k.shape[1], device=x.device)
+            q_pos = pos + torch.arange(S, device=x.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            cache = {"k": ck_, "v": cv_, "pos": pos + S}
+        else:
+            mask = _mask(positions, positions, causal=causal, window=window)
+        k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+
+    if not is_cross and k.shape[1] == S and S >= FLASH_THRESHOLD:
+        out = _flash(q, k, v, cfg, causal=causal, window=window)
+    else:
+        scores = torch.einsum("bshd,bthd->bhst", q, k).float()
+        scores = scores * (hd ** -0.5)
+        if cfg.softcap > 0:
+            scores = softcap(scores, cfg.softcap)
+        scores = torch.where(mask[None, None], scores, NEG)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthd->bshd", w, v)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, cache
+
