@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~10 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~13 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -200,7 +200,7 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    B = 176 (the split form in row chunks): ``x`` exactly, its launches as
    ``dispatch_stats`` says.
 
-15. (run last, after the kernel timings below) the LM serving path (no
+15. (run after the kernel timings below) the LM serving path (no
    kernel of its own: plain PyTorch on the card),
    TF32 off: (a) every reduced config in float32, the card against the port
    on the CPU (``serve.crosscheck.serve_outputs``, same parameters and
@@ -218,6 +218,32 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    ``torch.cuda.max_memory_allocated`` and one step's device-busy share
    (``torch.profiler``); (c) ``python -m repro_torch.launch.serve --arch
    llama3.2-1b`` on the card exits 0.
+16. (run after 15) the LM training path (plain PyTorch on the card; no
+   kernel of its own), TF32 off: (a) every reduced config in float32, the
+   card against the port on the CPU from the same parameters and
+   ``SyntheticLM.batch(0)``: the loss within rel_err ``TOL_LM`` (1e-5) and
+   every gradient within 1e-5 of the tree's largest |gradient| (``remat``
+   on), ``remat`` on against off on the card within the same bounds, and
+   three ``make_train_step`` steps (``warmup=0``, ``microbatches=2`` for
+   ``LM_ARCH``) card against CPU, losses and gradient norms within 1e-5
+   (the parameters' difference printed); (b) ``LM_ARCH`` at its
+   full published config in float32, batch 1, S = 2048 (``_flash`` on its
+   differentiable path, counted once a layer, recomputations not counted):
+   the loss and every gradient with ``remat`` off and on the plain
+   attention path against flash with ``remat``, within ``TOL_LM_GRAD``
+   (1e-4) of the largest gradient, the peak memory of each; (c) in
+   bfloat16 as configured, batch 4, S = 2048, through ``make_train_step``:
+   the median ms of 8 steps after 2 warm-up steps, tokens/s, the model
+   FLOPs ``6 N_active tokens`` and their share of the dense bf16 peak,
+   peak ``torch.cuda.max_memory_allocated`` above what the earlier phases
+   hold, one step's device-busy share and kernel count
+   (``torch.profiler``), and on a repeated batch with ``warmup=0`` the loss
+   after 8 steps below the first step's, finite throughout; (d) that run's
+   parameters and AdamW moments saved by ``CheckpointManager`` under
+   ``build/`` and restored to the card bit-equal, and a reduced run that
+   stops after step 9 and resumes to step 14 giving the uninterrupted run's
+   losses within rtol 1e-5; (e) ``python -m repro_torch.launch.train --arch
+   llama3.2-1b --steps 3`` on the card exits 0.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -299,6 +325,7 @@ DEVICE_KERNEL = {name: rf"(?<![A-Za-z_]){sym}(?=[(<EI ]|$)"
 ROW_SWEEPS = ("block_trsv", "block_trsm", "block_trsv_panel")  # rows with a chain_bound_ms
 PANEL_BP = ((8, 4), (16, 8), (24, 3), (24, 6), (32, 1), (32, 8), (32, 32))  # panel oracle
 LIBRARY_KERNEL = r"(?i)gemm|gemv|trsm|trsv|xmma|cutlass|cublas|sm90_"
+GEMM_KERNEL = r"(?i)gemm|gemv|xmma|cutlass|cublas|sm90_|nvjet"  # cuBLAS's matmul kernels
 ORACLE_CHUNK = 4096  # tiles per host oracle call at the syncfree shapes
 UNIFIED_RANKS = 2  # phase 11: gloo ranks, all on cuda:0
 UNIFIED_TIMEOUT = 720  # seconds phase 11's ranks may take (phases 11-13)
@@ -314,6 +341,13 @@ LM_BF16 = (8, 64)  # phase 15b: batch, new tokens timed in bfloat16
 LM_LOSS_SEQ = 2048  # phase 15b: loss_fn's sequence length, where _flash runs
 TOL_LM = 1e-5  # phase 15a: reduced configs, card vs CPU (rel_err)
 TOL_LM_DECODE = 2e-4  # phase 15b: each fp32 decode step vs the full forward (rel_err)
+LM_TRAIN_FP32 = (1, 2048)  # phase 16b: batch, S of the fp32 gradients (_flash differentiable)
+LM_TRAIN_BF16 = (4, 2048)  # phase 16c: batch, S of the bf16 train steps
+LM_TRAIN_STEPS = (2, 8)  # phase 16c: warm-up steps, timed steps
+LM_TRAIN_FIT = 8  # phase 16c: steps on a repeated batch after its first
+LM_TRAIN_PARITY_STEPS = 3  # phase 16a: make_train_step steps card vs CPU per reduced config
+TOL_LM_GRAD = 1e-4  # phase 16b: fp32 gradients, of the tree's largest |gradient|
+PEAK_BF16_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 # each megakernel instantiation's name in the profiler, demangled or not
 MEGAKERNEL_SYMBOL = {
     (stream, split): rf"superstep_kernel(<{str(stream).lower()}, {str(split).lower()}>"
@@ -2194,11 +2228,15 @@ def lm_decode_bound_ms(param_bytes: int, cache_bytes: int) -> float:
     return 1e3 * (param_bytes + cache_bytes) / PEAK_BYTES_PER_S
 
 
-def device_busy_ms(fn, top: int = 4) -> tuple[float, float, str]:
-    """(wall ms, device-busy ms, its ``top`` kernels) of ``fn()``: the host
-    clock around it (ended by a synchronize), the sum of its CUDA kernels'
-    times in ``torch.profiler`` (one stream, so the kernels do not overlap)
-    and the kernels that took the most, as "name ms xcount"."""
+def kernel_profile(fn, top: int = 4) -> tuple[float, float, int, str, float]:
+    """(wall ms, device-busy ms, kernel count, its ``top`` kernels, GEMM ms)
+    of ``fn()``: the host clock around it (ended by a synchronize), the
+    sum of its CUDA kernels' times in ``torch.profiler`` (one stream, so the
+    kernels do not overlap), how many kernels ran, the kernels that took
+    the most, as "name ms xcount", and the ms of the kernels whose name
+    matches ``GEMM_KERNEL`` (cuBLAS's matmuls)."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2212,9 +2250,17 @@ def device_busy_ms(fn, top: int = 4) -> tuple[float, float, str]:
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels)
+    gemm = sum(e.self_device_time_total for e in kernels if re.search(GEMM_KERNEL, e.key))
     heads = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} x{e.count}"
                       for e in kernels[:top])
-    return 1e3 * wall, busy / 1e3, f"{sum(e.count for e in kernels)} kernels; {heads}"
+    return 1e3 * wall, busy / 1e3, sum(e.count for e in kernels), heads, gemm / 1e3
+
+
+def device_busy_ms(fn, top: int = 4) -> tuple[float, float, str]:
+    """``kernel_profile`` with the count folded into the text:
+    (wall ms, device-busy ms, "N kernels; heads")."""
+    wall, busy, n, heads, _ = kernel_profile(fn, top)
+    return wall, busy, f"{n} kernels; {heads}"
 
 
 def phase_lm(card: str) -> dict:
@@ -2412,6 +2458,282 @@ def phase_lm(card: str) -> dict:
     sub_s["c launcher"] = time.perf_counter() - t0
     log(f"phase 15c python -m repro_torch.launch.serve --arch {LM_ARCH}: {line}")
     log("phase 15 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items())
+        + f"; total {time.perf_counter() - t_start:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the LM training path (reduced configs, then llama3.2-1b in full)
+# ---------------------------------------------------------------------------
+
+
+def active_params(cfg) -> int:
+    """Per-token active parameters, the N of a train step's model FLOPs
+    ``6 N tokens`` (the smoke's copy of the reference's
+    ``launch/specs.py::active_param_count``: MoE counts ``top_k`` experts;
+    norms are left out)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    n_mlp = d * f * (3 if cfg.mlp_gated else 2)
+    n_attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv * hd * 2
+    per_kind = {"A": n_attn + n_mlp, "L": n_attn + n_mlp, "H": n_attn + n_mlp,
+                "D": n_attn + n_mlp, "C": 2 * n_attn + n_mlp,
+                "E": n_attn + cfg.top_k * 3 * d * f + d * cfg.n_experts
+                + (3 * d * cfg.moe_dense_ff if cfg.moe_dense_ff else 0),
+                "M": 0, "S": 0}
+    if cfg.ssm_state:
+        di = cfg.d_inner
+        per_kind["M"] = (d * 2 * di + di * d + di * (-(-d // 16) + 2 * cfg.ssm_state)
+                         + (-(-d // 16)) * di)
+        nh = di // cfg.mamba_headdim
+        per_kind["S"] = d * (2 * di + 2 * cfg.ssm_state + nh) + di * d
+    total = sum(per_kind[k] for k in cfg.layer_kinds + cfg.enc_layer_kinds)
+    return total + cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+
+
+def tree_rel(got, want) -> float:
+    """max |got - want| over the leaves of two trees of tensors, over the
+    largest |leaf entry| of ``want`` (never per leaf: a leaf whose true
+    gradient is zero holds rounding noise on both sides)."""
+    from repro_torch.models.model import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    check(len(a) == len(b), f"trees of {len(a)} and {len(b)} leaves")
+    big = max(float(y.abs().max()) for y in b)
+    return max(float((x.to(y.device).float() - y.float()).abs().max())
+               for x, y in zip(a, b)) / big
+
+
+def phase_lm_train(card: str) -> dict:
+    """Phase 16 (see the module docstring); returns the numbers it printed."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.models import attention, init_params, param_count
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    sub_s, out = {}, {}
+    f32 = dict(dtype="float32", param_dtype="float32")
+
+    def on_dev(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    # (a) every reduced config in float32: gradients and train steps, card vs CPU
+    t0 = time.perf_counter()
+    worst, params_err = {}, {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_reduced(arch), **f32)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        data = SyntheticLM(cfg, 2, 32)
+        batch = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+        loss, grads = value_and_grad(cfg, params, batch)
+        p_card = tree_map(lambda t: t.to(dev), params)
+        l_on, g_on = value_and_grad(cfg, p_card, on_dev(batch), remat=True)
+        l_off, g_off = value_and_grad(cfg, p_card, on_dev(batch), remat=False)
+        errs = {"loss": abs(float(l_on) - float(loss)) / abs(float(loss)),
+                "grads": tree_rel(g_on, grads),
+                "remat loss": abs(float(l_off) - float(l_on)) / abs(float(l_on)),
+                "remat grads": tree_rel(g_off, g_on)}
+        # three train steps on each side (warmup 0: the later losses follow
+        # updates); microbatches 2 on LM_ARCH
+        mb = 2 if arch == LM_ARCH else 1
+        runs = []
+        for d in (torch.device("cpu"), dev):
+            p = tree_map(lambda t: t.to(d, copy=True), params)  # the step updates in place
+            opt = adamw_init(p)
+            step = make_train_step(cfg, d, microbatches=mb, peak_lr=1e-3, warmup=0)
+            metrics = [step(p, opt, data.batch(i), i)[2] for i in range(LM_TRAIN_PARITY_STEPS)]
+            runs.append(([(float(m["loss"]), float(m["gnorm"])) for m in metrics], p))
+        (cpu_m, cpu_p), (card_m, card_p) = runs
+        for i, ((cl, cg), (gl, gg)) in enumerate(zip(cpu_m, card_m)):
+            errs[f"step {i} loss"] = abs(gl - cl) / abs(cl)
+            errs[f"step {i} gnorm"] = abs(gg - cg) / abs(cg)
+        # printed, not held to TOL_LM: AdamW divides by sqrt(v) + eps, so a
+        # leaf whose gradient is zero in exact arithmetic (llama4-maverick's
+        # router under top_k = 1) moves by its rounding noise over eps
+        params_err[arch] = tree_rel(card_p, cpu_p)
+        for k, e in errs.items():
+            check(math.isfinite(e) and e <= TOL_LM,
+                  f"phase 16a {arch}: {k} rel err {e:.3e} (limit {TOL_LM:g})")
+        worst[arch] = max(errs.values())
+    sub_s["a reduced"] = time.perf_counter() - t0
+    log("phase 16a reduced configs, float32, card vs CPU: loss and gradients (remat on), "
+        f"remat on vs off on the card, {LM_TRAIN_PARITY_STEPS} make_train_step steps' losses "
+        f"and gradient norms (microbatches 2 on {LM_ARCH}) within rel err {TOL_LM:g} "
+        "(gradients of the tree's largest); worst per arch: "
+        + ", ".join(f"{a}={e:.2e}" for a, e in worst.items())
+        + "; parameters after the steps, of the largest: "
+        + ", ".join(f"{a}={e:.2e}" for a, e in params_err.items()))
+    out.update(reduced_rel_err=worst, reduced_params_err=params_err)
+
+    # (b) the full published config in float32: flash vs plain, remat on vs off
+    cfg = dataclasses.replace(get_config(LM_ARCH), **f32)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab)
+          == (16, 2048, 32, 8, 8192, 128256), f"phase 16b: {LM_ARCH} is not at full width: {cfg}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    n_params = param_count(params)
+    B, S = LM_TRAIN_FP32
+    batch = on_dev(SyntheticLM(cfg, B, S).batch(0))
+    flash = get_registry().counter("attention.flash")
+
+    def grads_of(remat: bool, plain: bool = False):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n0, saved = flash.value, attention.FLASH_THRESHOLD
+        if plain:
+            attention.FLASH_THRESHOLD = S + 1  # the plain path, same inputs
+        t = time.perf_counter()
+        try:
+            loss, grads = value_and_grad(cfg, params, batch, remat=remat)
+            torch.cuda.synchronize()
+        finally:
+            attention.FLASH_THRESHOLD = saved
+        return (float(loss), grads, torch.cuda.max_memory_allocated() - start,
+                flash.value - n0, time.perf_counter() - t)
+
+    grads_of(True)  # warm-up: cuBLAS handles, allocator
+    loss, ref, peak_on, n_flash, s_on = grads_of(True)
+    check(n_flash == cfg.n_layers,
+          f"phase 16b: _flash counted {n_flash} forward calls with remat, want {cfg.n_layers}")
+    checks = {}
+    for name, remat, plain in (("remat off", False, False), ("plain attention", True, True)):
+        l2, g2, peak, n2, sec = grads_of(remat, plain)
+        e_loss, e_grad = abs(l2 - loss) / abs(loss), tree_rel(g2, ref)
+        del g2
+        check(n2 == (0 if plain else cfg.n_layers),
+              f"phase 16b {name}: _flash counted {n2} calls")
+        check(math.isfinite(l2) and e_loss <= TOL_LM_GRAD and e_grad <= TOL_LM_GRAD,
+              f"phase 16b {name}: loss rel {e_loss:.3e}, gradients rel {e_grad:.3e} "
+              f"(limit {TOL_LM_GRAD:g} of the largest gradient)")
+        checks[name] = (e_loss, e_grad, peak, sec)
+    del ref, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub_s["b fp32 grads"] = time.perf_counter() - t0
+    log(f"phase 16b {LM_ARCH} fp32 ({n_params} parameters), batch {B}, S={S}, "
+        f"value_and_grad (card: {card}): loss {loss:.6f}; flash + remat {1e3 * s_on:.1f} ms, "
+        f"peak {peak_on} bytes above the run's start, _flash {n_flash} forward calls; "
+        + "; ".join(f"{k}: loss rel {el:.2e}, gradients rel {eg:.2e}, {1e3 * sec:.1f} ms, "
+                    f"peak {pk} bytes" for k, (el, eg, pk, sec) in checks.items()))
+    out.update(fp32_loss=loss, fp32_peak_remat=peak_on, fp32_ms_remat=1e3 * s_on,
+               fp32_checks=checks)
+
+    # (c) bfloat16 as configured through make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated()  # earlier phases' tensors, left out of the peak
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    opt = adamw_init(params)
+    B, S = LM_TRAIN_BF16
+    data = SyntheticLM(cfg, B, S)
+    step = make_train_step(cfg, "cuda")
+    warm, timed = LM_TRAIN_STEPS
+    losses, times = [], []
+    for i in range(warm + timed):
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, data.batch(i), i)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(x) for x in losses), f"phase 16c: losses {losses}")
+    ms = 1e3 * sorted(times[warm:])[timed // 2]
+    n_active = active_params(cfg)
+    flops = 6 * n_active * B * S
+    mfu = flops / (ms / 1e3) / PEAK_BF16_PER_S
+    wall, busy, n_kernels, top, gemm = kernel_profile(
+        lambda: step(params, opt, data.batch(warm + timed), warm + timed), top=6)
+    # a repeated batch, warmup 0: the loss comes down
+    del opt
+    opt = adamw_init(params)
+    fit = make_train_step(cfg, "cuda", warmup=0)
+    fit_losses = [float(fit(params, opt, data.batch(0), i)[2]["loss"])
+                  for i in range(LM_TRAIN_FIT + 1)]
+    check(all(math.isfinite(x) for x in fit_losses) and fit_losses[-1] < fit_losses[0],
+          f"phase 16c: repeated-batch losses {fit_losses} do not come down")
+    sub_s["c bf16 steps"] = time.perf_counter() - t0
+    out.update(ms_per_step=ms, tokens_s=B * S / (ms / 1e3), mfu=mfu, peak_bytes=peak,
+               step_wall_ms=wall, step_busy_ms=busy, kernels_per_step=n_kernels, gemm_ms=gemm,
+               fit_losses=fit_losses)
+    log(f"phase 16c {LM_ARCH} bf16 train step, batch {B}, S={S} (card: {card}): median "
+        f"{ms:.3f} ms of {timed} after {warm} warm-up (each "
+        f"{[round(1e3 * t, 3) for t in times]}), {out['tokens_s']:.1f} tokens/s; model FLOPs "
+        f"6 x {n_active} x {B * S} = {flops:.4e} a step, {mfu:.2%} of the {PEAK_BF16_PER_S:.3g} "
+        f"FLOP/s dense bf16 peak; peak torch.cuda.max_memory_allocated {peak} bytes above the "
+        f"{base} held before the phase; losses {[round(x, 4) for x in losses]}")
+    log(f"phase 16c one step under torch.profiler: wall {wall:.3f} ms, kernels {busy:.3f} ms "
+        f"(device busy {busy / wall:.1%}), {n_kernels} kernels, of them cuBLAS/GEMM {gemm:.3f} "
+        f"ms ({gemm / busy:.1%}); {top}; repeated batch, warmup "
+        f"0: losses {[round(x, 4) for x in fit_losses]}")
+
+    # (d) the checkpoint manager on the card, then a crash and resume
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    need = 4 * sum(t.numel() for t in tree_leaves([params, opt]))  # float32 on disk
+    free = shutil.disk_usage(ckpt).free
+    check(free > 1.2 * need, f"phase 16d: {free} bytes free under {ckpt}, the checkpoint "
+          f"needs {need}")
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    t = time.perf_counter()
+    mgr.save(LM_TRAIN_FIT, params, opt, {"arch": LM_ARCH, "device": "cuda"})
+    save_s = time.perf_counter() - t
+    disk = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    t = time.perf_counter()
+    p2, o2, manifest = mgr.restore(mgr.latest_step(), params, opt, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    pairs = list(zip(tree_leaves([p2, o2]), tree_leaves([params, opt])))
+    check(len(pairs) == len(tree_leaves([params, opt])) and all(
+        a.is_cuda and a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+        "phase 16d: the restored checkpoint differs from the live tensors")
+    check(manifest == {"step": LM_TRAIN_FIT, "arch": LM_ARCH, "device": "cuda"},
+          f"phase 16d: manifest {manifest}")
+    del p2, o2, pairs, params, opt
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(ckpt_every=5, global_batch=2, seq_len=16, device="cuda", quiet=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        full = train_run(LM_ARCH, steps=14, ckpt_dir=os.path.join(tmp, "a"), **kw)
+        train_run(LM_ARCH, steps=10, ckpt_dir=os.path.join(tmp, "b"), **kw)  # stops after 9
+        resumed = train_run(LM_ARCH, steps=14, ckpt_dir=os.path.join(tmp, "b"), **kw)
+    e = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[10:]))
+    check(len(resumed) == 4 and e <= 1e-5,
+          f"phase 16d: resumed losses {resumed} vs uninterrupted {full[10:]}")
+    sub_s["d checkpoint"] = time.perf_counter() - t0
+    out.update(save_s=save_s, restore_s=restore_s, ckpt_bytes=disk)
+    log(f"phase 16d CheckpointManager on the card: save {disk} bytes ({need} of float32 "
+        f"arrays) in {save_s:.2f} s, restore to the card in {restore_s:.2f} s, every leaf "
+        f"bit-equal; reduced {LM_ARCH} run stopped after step 9 and resumed to 14: losses "
+        f"within rel {e:.2e} of the uninterrupted run's")
+
+    # (e) the launcher on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                          "--steps", "3"],
+                         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    lines = run.stdout.strip().splitlines() or [""]
+    check(run.returncode == 0 and "on cuda" in run.stdout and "step    2 loss" in lines[-1],
+          f"phase 16e: launch/train.py exited {run.returncode}: {lines[-3:]} "
+          f"{run.stderr[-2000:]}")
+    sub_s["e launcher"] = time.perf_counter() - t0
+    log(f"phase 16e python -m repro_torch.launch.train --arch {LM_ARCH} --steps 3: "
+        + " | ".join(lines))
+    log("phase 16 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
     return out
 
@@ -3454,6 +3776,9 @@ def main() -> None:
     # 15. the LM serving path: reduced configs card vs CPU, llama3.2-1b in full
     phase_start["15 lm serving"] = time.perf_counter()
     phase_lm(card)
+    # 16. the LM training path: reduced configs card vs CPU, llama3.2-1b in full
+    phase_start["16 lm training"] = time.perf_counter()
+    phase_lm_train(card)
     phase_start["end"] = time.perf_counter()
     names = list(phase_start)
     log("seconds per phase: " + ", ".join(

@@ -1,4 +1,7 @@
 """Command-line entry points: ``python -m repro_torch.launch.solve`` (one
-matrix, one solve mode, timed and checked against scipy) and
+matrix, one solve mode, timed and checked against scipy),
 ``python -m repro_torch.launch.serve_solve`` (a multi-tenant request mix
-through the solve service and the plan store)."""
+through the solve service and the plan store), and for the LM substrate
+``python -m repro_torch.launch.serve`` (prefill and greedy decode) and
+``python -m repro_torch.launch.train`` (the training loop with
+checkpoints and resume)."""

@@ -12,14 +12,18 @@ writes the whole cache; any other call with a cache writes its K/V at
 Long sequences (S >= FLASH_THRESHOLD, keys as long as the queries) go
 through ``_flash``: a chunked online softmax that holds one (chunk x chunk)
 score block at a time and skips the key chunks the causal mask (and window)
-leave empty, with the loop bounds as host ints.
+leave empty, with the loop bounds as host ints. Without a cache (training)
+it is differentiable: the backward recomputes each key chunk's block.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, rotary, softcap
+from repro_torch.models.remat import checkpointed, recomputing
 from repro_torch.obs.metrics import get_registry
 
 FLASH_THRESHOLD = 2048
@@ -73,6 +77,33 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
     return k if g == 1 else k.repeat_interleave(g, dim=2)
 
 
+def _kv_step(m, l, acc, qc, kck, vck, q0: int, k0: int, *, cfg: ModelConfig, causal: bool,
+             window: int, scale: float):
+    """One key chunk of the online softmax: ``(m, l, acc)`` after the keys
+    ``kck`` (from position ``k0``) for the queries ``qc`` (from ``q0``)."""
+    cq, ck, dev = qc.shape[1], kck.shape[1], qc.device
+    q_pos = q0 + torch.arange(cq, device=dev)
+    k_pos = k0 + torch.arange(ck, device=dev)
+    s = torch.einsum("bshd,bthd->bhst", qc, kck).float() * scale
+    if cfg.softcap > 0:
+        s = softcap(s, cfg.softcap)
+    mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+    if causal:
+        mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    s = torch.where(mask[None, None], s, NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    # fully-masked rows must add zero mass even while the running
+    # max sits at the sentinel
+    p = torch.where(mask[None, None], p, 0.0)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
+    return m_new, l_new, acc * corr[..., None].to(acc.dtype) + pv
+
+
 def _flash(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, H, hd)  (already repeated to H)
@@ -82,22 +113,31 @@ def _flash(
     causal: bool,
     window: int,
     chunk: int = FLASH_CHUNK,
+    differentiable: bool = False,
 ) -> torch.Tensor:
-    """Chunked online-softmax attention (the reference's inference form);
-    counts its calls in the registry's ``attention.flash``."""
-    get_registry().counter("attention.flash").inc()
+    """Chunked online-softmax attention; counts its forward calls in the
+    registry's ``attention.flash``. ``differentiable`` (under grad mode)
+    runs each key chunk under ``remat.checkpointed``, so the backward
+    recomputes every (cq x ck) probability block instead of keeping them
+    all (the reference's ``jax.checkpoint`` of its scan body). Key chunks
+    the causal mask (and window) leave empty are skipped in both forms: such
+    a chunk leaves ``(m, l, acc)`` as they were (``corr = 1``, ``p = 0``)
+    and so adds no gradient either."""
+    if not recomputing():
+        get_registry().counter("attention.flash").inc()
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     cq, ck = min(chunk, Sq), min(chunk, Sk)
     if Sq % cq or Sk % ck:
         raise ValueError(f"sequence lengths {Sq}, {Sk} are no multiple of the chunk {chunk}")
     nq, nk = Sq // cq, Sk // ck
-    scale = hd ** -0.5
     dev = q.device
-    out = torch.empty_like(q)
+    step = functools.partial(_kv_step, cfg=cfg, causal=causal, window=window, scale=hd ** -0.5)
+    if differentiable:
+        step = functools.partial(checkpointed, step)
+    outs = []
     for qi in range(nq):
         qc = q[:, qi * cq:(qi + 1) * cq]
-        q_pos = qi * cq + torch.arange(cq, device=dev)
         m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, cq, hd), dtype=q.dtype, device=dev)
@@ -107,31 +147,11 @@ def _flash(
         else:
             lo, hi = 0, nk
         for ki in range(lo, hi):
-            kck = k[:, ki * ck:(ki + 1) * ck]
-            vck = v[:, ki * ck:(ki + 1) * ck]
-            k_pos = ki * ck + torch.arange(ck, device=dev)
-            s = torch.einsum("bshd,bthd->bhst", qc, kck).float() * scale
-            if cfg.softcap > 0:
-                s = softcap(s, cfg.softcap)
-            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
-            if causal:
-                mask = k_pos[None, :] <= q_pos[:, None]
-            if window > 0:
-                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-            s = torch.where(mask[None, None], s, NEG)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            # fully-masked rows must add zero mass even while the running
-            # max sits at the sentinel
-            p = torch.where(mask[None, None], p, 0.0)
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
-            acc = acc * corr[..., None].to(acc.dtype) + pv
-            m = m_new
+            m, l, acc = step(m, l, acc, qc, k[:, ki * ck:(ki + 1) * ck],
+                             v[:, ki * ck:(ki + 1) * ck], qi * cq, ki * ck)
         o = acc / torch.clamp_min(l, 1e-30)[..., None].to(acc.dtype)
-        out[:, qi * cq:(qi + 1) * cq] = o.transpose(1, 2)
-    return out
+        outs.append(o.transpose(1, 2))
+    return torch.cat(outs, dim=1) if nq > 1 else outs[0].contiguous()
 
 
 def attention(
@@ -190,7 +210,9 @@ def attention(
         k, v = _repeat_kv(k, g), _repeat_kv(v, g)
 
     if not is_cross and k.shape[1] == S and S >= FLASH_THRESHOLD:
-        out = _flash(q, k, v, cfg, causal=causal, window=window)
+        # no cache: a train or eval call that may be differentiated
+        out = _flash(q, k, v, cfg, causal=causal, window=window,
+                     differentiable=cache is None)
     else:
         scores = torch.einsum("bshd,bthd->bhst", q, k).float()
         scores = scores * (hd ** -0.5)

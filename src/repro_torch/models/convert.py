@@ -1,4 +1,4 @@
-"""The reference's parameters in the port's layout.
+"""The reference's parameters (and AdamW state) in the port's layout.
 
 The two trees share keys and shapes (stacked scan slots, the ``shared``
 blocks, the encoder), so the mapping is key for key: each array becomes a
@@ -13,13 +13,27 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, tree_map
 
 
 def params_from_reference(cfg: ModelConfig, tree) -> dict:
     """The reference's parameter tree (numpy leaves) as the port's CPU
     tensors, key for key."""
     return _convert(init_params(cfg, device="meta"), tree, "params")
+
+
+def opt_state_from_reference(cfg: ModelConfig, tree, state_dtype=torch.float32) -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy leaves) as
+    the port's: the moments key for key as the parameter tree, in
+    ``state_dtype``, and ``step`` a 0-d int32 tensor."""
+    want = tree_map(lambda t: t.to(state_dtype), init_params(cfg, device="meta"))
+    if set(tree) != {"m", "v", "step"}:
+        raise ValueError(f"opt_state: keys {sorted(tree)} != ['m', 'step', 'v']")
+    step = _tensor(np.asarray(tree["step"]))
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"opt_state.step: {step.dtype}{tuple(step.shape)}, want a 0-d int32")
+    return {"m": _convert(want, tree["m"], "opt_state.m"),
+            "v": _convert(want, tree["v"], "opt_state.v"), "step": step}
 
 
 def _convert(want, got, path: str):

@@ -11,9 +11,13 @@ while their KV caches remain per period (stacked). The parameter and cache
 trees have the reference's keys and shapes (``convert.params_from_reference``
 maps one onto the other); a cache's ``pos`` is a host int.
 
-``forward`` updates a cache in place and returns it. ``remat`` is accepted
-for the reference's signature and does nothing here (nothing is
-differentiated in this module).
+``forward`` updates a cache in place and returns it. ``remat`` (the
+reference's ``jax.checkpoint`` of each ``block`` stage and of each period of
+a ``scan`` stage) applies under grad mode without a cache: each such unit
+runs under ``remat.checkpointed``, so the backward keeps one activation per
+unit and recomputes the rest. The period's parameters are indexed out of the
+stacked tensors inside the recomputed unit, so their gradients reach the
+stacked tensors; a shared block's parameters are closed over.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, cross_entropy, embed_lookup, rms_norm, torch_dtype
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.remat import checkpointed
 from repro_torch.models.ssm import init_mamba1, init_mamba2, mamba1, mamba2
 
 @dataclasses.dataclass(frozen=True)
@@ -263,27 +268,37 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *, posit
 
 
 def _apply_stages(stages_params: list, plan: list[StageSpec], x: torch.Tensor,
-                  cfg: ModelConfig, *, positions, caches=None, enc_out=None, causal=True):
+                  cfg: ModelConfig, *, positions, caches=None, enc_out=None, causal=True,
+                  remat=False):
+    remat = remat and caches is None and torch.is_grad_enabled()
+    # the units below bind their stage through default arguments: under
+    # remat the backward runs them again after this loop has moved on
     for i, spec in enumerate(plan):
         sp = stages_params[i]
         cache_i = caches[i] if caches is not None else None
         if spec.type == "block":
-            c = cache_i["block"] if cache_i else None
-            x, nc = _apply_block(spec.pattern, sp["block"], x, cfg, positions=positions,
-                                 cache=c, enc_out=enc_out, causal=causal)
-            if c is not None:
-                _store(c, nc)
+            def block(p, h, kind=spec.pattern, c=cache_i["block"] if cache_i else None):
+                h, nc = _apply_block(kind, p, h, cfg, positions=positions, cache=c,
+                                     enc_out=enc_out, causal=causal)
+                if c is not None:
+                    _store(c, nc)
+                return h
+
+            x = checkpointed(block, sp["block"], x) if remat else block(sp["block"], x)
             continue
-        shared = sp["shared"]
-        slot_caches = cache_i["slots"] if cache_i else None
-        for t in range(spec.n):
+
+        def period(h, t, spec=spec, sp=sp, slot_caches=cache_i["slots"] if cache_i else None):
             for j, kind in enumerate(spec.pattern):
-                p_j = shared[str(j)] if kind == "H" else _period(sp["slots"][str(j)], t)
+                p_j = sp["shared"][str(j)] if kind == "H" else _period(sp["slots"][str(j)], t)
                 c_j = _period(slot_caches[str(j)], t) if slot_caches else None
-                x, nc_j = _apply_block(kind, p_j, x, cfg, positions=positions, cache=c_j,
+                h, nc_j = _apply_block(kind, p_j, h, cfg, positions=positions, cache=c_j,
                                        enc_out=enc_out, causal=causal)
                 if nc_j is not None:
                     _store(slot_caches[str(j)], nc_j, t, last=t == spec.n - 1)
+            return h
+
+        for t in range(spec.n):
+            x = checkpointed(period, x, t) if remat else period(x, t)
     return x
 
 
@@ -321,7 +336,7 @@ def forward(
     positions = pos_offset + torch.arange(S, device=x.device)
     plan = build_stage_plan(cfg.pattern, cfg.layer_kinds)
     x = _apply_stages(params["stages"], plan, x, cfg, positions=positions, caches=cache,
-                      enc_out=enc_out, causal=True)
+                      enc_out=enc_out, causal=True, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
