@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~13 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~13-17 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -244,6 +244,25 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    stops after step 9 and resumes to step 14 giving the uninterrupted run's
    losses within rtol 1e-5; (e) ``python -m repro_torch.launch.train --arch
    llama3.2-1b --steps 3`` on the card exits 0.
+17. (run after 16) the LM sharding layer (no kernel of its own), (a) and
+   (b) side by side: (a) in a spawned process, on fake worlds of 256 and 512 ranks (torch's ``fake``
+   backend; no communication), every applicable cell's ``input_specs`` on
+   the production mesh (16 x 16, 2 x 16 x 16): every leaf a meta DTensor,
+   every spec dividing its dim, each local shape the spec's share, every
+   leaf of at least 2^24 elements sharded on some axis; per cell the
+   argument bytes a rank holds (parameters + AdamW state, or parameters +
+   cache; counted from the local shapes, not a measured memory size) and
+   the model FLOPs; (b) ``SHARD_RANKS`` (4) gloo ranks sharing the card on
+   a 2 x 2 ``("data", "model")`` mesh, each drawing ``LM_ARCH``'s full
+   bf16 parameters from ``SEED`` on the card and placing them by
+   ``shard_tree`` on ``param_specs(..., fsdp_axes=dp_axes(mesh))``: every
+   local shard bit-equal to the slice its spec names (pod/data-major, as
+   the reference splits), its bytes the spec's count; ``embed`` gathered
+   back across the ranks on card tensors through the mesh's gloo groups
+   (``dist.all_gather`` per mesh dim: DTensor's ``full_tensor()`` dies of
+   a segmentation fault on gloo with CUDA tensors in torch 2.11),
+   bit-equal; the same for float32 AdamW moments; per-rank bytes and
+   seconds.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -345,6 +364,8 @@ LM_TRAIN_FP32 = (1, 2048)  # phase 16b: batch, S of the fp32 gradients (_flash d
 LM_TRAIN_BF16 = (4, 2048)  # phase 16c: batch, S of the bf16 train steps
 LM_TRAIN_STEPS = (2, 8)  # phase 16c: warm-up steps, timed steps
 LM_TRAIN_FIT = 8  # phase 16c: steps on a repeated batch after its first
+SHARD_RANKS = 4  # phase 17b: gloo ranks sharing one card
+SHARD_MESH = (2, 2)  # phase 17b: the ("data", "model") mesh of those ranks
 LM_TRAIN_PARITY_STEPS = 3  # phase 16a: make_train_step steps card vs CPU per reduced config
 TOL_LM_GRAD = 1e-4  # phase 16b: fp32 gradients, of the tree's largest |gradient|
 PEAK_BF16_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
@@ -1605,6 +1626,38 @@ def zerocopy_segment_times(a, rows_out: list, rng, device: str = "cuda:0") -> st
             f"50 launches")
 
 
+def run_spawned(jobs: list, timeout: float, what: str) -> list:
+    """Start one spawned process per ``(target, args)`` of ``jobs`` (each
+    calls ``target(*args, out)``), all at once; collect one result from each
+    through a queue, and check that every process exited 0."""
+    import multiprocessing
+    import queue
+
+    spawn = multiprocessing.get_context("spawn")
+    out = spawn.Queue()
+    procs = [spawn.Process(target=target, args=(*args, out)) for target, args in jobs]
+    for p in procs:
+        p.start()
+    results = []
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(results) < len(procs):
+            check(time.perf_counter() < deadline, f"{what}: timed out")
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            check(not bad, f"{what}: a process exited {bad}")
+            with contextlib.suppress(queue.Empty):
+                results.append(out.get(timeout=5))
+        for p in procs:
+            p.join(60)
+        check(all(p.exitcode == 0 for p in procs),
+              f"{what}: exited {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    return results
+
+
 def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: dict,
                   rng, tail: dict, side: int = SIDE, panel_side: int = PCG_SIDE,
                   device: str = "cuda:0") -> tuple:
@@ -1618,9 +1671,6 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
     after phase 12). Returns the kernel rows of the split forms, the
     launches of each rank-0 solve by path, phase 12's seconds and every
     rank's results (phase 13's under ``"tail"``)."""
-    import multiprocessing
-    import queue
-
     import numpy as np
 
     from repro_torch.launch.serve_solve import dyadic
@@ -1633,8 +1683,6 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
     panel_p = rng.uniform(-1, 1, (a_p.n, 8))
     x_wide = rng.integers(-4, 5, a_p.n).astype(np.float64)
     b_wide = (to_scipy(dyadic(a_p, seed=SEED)) @ x_wide).astype(np.float32)
-    spawn = multiprocessing.get_context("spawn")
-    out = spawn.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         inputs = str(Path(tmp) / "inputs.npz")
         np.savez(inputs, b=b, b_dy=b_dy, x_int=x_int, want_forward=want["forward"],
@@ -1643,30 +1691,11 @@ def phase_unified(a, b, b_dy, x_int, want: dict, store_bytes: int, one_device: d
                  side=side, panel_side=panel_side, device=device, x_wide=x_wide, b_wide=b_wide,
                  calibration=str(Path(tmp) / "calibration.json"),
                  plan_store=str(Path(tmp) / "plan_store"), **tail)
-        procs = [spawn.Process(target=unified_rank,
-                               args=(r, inputs, str(Path(tmp) / "rendezvous"), out))
-                 for r in range(UNIFIED_RANKS)]
-        for p in procs:
-            p.start()
-        results = []
-        try:
-            deadline = time.perf_counter() + UNIFIED_TIMEOUT
-            while len(results) < UNIFIED_RANKS:
-                check(time.perf_counter() < deadline, "phase 11: the ranks timed out")
-                bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                check(not bad, f"phase 11: a rank exited {bad}")
-                with contextlib.suppress(queue.Empty):
-                    results.append(out.get(timeout=5))
-            for p in procs:
-                p.join(60)
-            check(all(p.exitcode == 0 for p in procs),
-                  f"phase 11: ranks exited {[p.exitcode for p in procs]}")
-            check(Path(tmp, "calibration.json").exists(),
-                  "phase 13c: no calibration file was written")
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
+        results = run_spawned([(unified_rank, (r, inputs, str(Path(tmp) / "rendezvous")))
+                               for r in range(UNIFIED_RANKS)], UNIFIED_TIMEOUT,
+                              "phase 11 ranks")
+        check(Path(tmp, "calibration.json").exists(),
+              "phase 13c: no calibration file was written")
     sub_s["a ranks"] = time.perf_counter() - t0
     results.sort(key=lambda r: r["rank"])
     r0 = results[0]
@@ -2467,29 +2496,6 @@ def phase_lm(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def active_params(cfg) -> int:
-    """Per-token active parameters, the N of a train step's model FLOPs
-    ``6 N tokens`` (the smoke's copy of the reference's
-    ``launch/specs.py::active_param_count``: MoE counts ``top_k`` experts;
-    norms are left out)."""
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
-    n_mlp = d * f * (3 if cfg.mlp_gated else 2)
-    n_attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv * hd * 2
-    per_kind = {"A": n_attn + n_mlp, "L": n_attn + n_mlp, "H": n_attn + n_mlp,
-                "D": n_attn + n_mlp, "C": 2 * n_attn + n_mlp,
-                "E": n_attn + cfg.top_k * 3 * d * f + d * cfg.n_experts
-                + (3 * d * cfg.moe_dense_ff if cfg.moe_dense_ff else 0),
-                "M": 0, "S": 0}
-    if cfg.ssm_state:
-        di = cfg.d_inner
-        per_kind["M"] = (d * 2 * di + di * d + di * (-(-d // 16) + 2 * cfg.ssm_state)
-                         + (-(-d // 16)) * di)
-        nh = di // cfg.mamba_headdim
-        per_kind["S"] = d * (2 * di + 2 * cfg.ssm_state + nh) + di * d
-    total = sum(per_kind[k] for k in cfg.layer_kinds + cfg.enc_layer_kinds)
-    return total + cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-
-
 def tree_rel(got, want) -> float:
     """max |got - want| over the leaves of two trees of tensors, over the
     largest |leaf entry| of ``want`` (never per leaf: a leaf whose true
@@ -2512,6 +2518,7 @@ def phase_lm_train(card: str) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import ARCH_IDS, get_config, get_reduced
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch.specs import active_param_count
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import attention, init_params, param_count
     from repro_torch.models.model import tree_leaves, tree_map
@@ -2649,7 +2656,7 @@ def phase_lm_train(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     check(all(math.isfinite(x) for x in losses), f"phase 16c: losses {losses}")
     ms = 1e3 * sorted(times[warm:])[timed // 2]
-    n_active = active_params(cfg)
+    n_active = int(active_param_count(cfg))
     flops = 6 * n_active * B * S
     mfu = flops / (ms / 1e3) / PEAK_BF16_PER_S
     wall, busy, n_kernels, top, gemm = kernel_profile(
@@ -2736,6 +2743,245 @@ def phase_lm_train(card: str) -> dict:
     log("phase 16 seconds per sub-step: " + ", ".join(f"{k}={v:.1f}" for k, v in sub_s.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the LM sharding rules at production scale, and placement on the card
+# ---------------------------------------------------------------------------
+
+
+def with_specs(tree, specs, path: str = ""):
+    """``(path, leaf, spec)`` for every tensor leaf of ``tree`` beside its
+    spec (a cache's host-int ``pos`` has none and is skipped)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from with_specs(v, specs[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, (v, s) in enumerate(zip(tree, specs, strict=True)):
+            yield from with_specs(v, s, f"{path}/{i}")
+    elif hasattr(tree, "shape"):
+        yield path, tree, specs
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (``None``, a name or a tuple of names)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_slice(shape, spec, sizes: dict, coord: dict) -> tuple:
+    """The part of a ``shape`` tensor that the rank at mesh coordinates
+    ``coord`` holds under ``spec``: each dim split evenly over the product of
+    its axes, the first axis major (the reference's order)."""
+    out = []
+    for n, entry in zip(shape, spec):
+        idx, parts = 0, 1
+        for a in spec_axes(entry):
+            idx, parts = idx * sizes[a] + coord[a], parts * sizes[a]
+        out.append(slice(idx * (n // parts), (idx + 1) * (n // parts)))
+    return tuple(out)
+
+
+def rules_child(device_type: str, out) -> None:
+    """Phase 17a, in a process of its own (a fake world is process-wide):
+    every applicable cell's ``input_specs`` on the production mesh at 256
+    and 512 ranks of torch's ``fake`` backend, as the last rank. Every spec
+    divides its dim, each leaf's local shape is the spec's share, every
+    leaf of at least 2^24 elements is sharded on some axis, nothing is
+    allocated. Puts one record per cell on ``out``: the argument bytes a
+    rank holds, counted from the local shapes, and the cell's model FLOPs."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import all_cells, cell_applicable
+    from repro_torch.distributed import axis_sizes
+    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import input_specs, model_flops
+
+    t_start = time.perf_counter()
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    cells = []
+    for world in (256, 512):
+        dist.init_process_group("fake", store=FakeStore(), rank=world - 1, world_size=world)
+        try:
+            mesh = make_production_mesh(multi_pod=world == 512, device_type=device_type)
+            sizes = axis_sizes(mesh)
+            for arch, shape in all_cells():
+                if not cell_applicable(arch, shape)[0]:
+                    continue
+                t0 = time.perf_counter()
+                inp = input_specs(arch, shape, mesh)
+                rank_bytes, n_leaves = {}, 0
+                for tree in ("params", "opt", "batch", "cache"):
+                    if tree not in inp:
+                        continue
+                    specs = inp["param_specs" if tree == "params" else tree + "_specs"]
+                    rank_bytes[tree] = 0
+                    for path, leaf, spec in with_specs(inp[tree], specs, tree):
+                        local = leaf.to_local()
+                        where = f"phase 17a {world} ranks {arch} {shape} {path} {tuple(leaf.shape)} {spec}"
+                        check(local.is_meta, f"{where}: allocated on {local.device}")
+                        check(all(n % math.prod(sizes[a] for a in spec_axes(e)) == 0
+                                  for n, e in zip(leaf.shape, spec)), f"{where}: does not divide")
+                        check(tuple(local.shape) == local_shape(leaf.shape, spec, mesh),
+                              f"{where}: local shape {tuple(local.shape)}")
+                        check(leaf.numel() < 1 << 24 or any(e is not None for e in spec),
+                              f"{where}: a leaf of {leaf.numel()} elements is not sharded")
+                        rank_bytes[tree] += local.numel() * local.element_size()
+                        n_leaves += 1
+                cell = inp["cell"]
+                cells.append({"world": world, "arch": arch, "shape": shape, "leaves": n_leaves,
+                              "bytes": rank_bytes, "s": time.perf_counter() - t0,
+                              "flops": model_flops(inp["cfg"], cell.seq_len, cell.global_batch,
+                                                   cell.step)})
+        finally:
+            dist.destroy_process_group()
+    out.put({"cells": cells, "s": time.perf_counter() - t_start})
+
+
+def shard_rank(rank: int, rdv: str, device: str, out) -> None:
+    """One rank of phase 17b: ``SHARD_RANKS`` gloo ranks on ``device``, a
+    ``SHARD_MESH`` ``("data", "model")`` mesh. Draws ``LM_ARCH``'s full
+    parameters from ``SEED``, places them by ``shard_tree`` on the rules'
+    specs (FSDP over the data axis), holds each local shard bit for bit to
+    the slice its spec names and its bytes to the spec's count; ``embed``
+    gathered back across the ranks through gloo, bit-equal; then the same
+    for float32 AdamW moments drawn from ``SEED + 1``. A failed check exits
+    non-zero."""
+    import datetime
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import axis_sizes, dp_axes, make_mesh, param_specs, shard_tree
+    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.train import adamw_init
+
+    def bits(t):
+        return t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    def gather(dt):
+        """``dt``'s whole tensor, gathered through the mesh's per-dim groups
+        by ``dist.all_gather`` (the inner mesh dim first, so a dim over
+        several axes comes back major-first). DTensor's own ``full_tensor()``
+        dies of a segmentation fault in ``wait_tensor`` on gloo with CUDA
+        tensors in torch 2.11 (PERF.md section 7)."""
+        t = dt.to_local()
+        for i in reversed(range(mesh.ndim)):
+            if isinstance(dt.placements[i], Shard):
+                parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
+                dist.all_gather(parts, t.contiguous(), group=mesh.get_group(i))
+                t = torch.cat(parts, dim=dt.placements[i].dim)
+        return t
+
+    def hold(full, placed, specs, what: str) -> int:
+        """Check every local shard against its slice of ``full``; its bytes."""
+        total = 0
+        for (path, src, spec), (_, dt, _) in zip(with_specs(full, specs, what),
+                                                 with_specs(placed, specs, what), strict=True):
+            local = dt.to_local()
+            want = src[spec_slice(src.shape, spec, sizes, coord)]
+            check(local.device == src.device and torch.equal(bits(local), bits(want)),
+                  f"phase 17b rank {rank} {path} {spec}: the local shard is not its slice")
+            nbytes = math.prod(local_shape(src.shape, spec, mesh)) * src.element_size()
+            check(local.untyped_storage().nbytes() == nbytes,
+                  f"phase 17b rank {rank} {path}: holds {local.untyped_storage().nbytes()} "
+                  f"bytes, the spec {nbytes}")
+            total += nbytes
+        return total
+
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=SHARD_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)  # every rank on this one card
+        mesh = make_mesh(SHARD_MESH, ("data", "model"), dev.type)
+        sizes = axis_sizes(mesh)
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        res = {"rank": rank, "coord": coord, "s": {}}
+        cfg = get_config(LM_ARCH)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        specs = param_specs(params, mesh, fsdp_axes=dp_axes(mesh))
+        placed = shard_tree(params, specs, mesh)
+        res["param_bytes"] = hold(params, placed, specs, "params")
+        res["full_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        res["s"]["params"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embed = gather(placed["embed"])
+        check(embed.device == params["embed"].device
+              and torch.equal(bits(embed), bits(params["embed"])),
+              f"phase 17b rank {rank}: embed gathered across the ranks differs from the "
+              f"drawn tensor")
+        res["s"]["gather"] = time.perf_counter() - t0
+        res["embed_spec"] = specs["embed"]
+        res["embed_local"] = tuple(placed["embed"].to_local().shape)
+        meta = adamw_init(init_params(cfg, device="meta"))
+        del params, embed
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        res["opt_bytes"] = 0
+        t0 = time.perf_counter()
+        for k in ("m", "v"):
+            full = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                            .normal_(generator=g), meta[k])
+            check(all(t.dtype == torch.float32 for t in tree_leaves(full)),
+                  "phase 17b: the AdamW moments are not float32")
+            mspecs = param_specs(full, mesh, fsdp_axes=dp_axes(mesh))
+            res["opt_bytes"] += hold(full, shard_tree(full, mspecs, mesh), mspecs, k)
+            del full
+        res["s"]["moments"] = time.perf_counter() - t0
+        out.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharding(card: str, device: str = "cuda:0") -> dict:
+    """Phase 17 (see the module docstring): 17a's process and 17b's ranks
+    run side by side. Returns the numbers it printed."""
+    t_start = time.perf_counter()
+    gc.collect()
+    if device.startswith("cuda"):
+        import torch
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_spawned(
+            [(rules_child, (device.split(":")[0],))]
+            + [(shard_rank, (r, str(Path(tmp) / "rendezvous"), device))
+               for r in range(SHARD_RANKS)], 300, "phase 17")
+    (rules,) = [r for r in results if "cells" in r]
+    ranks = sorted((r for r in results if "rank" in r), key=lambda r: r["rank"])
+    for c in rules["cells"]:
+        held = " + ".join(f"{k} {v}" for k, v in c["bytes"].items() if k != "batch")
+        log(f"phase 17a {c['world']} {c['arch']} {c['shape']}: {c['leaves']} leaves; "
+            f"{held} = {sum(v for k, v in c['bytes'].items() if k != 'batch')} B a rank "
+            f"(batch {c['bytes']['batch']}); model_flops {c['flops']:.4e}; {c['s']:.3f} s")
+    log(f"phase 17a: {len(rules['cells'])} cells at 256 and 512 ranks (B a rank: the "
+        f"argument bytes a rank holds, counted from the local shapes; not a measured memory "
+        f"size), every spec dividing, every leaf of >= 2^24 elements sharded, nothing "
+        f"allocated; {rules['s']:.1f} s in its process")
+    check(len({(r["param_bytes"], r["opt_bytes"]) for r in ranks}) == 1,
+          f"phase 17b: ranks hold unequal bytes "
+          f"{[(r['param_bytes'], r['opt_bytes']) for r in ranks]}")
+    for r in ranks:
+        log(f"phase 17b rank {r['rank']} {r['coord']}: {LM_ARCH} bf16 parameters "
+            f"{r['param_bytes']} of {r['full_bytes']} bytes, float32 AdamW moments "
+            f"{r['opt_bytes']} bytes, every shard bit-equal to its slice; embed "
+            f"{r['embed_spec']} local {r['embed_local']}; seconds "
+            + ", ".join(f"{k}={v:.2f}" for k, v in r["s"].items()))
+    total = time.perf_counter() - t_start
+    log(f"phase 17b ({SHARD_RANKS} gloo ranks sharing {device}, a {SHARD_MESH} mesh; {card}); "
+        f"phase 17 (17a's process beside 17b's ranks) {total:.1f} s")
+    return {"cells": rules["cells"], "ranks": ranks, "seconds": total}
 
 
 def main() -> None:
@@ -3779,6 +4025,9 @@ def main() -> None:
     # 16. the LM training path: reduced configs card vs CPU, llama3.2-1b in full
     phase_start["16 lm training"] = time.perf_counter()
     phase_lm_train(card)
+    # 17. the LM sharding rules at 256 and 512 ranks; llama3.2-1b placed on 4 ranks
+    phase_start["17 lm sharding"] = time.perf_counter()
+    phase_sharding(card)
     phase_start["end"] = time.perf_counter()
     names = list(phase_start)
     log("seconds per phase: " + ", ".join(

@@ -4,4 +4,5 @@ matrix, one solve mode, timed and checked against scipy),
 through the solve service and the plan store), and for the LM substrate
 ``python -m repro_torch.launch.serve`` (prefill and greedy decode) and
 ``python -m repro_torch.launch.train`` (the training loop with
-checkpoints and resume)."""
+checkpoints and resume); ``mesh`` and ``specs`` build the production
+meshes and every shape cell's inputs as meta DTensors."""

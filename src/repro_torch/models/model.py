@@ -194,8 +194,10 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int, dtype, l
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> list:
+    """A zero decode cache for ``batch`` sequences of up to ``max_seq``
+    tokens, on ``device``; ``device="meta"`` makes the shapes alone."""
     dtype = torch_dtype(cfg.dtype)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     caches = []
     for spec in build_stage_plan(cfg.pattern, cfg.layer_kinds):
         if spec.type == "block":
