@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, one card, ~13-17 minutes; no options
+    python3 chip_smoke.py            # full size, one card, ~13-19 minutes; no options
 
 Phases, each an assertion (any failure exits non-zero and prints no result):
 
@@ -263,6 +263,21 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    a segmentation fault on gloo with CUDA tensors in torch 2.11),
    bit-equal; the same for float32 AdamW moments; per-rank bytes and
    seconds.
+18. (run after 17) the LM steps on a mesh (no kernel of its own):
+   ``MESH_RANKS`` (4) ranks sharing the card on a 2 x 2 ``("data",
+   "model")`` mesh, their group on the ``staged`` backend
+   (``repro_torch.distributed.staged``: each collective through gloo on
+   host copies); (a) every reduced config in float32: three train steps
+   through ``make_train_step(mesh=...)`` and a prefill with four greedy
+   decode steps through the mesh serve steps, against the same steps with
+   no mesh on the card, loss and ``gnorm`` within ``TOL_MESH`` relative,
+   tokens equal; (b) ``LM_ARCH`` at its full published width: one float32
+   train step at batch 1, S = 2048 on the mesh against rank 0's step with
+   no mesh (loss, ``gnorm``, every rank's parameter shards against their
+   slices, of the largest, within ``TOL_MESH``); bf16 train steps at
+   batch 4, S = 2048 with ``remat`` and FSDP, and bf16 serving at batch 8
+   (a 512-token prompt, 64 new tokens), ms a step and peak memory a rank
+   beside phases 16c and 15b's numbers with no mesh.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -367,6 +382,13 @@ LM_TRAIN_FIT = 8  # phase 16c: steps on a repeated batch after its first
 SHARD_RANKS = 4  # phase 17b: gloo ranks sharing one card
 SHARD_MESH = (2, 2)  # phase 17b: the ("data", "model") mesh of those ranks
 LM_TRAIN_PARITY_STEPS = 3  # phase 16a: make_train_step steps card vs CPU per reduced config
+MESH_RANKS = 4  # phase 18: ranks sharing the card (the "staged" backend)
+MESH_SHAPE = (2, 2)  # phase 18: their ("data", "model") mesh
+MESH_REDUCED = (4, 32, 3, 16, 4)  # phase 18a: batch, S, train steps; prompt, decode steps
+MESH_GATE = (1, 2048)  # phase 18b: batch, S of the float32 gate step
+MESH_TRAIN_BF16 = (4, 2048, 1, 2)  # phase 18b: batch, S, warm-up and timed bf16 steps
+MESH_SERVE_BF16 = (8, 64)  # phase 18b: batch, new tokens (LM_PROMPT-token prompt)
+TOL_MESH = 1e-5  # phase 18: mesh against no mesh (relative; parameters of the largest)
 TOL_LM_GRAD = 1e-4  # phase 16b: fp32 gradients, of the tree's largest |gradient|
 PEAK_BF16_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 # each megakernel instantiation's name in the profiler, demangled or not
@@ -2984,6 +3006,291 @@ def phase_sharding(card: str, device: str = "cuda:0") -> dict:
     return {"cells": rules["cells"], "ranks": ranks, "seconds": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM steps on a mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
+    """One rank of phase 18: ``MESH_RANKS`` ranks sharing ``device`` on a
+    ``MESH_SHAPE`` ``("data", "model")`` mesh, the group on the ``staged``
+    backend (every collective through gloo on host copies: gloo's own CUDA
+    path dies under DTensor's collectives, PERF.md section 7). (a) every
+    reduced config in float32: train steps and a prefill with greedy decode
+    steps on the mesh against the same steps with no mesh on the card;
+    (b) ``LM_ARCH`` at its full width: one float32 train step on the mesh
+    against rank 0's step with no mesh (its parameters through a file under
+    ``ref_dir``, each rank holding its shards to their slices), then bf16
+    train steps (``remat``, FSDP) and bf16 serving, timed. A failed check
+    exits non-zero."""
+    import datetime
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import make_mesh, staged
+    from repro_torch.distributed.sharding import param_specs, place_tree
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+    from repro_torch.train import adamw_init, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)  # four ranks on the host's cores: DTensor's dispatch is serial
+    staged.register()
+    dist.init_process_group(staged.BACKEND, init_method=f"file://{rdv}", rank=rank,
+                            world_size=MESH_RANKS, timeout=datetime.timedelta(seconds=600))
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)  # every rank on this one card
+    res = {"rank": rank, "s": {}, "a": {}}
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def rel(a, b) -> float:
+        a, b = float(whole(a)), float(whole(b))
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def placed_opt(params, dtype=torch.float32):
+        """AdamW state shaped as placed ``params``: each rank's zeros alone."""
+        zeros = lambda t: torch.zeros_like(t, dtype=dtype)  # noqa: E731
+        step = DTensor.from_local(torch.zeros((), dtype=torch.int32, device=dev), mesh,
+                                  [Replicate()] * mesh.ndim, run_check=False)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": step}
+
+    def own(tree):
+        """Each DTensor's local shard copied out of the whole tensor it was
+        sliced from, so the whole draw can be freed."""
+        return tree_map(lambda t: DTensor.from_local(t.to_local().clone(), mesh, t.placements,
+                                                     run_check=False), tree)
+
+    try:
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev.type)
+        f32 = dict(dtype="float32", param_dtype="float32")
+        # (a) every reduced config, mesh against no mesh, both on the card
+        B, S, n_steps, prompt_len, n_dec = MESH_REDUCED
+        for arch in ARCH_IDS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_reduced(arch), **f32)
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            opt = adamw_init(params)
+            data = SyntheticLM(cfg, B, S)
+            one = make_train_step(cfg, dev)
+            on_mesh = make_train_step(cfg, mesh=mesh, example_params=params, example_opt=opt,
+                                      example_batch=data.batch(0))
+            p0, o0 = tree_map(lambda t: t.clone(), params), tree_map(lambda t: t.clone(), opt)
+            p1, o1 = tree_map(lambda t: t.clone(), params), tree_map(lambda t: t.clone(), opt)
+            errs = []
+            for i in range(n_steps):
+                p0, o0, m0 = one(p0, o0, data.batch(i), i)
+                p1, o1, m1 = on_mesh(p1, o1, data.batch(i), i)
+                errs.append(max(rel(m1["loss"], m0["loss"]), rel(m1["gnorm"], m0["gnorm"])))
+            check(max(errs) <= TOL_MESH,
+                  f"phase 18a rank {rank} {arch}: loss/gnorm on the mesh differ by {errs}")
+            tokens_equal = None
+            if cfg.input_kind == "tokens" and not cfg.enc_layers:
+                prompts = torch.as_tensor(data.batch(0)["tokens"][:, :prompt_len]).to(dev)
+                toks = []
+                for m in (None, mesh):
+                    cache = init_cache(cfg, B, prompt_len + n_dec, device=dev)
+                    kw = {} if m is None else dict(mesh=m, example_params=params,
+                                                   example_cache=cache,
+                                                   example_batch={"tokens": prompts})
+                    prefill, decode = (make_prefill_step(cfg, dev, **kw),
+                                       make_decode_step(cfg, dev, **kw))
+                    logits, cache = prefill(params, {"tokens": prompts}, cache)
+                    tok = torch.argmax(whole(logits)[:, -1, :cfg.vocab], -1).to(torch.int32)
+                    seq = [tok]
+                    for i in range(n_dec):
+                        tok, cache = decode(params, {"tokens": whole(tok)[:, None]}, cache,
+                                            prompt_len + i)
+                        seq.append(whole(tok))
+                    toks.append(torch.stack(seq, 1))
+                tokens_equal = bool(torch.equal(toks[0], toks[1]))
+                check(tokens_equal, f"phase 18a rank {rank} {arch}: tokens on the mesh differ")
+            res["a"][arch] = {"err": max(errs), "tokens_equal": tokens_equal,
+                              "s": time.perf_counter() - t0}
+        res["s"]["a"] = sum(v["s"] for v in res["a"].values())
+
+        # (b) LM_ARCH at full width. The float32 gate: rank 0 steps with no
+        # mesh first and writes its parameters; then the mesh step
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(LM_ARCH), **f32)
+        gB, gS = MESH_GATE
+        batch = SyntheticLM(cfg, gB, gS).batch(0)
+        ref_file = os.path.join(ref_dir, "gate.pt")
+        if rank == 0:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            params, opt, m0 = make_train_step(cfg, dev)(params, adamw_init(params), batch, 0)
+            flat = {str(i): t.cpu() for i, t in enumerate(tree_leaves(params))}
+            top = max(t.abs().max().item() for t in flat.values())
+            torch.save({"leaves": flat, "loss": float(m0["loss"]), "gnorm": float(m0["gnorm"]),
+                        "top": top}, ref_file)
+            del params, opt, flat
+            torch.cuda.empty_cache()
+        dist.barrier()
+        ref = torch.load(ref_file, mmap=True)
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        specs = param_specs(full, mesh)
+        params = own(place_tree(full, specs, mesh))
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, mesh=mesh, example_params=params,
+                               example_opt=placed_opt(params), example_batch=batch)
+        t = time.perf_counter()
+        params, opt, m1 = step(params, placed_opt(params), batch, 0)
+        sync()
+        gate_s = time.perf_counter() - t
+        errs = {"loss": rel(m1["loss"], ref["loss"]), "gnorm": rel(m1["gnorm"], ref["gnorm"])}
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        worst = 0.0
+        for (path, dt, spec), (i, want) in zip(with_specs(params, specs),
+                                               enumerate(ref["leaves"].values())):
+            want = want[spec_slice(want.shape, spec, sizes, coord)]
+            worst = max(worst, (dt.to_local().cpu() - want).abs().max().item())
+        errs["params"] = worst / ref["top"]
+        check(max(errs.values()) <= TOL_MESH,
+              f"phase 18b rank {rank}: the float32 mesh step differs from no mesh: {errs}")
+        res["gate"] = {**errs, "s": gate_s, "peak": torch.cuda.max_memory_allocated()}
+        del params, opt, step, ref
+        if rank == 0:
+            os.remove(ref_file)
+        torch.cuda.empty_cache()
+        res["s"]["b gate"] = time.perf_counter() - t0
+
+        # bf16 train steps: remat, FSDP over the data axis
+        t0 = time.perf_counter()
+        cfg = get_config(LM_ARCH)
+        tB, tS, warm, timed = MESH_TRAIN_BF16
+        data = SyntheticLM(cfg, tB, tS)
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        specs = param_specs(full, mesh, fsdp_axes=("data",))
+        params = own(place_tree(full, specs, mesh))
+        del full
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        opt = placed_opt(params)
+        step = make_train_step(cfg, mesh=mesh, fsdp=True, example_params=params,
+                               example_opt=opt, example_batch=data.batch(0))
+        times, losses = [], []
+        for i in range(warm + timed):
+            sync()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, data.batch(i), i)
+            losses.append(float(m["loss"].to_local()))
+            sync()
+            times.append(time.perf_counter() - t)
+        check(all(math.isfinite(x) for x in losses), f"phase 18b rank {rank}: losses {losses}")
+        res["train"] = {"ms": 1e3 * sorted(times[warm:])[timed // 2], "times": times,
+                        "losses": losses, "peak": torch.cuda.max_memory_allocated() - base,
+                        "held": base}
+        del params, opt, step
+        torch.cuda.empty_cache()
+        res["s"]["b bf16 train"] = time.perf_counter() - t0
+
+        # bf16 serving: prefill LM_PROMPT tokens, then greedy decode steps
+        t0 = time.perf_counter()
+        sB, new = MESH_SERVE_BF16
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        full = init_params(cfg, gen, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (sB, LM_PROMPT), generator=gen, device=dev)
+        cache = init_cache(cfg, sB, LM_PROMPT + new, device=dev)
+        prefill = make_prefill_step(cfg, mesh=mesh, example_params=full, example_cache=cache,
+                                    example_batch={"tokens": prompt})
+        decode = make_decode_step(cfg, mesh=mesh, example_params=full, example_cache=cache,
+                                  example_batch={"tokens": prompt[:, :1]})
+        params = own(place_tree(full, param_specs(full, mesh), mesh))
+        del full, cache
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cache = init_cache(cfg, sB, LM_PROMPT + new, device=dev)
+        sync()
+        t = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt}, cache)
+        sync()
+        t_pre = time.perf_counter() - t
+        tok = torch.argmax(whole(logits)[:, -1, :cfg.vocab], -1).to(torch.int32)
+        toks = [tok]
+        t = time.perf_counter()
+        for i in range(new - 1):
+            tok, cache = decode(params, {"tokens": whole(tok)[:, None]}, cache, LM_PROMPT + i)
+            toks.append(whole(tok))
+        sync()
+        t_dec = time.perf_counter() - t
+        toks = torch.stack(toks, 1)
+        check(toks.shape == (sB, new) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+              f"phase 18b rank {rank}: tokens out of range")
+        res["serve"] = {"prefill_ms": 1e3 * t_pre, "decode_ms": 1e3 * t_dec / (new - 1),
+                        "peak": torch.cuda.max_memory_allocated() - base, "held": base}
+        res["s"]["b bf16 serve"] = time.perf_counter() - t0
+        out.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(card: str, lm: dict, train: dict, device: str = "cuda:0") -> dict:
+    """Phase 18 (see the module docstring): ``MESH_RANKS`` ranks sharing the
+    card on a mesh; ``lm`` and ``train`` are phases 15 and 16's numbers from
+    this run, printed beside. Returns the numbers it printed."""
+    import torch
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ranks = sorted(run_spawned(
+            [(mesh_rank, (r, str(Path(tmp) / "rendezvous"), tmp, device))
+             for r in range(MESH_RANKS)], 600, "phase 18"), key=lambda r: r["rank"])
+    r0 = ranks[0]
+    for arch, a in r0["a"].items():
+        worst = max(r["a"][arch]["err"] for r in ranks)
+        log(f"phase 18a {arch} float32 on a {MESH_SHAPE} mesh of {MESH_RANKS} ranks sharing "
+            f"the card: {MESH_REDUCED[2]} train steps, loss and gnorm within rel {worst:.2e} of "
+            f"the same steps with no mesh; prefill + {MESH_REDUCED[4]} greedy decode steps "
+            f"tokens equal {a['tokens_equal']}; {a['s']:.1f} s")
+    gate = {k: max(r["gate"][k] for r in ranks) for k in ("loss", "gnorm", "params")}
+    log(f"phase 18b {LM_ARCH} float32 train step, batch {MESH_GATE[0]}, S={MESH_GATE[1]}, on "
+        f"the mesh against rank 0's step with no mesh: loss rel {gate['loss']:.2e}, gnorm rel "
+        f"{gate['gnorm']:.2e}, parameters {gate['params']:.2e} of the largest (every rank's "
+        f"shards); {r0['gate']['s']:.2f} s; peak a rank "
+        f"{[r['gate']['peak'] for r in ranks]} bytes")
+    tB, tS, warm, timed = MESH_TRAIN_BF16
+    ms = [r["train"]["ms"] for r in ranks]
+    log(f"phase 18b {LM_ARCH} bf16 train step on the mesh (remat, FSDP over data), batch {tB}, "
+        f"S={tS} (card: {card}): {max(ms):.3f} ms a step (slowest rank's median of {timed} "
+        f"after {warm} warm-up; rank 0 {[round(1e3 * t, 3) for t in r0['train']['times']]}); "
+        f"no mesh (phase 16c, this run) {train['ms_per_step']:.3f} ms; peak a rank above its "
+        f"parameters {[r['train']['peak'] for r in ranks]} bytes, sum "
+        f"{sum(r['train']['peak'] + r['train']['held'] for r in ranks)} with them; no mesh "
+        f"{train['peak_bytes']}; losses {[round(x, 4) for x in r0['train']['losses']]}")
+    sB, new = MESH_SERVE_BF16
+    pre, dec = max(r["serve"]["prefill_ms"] for r in ranks), max(r["serve"]["decode_ms"]
+                                                                 for r in ranks)
+    log(f"phase 18b {LM_ARCH} bf16 serving on the mesh, batch {sB}, {LM_PROMPT}-token prompt, "
+        f"{new} new tokens (card: {card}): prefill {pre:.3f} ms, decode {dec:.4f} ms a step "
+        f"(slowest rank); no mesh (phase 15b, this run) prefill {lm['prefill_ms']:.3f} ms, "
+        f"decode {lm['decode_ms']:.4f} ms; peak a rank {[r['serve']['peak'] for r in ranks]} "
+        f"bytes, sum {sum(r['serve']['peak'] + r['serve']['held'] for r in ranks)} with the "
+        f"parameters; no mesh {lm['peak_bytes']}")
+    total = time.perf_counter() - t_start
+    log(f"phase 18 seconds (rank 0): " + ", ".join(f"{k}={v:.1f}" for k, v in r0["s"].items())
+        + f"; total {total:.1f}")
+    return {"ranks": ranks, "seconds": total}
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -4021,13 +4328,16 @@ def main() -> None:
 
     # 15. the LM serving path: reduced configs card vs CPU, llama3.2-1b in full
     phase_start["15 lm serving"] = time.perf_counter()
-    phase_lm(card)
+    lm_out = phase_lm(card)
     # 16. the LM training path: reduced configs card vs CPU, llama3.2-1b in full
     phase_start["16 lm training"] = time.perf_counter()
-    phase_lm_train(card)
+    train_out = phase_lm_train(card)
     # 17. the LM sharding rules at 256 and 512 ranks; llama3.2-1b placed on 4 ranks
     phase_start["17 lm sharding"] = time.perf_counter()
     phase_sharding(card)
+    # 18. the LM steps on a 2 x 2 mesh of ranks sharing the card
+    phase_start["18 lm on a mesh"] = time.perf_counter()
+    phase_mesh(card, lm_out, train_out)
     phase_start["end"] = time.perf_counter()
     names = list(phase_start)
     log("seconds per phase: " + ", ".join(

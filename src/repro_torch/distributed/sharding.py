@@ -20,7 +20,7 @@ indices (``str(i)``). Leaves that are not tensors (a cache's host-int
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.distributed.meshutil import axis_sizes
 
@@ -214,3 +214,22 @@ def shard_tree(tree, specs, mesh):
     if not isinstance(tree, torch.Tensor):
         return tree
     return distribute_tensor(tree, mesh, placements(specs, mesh), src_data_rank=None)
+
+
+def place_tree(tree, specs, mesh, device=None):
+    """``tree`` placed by ``specs`` on ``mesh``: a DTensor leaf is
+    redistributed (a no-op when it is placed so already), any other array
+    leaf is moved to ``device`` and sliced as :func:`shard_tree` does (every
+    rank holds the same full values). Leaves without a spec are kept."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, specs[k], mesh, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_tree(v, s, mesh, device) for v, s in zip(tree, specs, strict=True)]
+    if specs is None:
+        return tree
+    pl = placements(specs, mesh)
+    if isinstance(tree, DTensor):
+        return tree if list(tree.placements) == pl else tree.redistribute(mesh, pl)
+    t = torch.as_tensor(tree)
+    return distribute_tensor(t if device is None else t.to(device), mesh, pl,
+                             src_data_rank=None)

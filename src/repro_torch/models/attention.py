@@ -14,13 +14,25 @@ through ``_flash``: a chunked online softmax that holds one (chunk x chunk)
 score block at a time and skips the key chunks the causal mask (and window)
 leave empty, with the loop bounds as host ints. Without a cache (training)
 it is differentiable: the backward recomputes each key chunk's block.
+
+On a mesh the reference's ``constrain`` tags apply at its call sites:
+queries and each chunk over heads, the GQA repeat over heads or (decode
+sequence parallelism, ``REPRO_TORCH_DECODE_SP``, default ``"1"``) over the
+cache's sequence. Positions, masks and the online softmax's running state
+are lifted to replicated DTensors where they meet an activation. A cache
+write touches only the part of the new K/V that falls in each rank's shard
+of the cache (exact: the shards partition the cache).
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.constraints import constrain, einsum, replicated, spec_of
+from repro_torch.distributed.sharding import placements
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, rotary, softcap
 from repro_torch.models.remat import checkpointed, recomputing
@@ -29,6 +41,14 @@ from repro_torch.obs.metrics import get_registry
 FLASH_THRESHOLD = 2048
 FLASH_CHUNK = 1024
 NEG = -1e30  # the masked-score sentinel
+ENV_DECODE_SP = "REPRO_TORCH_DECODE_SP"
+
+
+def _decode_sp(cache, k_len: int, S: int) -> bool:
+    """Decode sequence parallelism: a call with a cache that attends over
+    more keys than it brings keeps the cache's sequence dim sharded (the
+    port's name for the reference's ``REPRO_DECODE_SP``; tags only)."""
+    return cache is not None and k_len != S and os.environ.get(ENV_DECODE_SP, "1") == "1"
 
 
 def head_pad_mask(cfg: ModelConfig, dtype=torch.float32, device=None) -> torch.Tensor | None:
@@ -72,9 +92,44 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool, window: int
     return m
 
 
-def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
-    """(B, S, K, hd) -> (B, S, K*g, hd), each KV head repeated g times in place."""
-    return k if g == 1 else k.repeat_interleave(g, dim=2)
+def _repeat_kv(k: torch.Tensor, g: int, *, seq_sharded: bool = False) -> torch.Tensor:
+    """(B, S, K, hd) -> (B, S, K*g, hd), each KV head repeated g times in
+    place (head h reads KV head h // g). Head-sharded downstream by default;
+    ``seq_sharded`` keeps the cache-sequence dim sharded instead (decode SP)."""
+    if g == 1:
+        return k
+    B, S, K, hd = k.shape
+    tags = ("dp", "model", None, None) if seq_sharded else ("dp", None, "model", None)
+    return constrain(k[:, :, :, None].expand(B, S, K, g, hd).reshape(B, S, K * g, hd), *tags)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) x (d, h, k) -> (B, S, h, k)."""
+    return einsum("bsd,dhk->bshk", x, w)
+
+
+def _write(cache_t: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``cache_t[:, pos:pos + S] = new`` in place. On a mesh each rank writes
+    the rows of ``new`` that fall in its shard of the cache's sequence dim,
+    ``new`` placed as the cache is in every other dim."""
+    S = new.shape[1]
+    if not isinstance(cache_t, DTensor):
+        cache_t[:, pos:pos + S] = new
+        return
+    mesh = cache_t.device_mesh
+    spec = spec_of(cache_t)
+    new = new.redistribute(mesh, placements((spec[0], None) + spec[2:], mesh)).to_local()
+    dst = cache_t.to_local()
+    n = dst.shape[1]
+    idx = 0
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    axes = () if spec[1] is None else (spec[1],) if isinstance(spec[1], str) else spec[1]
+    for a in axes:
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + coord[a]
+    lo = idx * n
+    a, b = max(pos, lo), min(pos + S, lo + n)
+    if a < b:
+        dst[:, a - lo:b - lo] = new[:, a - pos:b - pos]
 
 
 def _kv_step(m, l, acc, qc, kck, vck, q0: int, k0: int, *, cfg: ModelConfig, causal: bool,
@@ -84,7 +139,7 @@ def _kv_step(m, l, acc, qc, kck, vck, q0: int, k0: int, *, cfg: ModelConfig, cau
     cq, ck, dev = qc.shape[1], kck.shape[1], qc.device
     q_pos = q0 + torch.arange(cq, device=dev)
     k_pos = k0 + torch.arange(ck, device=dev)
-    s = torch.einsum("bshd,bthd->bhst", qc, kck).float() * scale
+    s = einsum("bshd,bthd->bhst", qc, kck).float() * scale
     if cfg.softcap > 0:
         s = softcap(s, cfg.softcap)
     mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
@@ -92,15 +147,16 @@ def _kv_step(m, l, acc, qc, kck, vck, q0: int, k0: int, *, cfg: ModelConfig, cau
         mask = k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    s = torch.where(mask[None, None], s, NEG)
+    masked = replicated(~mask[None, None], s)
+    s = s.masked_fill(masked, NEG)
     m_new = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     # fully-masked rows must add zero mass even while the running
     # max sits at the sentinel
-    p = torch.where(mask[None, None], p, 0.0)
+    p = p.masked_fill(masked, 0.0)
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
-    pv = torch.einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
+    pv = einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
     return m_new, l_new, acc * corr[..., None].to(acc.dtype) + pv
 
 
@@ -137,18 +193,19 @@ def _flash(
         step = functools.partial(checkpointed, step)
     outs = []
     for qi in range(nq):
-        qc = q[:, qi * cq:(qi + 1) * cq]
-        m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, H, cq, hd), dtype=q.dtype, device=dev)
+        qc = constrain(q[:, qi * cq:(qi + 1) * cq], "dp", None, "model", None)
+        m = replicated(torch.full((B, H, cq), NEG, dtype=torch.float32, device=dev), q)
+        l = replicated(torch.zeros((B, H, cq), dtype=torch.float32, device=dev), q)
+        acc = replicated(torch.zeros((B, H, cq, hd), dtype=q.dtype, device=dev), q)
         if causal:  # key chunks past the diagonal (or before the window) add nothing
             hi = qi + 1
             lo = max(0, (qi * cq - window) // ck) if window > 0 else 0
         else:
             lo, hi = 0, nk
         for ki in range(lo, hi):
-            m, l, acc = step(m, l, acc, qc, k[:, ki * ck:(ki + 1) * ck],
-                             v[:, ki * ck:(ki + 1) * ck], qi * cq, ki * ck)
+            kck = constrain(k[:, ki * ck:(ki + 1) * ck], "dp", None, "model", None)
+            vck = constrain(v[:, ki * ck:(ki + 1) * ck], "dp", None, "model", None)
+            m, l, acc = step(m, l, acc, qc, kck, vck, qi * cq, ki * ck)
         o = acc / torch.clamp_min(l, 1e-30)[..., None].to(acc.dtype)
         outs.append(o.transpose(1, 2))
     return torch.cat(outs, dim=1) if nq > 1 else outs[0].contiguous()
@@ -170,34 +227,36 @@ def attention(
     K, hd = cfg.n_kv, cfg.hd
     H = p["wq"].shape[1]  # may exceed cfg.n_heads under head padding
     g = H // K
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = _proj(x, p["wq"])
+    q = constrain(q, "dp", None, "model", None)
 
     if is_cross:
         if kv_source is not None:  # (pre)fill: compute cross K/V from encoder
-            k = torch.einsum("bsd,dhk->bshk", kv_source, p["wk"])
-            v = torch.einsum("bsd,dhk->bshk", kv_source, p["wv"])
+            k = _proj(kv_source, p["wk"])
+            v = _proj(kv_source, p["wv"])
             cache = {"k": k, "v": v} if cache is not None else None
         else:  # decode: use precomputed cross K/V
             k, v = cache["k"], cache["v"]
         k, v = _repeat_kv(k, g), _repeat_kv(v, g)
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
+        sp = False
     else:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        k = _proj(x, p["wk"])
+        v = _proj(x, p["wv"])
         q = rotary(q, positions, cfg.rope_theta)
         k = rotary(k, positions, cfg.rope_theta)
         if cache is not None and S == cache["k"].shape[1]:
             # full prefill: the fresh K/V are the cache (positions 0..S-1)
-            cache["k"].copy_(k)
-            cache["v"].copy_(v)
+            _write(cache["k"], k, 0)
+            _write(cache["v"], v, 0)
             cache = {"k": cache["k"], "v": cache["v"], "pos": S}
             mask = _mask(positions, positions, causal=causal, window=window)
         elif cache is not None:
             # decode: write the new k/v at `pos`, attend over the whole cache
             pos = int(cache["pos"])
             ck_, cv_ = cache["k"], cache["v"]
-            ck_[:, pos:pos + S] = k
-            cv_[:, pos:pos + S] = v
+            _write(ck_, k, pos)
+            _write(cv_, v, pos)
             k, v = ck_, cv_
             k_pos = torch.arange(k.shape[1], device=x.device)
             q_pos = pos + torch.arange(S, device=x.device)
@@ -207,20 +266,29 @@ def attention(
             cache = {"k": ck_, "v": cv_, "pos": pos + S}
         else:
             mask = _mask(positions, positions, causal=causal, window=window)
-        k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+        sp = _decode_sp(cache, k.shape[1], S)
+        k, v = _repeat_kv(k, g, seq_sharded=sp), _repeat_kv(v, g, seq_sharded=sp)
 
     if not is_cross and k.shape[1] == S and S >= FLASH_THRESHOLD:
         # no cache: a train or eval call that may be differentiated
         out = _flash(q, k, v, cfg, causal=causal, window=window,
                      differentiable=cache is None)
     else:
-        scores = torch.einsum("bshd,bthd->bhst", q, k).float()
+        if sp:
+            # decode SP: the cache shards its sequence dim over the model
+            # axis (cache_specs); attention stays sharded over it
+            q = constrain(q, "dp", None, None, None)
+            k = constrain(k, "dp", "model", None, None)
+            v = constrain(v, "dp", "model", None, None)
+        scores = einsum("bshd,bthd->bhst", q, k).float()
+        if sp:
+            scores = constrain(scores, "dp", None, None, "model")
         scores = scores * (hd ** -0.5)
         if cfg.softcap > 0:
             scores = softcap(scores, cfg.softcap)
-        scores = torch.where(mask[None, None], scores, NEG)
+        scores = scores.masked_fill(replicated(~mask[None, None], scores), NEG)
         w = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bhst,bthd->bshd", w, v)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        out = einsum("bhst,bthd->bshd", w, v)
+    out = einsum("bshk,hkd->bsd", out, p["wo"])
     return out, cache
 

@@ -4,12 +4,22 @@ Each function mirrors the reference's ``repro.models.layers`` op for op, so
 a float32 run agrees with it to rounding: ``rms_norm`` normalizes in float32
 and scales by ``1 + scale``; ``rotary`` rotates the two halves of the head
 dimension (not interleaved pairs); pad logits are set to ``-1e30``.
+
+On a mesh (DTensor activations, ``distributed.constraints``) the tables
+built here (rotary angles, the vocab mask) are lifted to replicated
+DTensors where they meet an activation; the embedding lookup runs on each
+rank's ids against its own rows of the table (a partial sum, exact), and
+the cross-entropy on each rank's rows with the vocab gathered whole
+(``constraints.local``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch.distributed.constraints import local, replicated, spec_of
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -72,14 +82,41 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tens
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos = replicated(torch.cos(ang)[..., None, :], x)
+    sin = replicated(torch.sin(ang)[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """``table[ids]``. On a mesh each rank looks up its own ids (placed as
+    they are) in its own rows of the table (the vocab split over the mesh
+    dims that do not split the ids; the table whole on the others): ids
+    outside those rows give zeros, and the result is the partial sum over
+    those mesh dims, exact (one shard holds each row)."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    mesh = table.device_mesh
+    ids_pl = ids.placements if isinstance(ids, DTensor) else [Replicate()] * mesh.ndim
+    vocab = [i for i, p in enumerate(table.placements)
+             if p.is_shard() and p.dim == 0 and not ids_pl[i].is_shard()]
+    rows = table.redistribute(mesh, [table.placements[i] if i in vocab else Replicate()
+                                     for i in range(mesh.ndim)])
+    local_ids = ids.to_local() if isinstance(ids, DTensor) else ids
+    t = rows.to_local(grad_placements=[
+        rows.placements[i] if i in vocab else Partial() if ids_pl[i].is_shard() else Replicate()
+        for i in range(mesh.ndim)])
+    idx = 0
+    coord = mesh.get_coordinate()
+    for i in vocab:
+        idx = idx * mesh.size(i) + coord[i]
+    lo, n = idx * t.shape[0], t.shape[0]
+    ids_l = local_ids.long() - lo
+    inside = (ids_l >= 0) & (ids_l < n)
+    out = t[ids_l.clamp(0, n - 1)] * inside[..., None].to(t.dtype)
+    return DTensor.from_local(out, mesh, [Partial() if i in vocab else ids_pl[i]
+                                          for i in range(mesh.ndim)], run_check=False)
 
 
 def vocab_pad_mask(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
@@ -87,7 +124,7 @@ def vocab_pad_mask(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
     vp = logits.shape[-1]
     if vp == valid_vocab:
         return logits
-    keep = torch.arange(vp, device=logits.device) < valid_vocab
+    keep = replicated(torch.arange(vp, device=logits.device) < valid_vocab, logits)
     return torch.where(keep, logits, -1e30)
 
 
@@ -96,7 +133,16 @@ def cross_entropy(
     valid_vocab: int | None = None,
 ) -> torch.Tensor:
     """Mean token cross-entropy; logits promoted to float32, soft-capped, then
-    pad-masked (the reference's order)."""
+    pad-masked (the reference's order). On a mesh each rank takes the rows
+    of its labels, the whole vocab gathered."""
+    spec = spec_of(labels) or (None,) * labels.ndim
+    nll = local(lambda lg, lb: _token_nll(lg, lb, final_cap, valid_vocab), (logits, labels),
+                (spec + (None,), None), spec)
+    return nll.mean()
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, final_cap: float,
+               valid_vocab: int | None) -> torch.Tensor:
     logits = logits.float()
     if final_cap > 0:
         logits = softcap(logits, final_cap)
@@ -104,4 +150,4 @@ def cross_entropy(
         logits = vocab_pad_mask(logits, valid_vocab)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    return logz - gold

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constraints import matmul
 from repro_torch.models.layers import Init
 
 
@@ -15,9 +16,9 @@ def init_mlp(init: Init, d: int, f: int, gated: bool, dtype: torch.dtype) -> dic
 
 
 def mlp(p: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
-    h = x @ p["w1"]
+    h = matmul(x, p["w1"])
     if gated:
-        h = F.silu(h) * (x @ p["w3"])
+        h = F.silu(h) * matmul(x, p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return h @ p["w2"]
+    return matmul(h, p["w2"])

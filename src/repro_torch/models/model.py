@@ -18,14 +18,21 @@ runs under ``remat.checkpointed``, so the backward keeps one activation per
 unit and recomputes the rest. The period's parameters are indexed out of the
 stacked tensors inside the recomputed unit, so their gradients reach the
 stacked tensors; a shared block's parameters are closed over.
+
+On a mesh (``distributed.constraints``) each block starts by constraining
+the residual stream to the batch over the data axes, as the reference does;
+a cache leaf is written through its local shard, the new value placed as
+the cache is.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.constraints import constrain, matmul
 from repro_torch.models.attention import attention, init_attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, cross_entropy, embed_lookup, rms_norm, torch_dtype
@@ -231,6 +238,9 @@ def _store(dst: dict, new: dict, t: int | None = None, last: bool = True) -> Non
             if val.shape != view.shape:
                 raise ValueError(f"cache {key!r}: new shape {tuple(val.shape)} does not fit "
                                  f"the cache's {tuple(view.shape)}")
+            if isinstance(view, DTensor):
+                val = val.redistribute(view.device_mesh, view.placements).to_local()
+                view = view.to_local()
             if val.data_ptr() != view.data_ptr():
                 view.copy_(val)
 
@@ -242,6 +252,7 @@ def _store(dst: dict, new: dict, t: int | None = None, last: bool = True) -> Non
 
 def _apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
                  cache=None, enc_out=None, causal=True):
+    x = constrain(x, "dp", None, None)  # residual stream: batch over the data axes
     if kind in ("M", "S"):
         fn = mamba1 if kind == "M" else mamba2
         out, new_c = fn(p["mix"], rms_norm(x, p["ln"], cfg.norm_eps), cfg, cache)
@@ -343,7 +354,7 @@ def forward(
     if last_only:
         x = x[:, -1:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+    logits = matmul(x, head)
     return logits, cache
 
 

@@ -6,7 +6,9 @@ only, and the backward runs ``fn`` again to rebuild what its gradient needs.
 Tensors ``fn`` closes over (parameters, the encoder's output) get their
 gradients as usual. A run of ``fn`` inside the backward is a recomputation,
 not a forward call: ``recomputing()`` is true there, so counters of forward
-calls skip it.
+calls skip it. The recomputation runs under the ambient mesh of the
+forward (``meshutil.set_mesh``), so its ``constrain`` calls place the
+activations as the forward did, whichever thread runs the backward.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import threading
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.meshutil import get_mesh, set_mesh
 
 _local = threading.local()  # a CUDA backward recomputes on autograd's device thread
 
@@ -29,6 +33,7 @@ def checkpointed(fn, *args):
     if not torch.is_grad_enabled():
         return fn(*args)
     runs = [0]
+    mesh = get_mesh()
 
     def run(*a):
         runs[0] += 1
@@ -36,7 +41,8 @@ def checkpointed(fn, *args):
             return fn(*a)
         _local.depth = getattr(_local, "depth", 0) + 1
         try:
-            return fn(*a)
+            with set_mesh(mesh):
+                return fn(*a)
         finally:
             _local.depth -= 1
 

@@ -25,7 +25,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert "repro_torch.models.model" in mods and "repro_torch.serve.engine" in mods
     assert {"repro_torch.train.step", "repro_torch.checkpoint.manager",
             "repro_torch.launch.train", "repro_torch.distributed.sharding",
-            "repro_torch.launch.specs"} <= set(mods)
+            "repro_torch.launch.specs", "repro_torch.distributed.constraints"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
