@@ -271,13 +271,19 @@ Phases, each an assertion (any failure exits non-zero and prints no result):
    through ``make_train_step(mesh=...)`` and a prefill with four greedy
    decode steps through the mesh serve steps, against the same steps with
    no mesh on the card, loss and ``gnorm`` within ``TOL_MESH`` relative,
-   tokens equal; (b) ``LM_ARCH`` at its full published width: one float32
-   train step at batch 1, S = 2048 on the mesh against rank 0's step with
-   no mesh (loss, ``gnorm``, every rank's parameter shards against their
-   slices, of the largest, within ``TOL_MESH``); bf16 train steps at
-   batch 4, S = 2048 with ``remat`` and FSDP, and bf16 serving at batch 8
-   (a 512-token prompt, 64 new tokens), ms a step and peak memory a rank
-   beside phases 16c and 15b's numbers with no mesh.
+   tokens equal, and the first batch's gradients leaf by leaf within
+   ``TOL_MESH`` of the largest; the train steps have no warm-up, so the
+   first runs at the peak learning rate; (b) ``LM_ARCH`` at its full
+   published width in float32 at batch 1, S = 2048: the gradients on the
+   mesh (every rank's shards against their slices of the gradients with
+   no mesh, of the largest) and the loss, then one train step at the peak
+   learning rate (loss, ``gnorm``), within ``TOL_MESH``; the parameters
+   after it are printed, not gated (AdamW's first step turns rounding in
+   gradient entries near its eps into changes of up to twice the learning
+   rate); bf16 train steps at batch 4, S = 2048 with ``remat`` and FSDP
+   (the slowest timed step), and bf16 serving at batch 8 (a 512-token
+   prompt, 64 new tokens, after a warm-up pass as in 15b), ms a step and
+   peak memory a rank beside phases 16c and 15b's numbers with no mesh.
 
 Then it times each kernel at the main path's shapes (CUDA events), beside
 its plain version, the one-call PyTorch equivalent and its bound (for the
@@ -3011,17 +3017,17 @@ def phase_sharding(card: str, device: str = "cuda:0") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
+def mesh_rank(rank: int, rdv: str, device: str, out) -> None:
     """One rank of phase 18: ``MESH_RANKS`` ranks sharing ``device`` on a
     ``MESH_SHAPE`` ``("data", "model")`` mesh, the group on the ``staged``
     backend (every collective through gloo on host copies: gloo's own CUDA
     path dies under DTensor's collectives, PERF.md section 7). (a) every
-    reduced config in float32: train steps and a prefill with greedy decode
-    steps on the mesh against the same steps with no mesh on the card;
-    (b) ``LM_ARCH`` at its full width: one float32 train step on the mesh
-    against rank 0's step with no mesh (its parameters through a file under
-    ``ref_dir``, each rank holding its shards to their slices), then bf16
-    train steps (``remat``, FSDP) and bf16 serving, timed. A failed check
+    reduced config in float32: gradients, train steps and a prefill with
+    greedy decode steps on the mesh against the same with no mesh on the
+    card; (b) ``LM_ARCH`` at its full width: float32 gradients and one train
+    step on the mesh against no mesh's (each rank runs no mesh's in turn and
+    holds its shards to their slices), then bf16 train steps (``remat``,
+    FSDP) and bf16 serving, timed. A failed check
     exits non-zero."""
     import datetime
 
@@ -3033,11 +3039,15 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
     from repro_torch.configs import ARCH_IDS, get_config, get_reduced
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed import make_mesh, staged
-    from repro_torch.distributed.sharding import param_specs, place_tree
+    from repro_torch.distributed.meshutil import set_mesh
+    from repro_torch.distributed.sharding import (
+        SSM_WEIGHT_NAMES, batch_specs, param_specs, shard_tree,
+    )
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.model import tree_leaves, tree_map
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
     from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.step import value_and_grad
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3084,9 +3094,23 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
             params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
             opt = adamw_init(params)
             data = SyntheticLM(cfg, B, S)
-            one = make_train_step(cfg, dev)
-            on_mesh = make_train_step(cfg, mesh=mesh, example_params=params, example_opt=opt,
-                                      example_batch=data.batch(0))
+            # the first batch's gradients, leaf by leaf: the mesh's (its
+            # parameters and batch placed by the rules) against no mesh's
+            b0 = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
+            _, g0 = value_and_grad(cfg, params, b0)
+            no_tp = SSM_WEIGHT_NAMES if not cfg.ssm_tp else frozenset()
+            with set_mesh(mesh):
+                _, g1 = value_and_grad(
+                    cfg, shard_tree(params, param_specs(params, mesh, no_tp_names=no_tp), mesh),
+                    shard_tree(b0, batch_specs(b0, mesh, dp_axes=("data",)), mesh))
+            g_err = tree_rel(tree_map(whole, g1), g0)
+            check(g_err <= TOL_MESH, f"phase 18a rank {rank} {arch}: gradients on the mesh "
+                                     f"differ by {g_err:.3e} of the largest")
+            del g0, g1
+            # no warm-up: the first step's learning rate is the peak
+            one = make_train_step(cfg, dev, warmup=0)
+            on_mesh = make_train_step(cfg, mesh=mesh, warmup=0, example_params=params,
+                                      example_opt=opt, example_batch=data.batch(0))
             p0, o0 = tree_map(lambda t: t.clone(), params), tree_map(lambda t: t.clone(), opt)
             p1, o1 = tree_map(lambda t: t.clone(), params), tree_map(lambda t: t.clone(), opt)
             errs = []
@@ -3096,6 +3120,8 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
                 errs.append(max(rel(m1["loss"], m0["loss"]), rel(m1["gnorm"], m0["gnorm"])))
             check(max(errs) <= TOL_MESH,
                   f"phase 18a rank {rank} {arch}: loss/gnorm on the mesh differ by {errs}")
+            p_err = tree_rel(tree_map(whole, p1), p0)
+            del p0, o0, p1, o1
             tokens_equal = None
             if cfg.input_kind == "tokens" and not cfg.enc_layers:
                 prompts = torch.as_tensor(data.batch(0)["tokens"][:, :prompt_len]).to(dev)
@@ -3117,55 +3143,83 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
                     toks.append(torch.stack(seq, 1))
                 tokens_equal = bool(torch.equal(toks[0], toks[1]))
                 check(tokens_equal, f"phase 18a rank {rank} {arch}: tokens on the mesh differ")
-            res["a"][arch] = {"err": max(errs), "tokens_equal": tokens_equal,
-                              "s": time.perf_counter() - t0}
+            res["a"][arch] = {"err": max(errs), "grads": g_err, "params": p_err,
+                              "tokens_equal": tokens_equal, "s": time.perf_counter() - t0}
         res["s"]["a"] = sum(v["s"] for v in res["a"].values())
+        gc.collect()
+        torch.cuda.empty_cache()
 
-        # (b) LM_ARCH at full width. The float32 gate: rank 0 steps with no
-        # mesh first and writes its parameters; then the mesh step
+        # (b) LM_ARCH at full width. The float32 gate: each rank in turn
+        # runs no mesh's gradients and step (no warm-up: the peak learning
+        # rate) on the card and keeps its own slices of them on the host;
+        # then the mesh's gradients and step
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(LM_ARCH), **f32)
         gB, gS = MESH_GATE
         batch = SyntheticLM(cfg, gB, gS).batch(0)
-        ref_file = os.path.join(ref_dir, "gate.pt")
-        if rank == 0:
-            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-            params, opt, m0 = make_train_step(cfg, dev)(params, adamw_init(params), batch, 0)
-            flat = {str(i): t.cpu() for i, t in enumerate(tree_leaves(params))}
-            top = max(t.abs().max().item() for t in flat.values())
-            torch.save({"leaves": flat, "loss": float(m0["loss"]), "gnorm": float(m0["gnorm"]),
-                        "top": top}, ref_file)
-            del params, opt, flat
-            torch.cuda.empty_cache()
-        dist.barrier()
-        ref = torch.load(ref_file, mmap=True)
+        b_dev = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+        def mine(tree, specs):
+            return [t[spec_slice(t.shape, spec, sizes, coord)].cpu()
+                    for _, t, spec in with_specs(tree, specs)]
+
+        def top(tree):
+            return max(t.abs().max().item() for t in tree_leaves(tree))
+
+        ref = {}
+        for turn in range(MESH_RANKS):
+            if turn == rank:
+                full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+                specs = param_specs(full, mesh)
+                ref["loss"], grads = value_and_grad(cfg, full, b_dev)
+                ref["grads"], ref["gtop"] = mine(grads, specs), top(grads)
+                del grads
+                full, opt, m0 = make_train_step(cfg, dev, warmup=0)(full, adamw_init(full),
+                                                                    batch, 0)
+                ref.update(params=mine(full, specs), top=top(full), gnorm=float(m0["gnorm"]))
+                del full, opt, m0
+                torch.cuda.empty_cache()
+            dist.barrier()
         full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
         specs = param_specs(full, mesh)
-        params = own(place_tree(full, specs, mesh))
+        params = own(shard_tree(full, specs, mesh))
         del full
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        step = make_train_step(cfg, mesh=mesh, example_params=params,
+        t = time.perf_counter()
+        with set_mesh(mesh):
+            loss, grads = value_and_grad(cfg, params, shard_tree(
+                b_dev, batch_specs(b_dev, mesh, dp_axes=("data",)), mesh))
+        sync()
+        grad_s = time.perf_counter() - t
+        errs = {"grad_loss": rel(loss, ref["loss"]),
+                "grads": max((g.to_local().cpu() - w).abs().max().item()
+                             for (_, g, _), w in zip(with_specs(grads, specs), ref["grads"]))
+                / ref["gtop"]}
+        del loss, grads
+        gc.collect()
+        torch.cuda.empty_cache()  # four processes share the card: hand the cache back
+        sync()
+        step = make_train_step(cfg, mesh=mesh, warmup=0, example_params=params,
                                example_opt=placed_opt(params), example_batch=batch)
         t = time.perf_counter()
         params, opt, m1 = step(params, placed_opt(params), batch, 0)
         sync()
-        gate_s = time.perf_counter() - t
-        errs = {"loss": rel(m1["loss"], ref["loss"]), "gnorm": rel(m1["gnorm"], ref["gnorm"])}
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-        worst = 0.0
-        for (path, dt, spec), (i, want) in zip(with_specs(params, specs),
-                                               enumerate(ref["leaves"].values())):
-            want = want[spec_slice(want.shape, spec, sizes, coord)]
-            worst = max(worst, (dt.to_local().cpu() - want).abs().max().item())
-        errs["params"] = worst / ref["top"]
+        step_s = time.perf_counter() - t
+        errs.update(loss=rel(m1["loss"], ref["loss"]), gnorm=rel(m1["gnorm"], ref["gnorm"]))
         check(max(errs.values()) <= TOL_MESH,
-              f"phase 18b rank {rank}: the float32 mesh step differs from no mesh: {errs}")
-        res["gate"] = {**errs, "s": gate_s, "peak": torch.cuda.max_memory_allocated()}
-        del params, opt, step, ref
-        if rank == 0:
-            os.remove(ref_file)
+              f"phase 18b rank {rank}: the float32 mesh gradients or step differ from no "
+              f"mesh: {errs}")
+        # parameters after the peak-lr step: reported, not gated (AdamW's first
+        # step divides each gradient entry by its own size plus eps, so entries
+        # near eps turn rounding into changes of up to 2 lr)
+        p_err = max((p.to_local().cpu() - w).abs().max().item()
+                    for (_, p, _), w in zip(with_specs(params, specs), ref["params"])) / ref["top"]
+        res["gate"] = {**errs, "params": p_err, "grad_s": grad_s, "s": step_s,
+                       "peak": torch.cuda.max_memory_allocated()}
+        del params, opt, step, ref, b_dev
         torch.cuda.empty_cache()
         res["s"]["b gate"] = time.perf_counter() - t0
 
@@ -3176,7 +3230,7 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
         data = SyntheticLM(cfg, tB, tS)
         full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
         specs = param_specs(full, mesh, fsdp_axes=("data",))
-        params = own(place_tree(full, specs, mesh))
+        params = own(shard_tree(full, specs, mesh))
         del full
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -3193,7 +3247,7 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
             sync()
             times.append(time.perf_counter() - t)
         check(all(math.isfinite(x) for x in losses), f"phase 18b rank {rank}: losses {losses}")
-        res["train"] = {"ms": 1e3 * sorted(times[warm:])[timed // 2], "times": times,
+        res["train"] = {"ms": 1e3 * max(times[warm:]), "times": times,
                         "losses": losses, "peak": torch.cuda.max_memory_allocated() - base,
                         "held": base}
         del params, opt, step
@@ -3211,25 +3265,31 @@ def mesh_rank(rank: int, rdv: str, ref_dir: str, device: str, out) -> None:
                                     example_batch={"tokens": prompt})
         decode = make_decode_step(cfg, mesh=mesh, example_params=full, example_cache=cache,
                                   example_batch={"tokens": prompt[:, :1]})
-        params = own(place_tree(full, param_specs(full, mesh), mesh))
+        params = own(shard_tree(full, param_specs(full, mesh), mesh))
         del full, cache
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        cache = init_cache(cfg, sB, LM_PROMPT + new, device=dev)
-        sync()
-        t = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompt}, cache)
-        sync()
-        t_pre = time.perf_counter() - t
-        tok = torch.argmax(whole(logits)[:, -1, :cfg.vocab], -1).to(torch.int32)
-        toks = [tok]
-        t = time.perf_counter()
-        for i in range(new - 1):
-            tok, cache = decode(params, {"tokens": whole(tok)[:, None]}, cache, LM_PROMPT + i)
-            toks.append(whole(tok))
-        sync()
-        t_dec = time.perf_counter() - t
+
+        def serve(n_new):
+            cache = init_cache(cfg, sB, LM_PROMPT + new, device=dev)
+            sync()
+            t = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": prompt}, cache)
+            sync()
+            t_pre = time.perf_counter() - t
+            toks = [torch.argmax(whole(logits)[:, -1, :cfg.vocab], -1).to(torch.int32)]
+            t = time.perf_counter()
+            for i in range(n_new - 1):
+                tok, cache = decode(params, {"tokens": toks[-1][:, None]}, cache,
+                                    LM_PROMPT + i)
+                toks.append(whole(tok))
+            sync()
+            return t_pre, time.perf_counter() - t, toks
+
+        serve(3)  # warm-up, as phase 15b: DTensor's sharding caches, allocator
+        torch.cuda.reset_peak_memory_stats()
+        t_pre, t_dec, toks = serve(new)
         toks = torch.stack(toks, 1)
         check(toks.shape == (sB, new) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
               f"phase 18b rank {rank}: tokens out of range")
@@ -3252,26 +3312,33 @@ def phase_mesh(card: str, lm: dict, train: dict, device: str = "cuda:0") -> dict
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ranks = sorted(run_spawned(
-            [(mesh_rank, (r, str(Path(tmp) / "rendezvous"), tmp, device))
+            [(mesh_rank, (r, str(Path(tmp) / "rendezvous"), device))
              for r in range(MESH_RANKS)], 600, "phase 18"), key=lambda r: r["rank"])
     r0 = ranks[0]
     for arch, a in r0["a"].items():
-        worst = max(r["a"][arch]["err"] for r in ranks)
+        worst = {k: max(r["a"][arch][k] for r in ranks) for k in ("err", "grads", "params")}
         log(f"phase 18a {arch} float32 on a {MESH_SHAPE} mesh of {MESH_RANKS} ranks sharing "
-            f"the card: {MESH_REDUCED[2]} train steps, loss and gnorm within rel {worst:.2e} of "
-            f"the same steps with no mesh; prefill + {MESH_REDUCED[4]} greedy decode steps "
-            f"tokens equal {a['tokens_equal']}; {a['s']:.1f} s")
-    gate = {k: max(r["gate"][k] for r in ranks) for k in ("loss", "gnorm", "params")}
-    log(f"phase 18b {LM_ARCH} float32 train step, batch {MESH_GATE[0]}, S={MESH_GATE[1]}, on "
-        f"the mesh against rank 0's step with no mesh: loss rel {gate['loss']:.2e}, gnorm rel "
-        f"{gate['gnorm']:.2e}, parameters {gate['params']:.2e} of the largest (every rank's "
-        f"shards); {r0['gate']['s']:.2f} s; peak a rank "
+            f"the card: the first batch's gradients within {worst['grads']:.2e} of the largest "
+            f"(leaf by leaf); {MESH_REDUCED[2]} train steps at the peak lr (no warm-up), loss "
+            f"and gnorm within rel {worst['err']:.2e} of the same steps with no mesh, "
+            f"parameters after them {worst['params']:.2e} of the largest (not gated); prefill "
+            f"+ {MESH_REDUCED[4]} greedy decode steps tokens equal {a['tokens_equal']}; "
+            f"{a['s']:.1f} s")
+    gate = {k: max(r["gate"][k] for r in ranks)
+            for k in ("grad_loss", "grads", "loss", "gnorm", "params")}
+    log(f"phase 18b {LM_ARCH} float32, batch {MESH_GATE[0]}, S={MESH_GATE[1]}, on the mesh "
+        f"against no mesh on the card: gradients {gate['grads']:.2e} of the largest (every "
+        f"rank's shards against their slices), loss rel {gate['grad_loss']:.2e}; one train "
+        f"step at the peak lr: loss rel {gate['loss']:.2e}, gnorm rel {gate['gnorm']:.2e}, "
+        f"parameters after it {gate['params']:.2e} of the largest (not gated); gradients "
+        f"{r0['gate']['grad_s']:.2f} s, step {r0['gate']['s']:.2f} s; peak a rank "
         f"{[r['gate']['peak'] for r in ranks]} bytes")
     tB, tS, warm, timed = MESH_TRAIN_BF16
     ms = [r["train"]["ms"] for r in ranks]
     log(f"phase 18b {LM_ARCH} bf16 train step on the mesh (remat, FSDP over data), batch {tB}, "
-        f"S={tS} (card: {card}): {max(ms):.3f} ms a step (slowest rank's median of {timed} "
-        f"after {warm} warm-up; rank 0 {[round(1e3 * t, 3) for t in r0['train']['times']]}); "
+        f"S={tS} (card: {card}): {max(ms):.3f} ms a step (the slowest of {timed} timed steps "
+        f"after {warm} warm-up, slowest rank; rank 0 "
+        f"{[round(1e3 * t, 3) for t in r0['train']['times']]}); "
         f"no mesh (phase 16c, this run) {train['ms_per_step']:.3f} ms; peak a rank above its "
         f"parameters {[r['train']['peak'] for r in ranks]} bytes, sum "
         f"{sum(r['train']['peak'] + r['train']['held'] for r in ranks)} with them; no mesh "
@@ -3280,8 +3347,8 @@ def phase_mesh(card: str, lm: dict, train: dict, device: str = "cuda:0") -> dict
     pre, dec = max(r["serve"]["prefill_ms"] for r in ranks), max(r["serve"]["decode_ms"]
                                                                  for r in ranks)
     log(f"phase 18b {LM_ARCH} bf16 serving on the mesh, batch {sB}, {LM_PROMPT}-token prompt, "
-        f"{new} new tokens (card: {card}): prefill {pre:.3f} ms, decode {dec:.4f} ms a step "
-        f"(slowest rank); no mesh (phase 15b, this run) prefill {lm['prefill_ms']:.3f} ms, "
+        f"{new} new tokens (card: {card}), after one warm-up pass of a prefill and 2 decode "
+        f"steps: prefill {pre:.3f} ms, decode {dec:.4f} ms a step (slowest rank); no mesh (phase 15b, this run) prefill {lm['prefill_ms']:.3f} ms, "
         f"decode {lm['decode_ms']:.4f} ms; peak a rank {[r['serve']['peak'] for r in ranks]} "
         f"bytes, sum {sum(r['serve']['peak'] + r['serve']['held'] for r in ranks)} with the "
         f"parameters; no mesh {lm['peak_bytes']}")

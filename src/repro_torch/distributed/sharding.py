@@ -202,29 +202,16 @@ def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     return tuple(s // _axis_size(mesh, e) for s, e in zip(shape, spec))
 
 
-def shard_tree(tree, specs, mesh):
-    """``tree``'s tensors as DTensors on ``mesh``, each placed by its spec.
-    Every rank slices its own part of the tensor it holds
-    (``src_data_rank=None``): no communication, so every rank must hold the
-    same full values. Other leaves are kept."""
+def shard_tree(tree, specs, mesh, device=None):
+    """``tree`` placed by ``specs`` on ``mesh``. A DTensor leaf is
+    redistributed (a no-op when it is placed so already); any other array
+    leaf is moved to ``device`` (if given) and each rank slices its own part
+    of it (``src_data_rank=None``): no communication, so every rank must
+    hold the same full values. Leaves without a spec are kept."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+        return {k: shard_tree(v, specs[k], mesh, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [shard_tree(v, s, mesh) for v, s in zip(tree, specs, strict=True)]
-    if not isinstance(tree, torch.Tensor):
-        return tree
-    return distribute_tensor(tree, mesh, placements(specs, mesh), src_data_rank=None)
-
-
-def place_tree(tree, specs, mesh, device=None):
-    """``tree`` placed by ``specs`` on ``mesh``: a DTensor leaf is
-    redistributed (a no-op when it is placed so already), any other array
-    leaf is moved to ``device`` and sliced as :func:`shard_tree` does (every
-    rank holds the same full values). Leaves without a spec are kept."""
-    if isinstance(tree, dict):
-        return {k: place_tree(v, specs[k], mesh, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [place_tree(v, s, mesh, device) for v, s in zip(tree, specs, strict=True)]
+        return [shard_tree(v, s, mesh, device) for v, s in zip(tree, specs, strict=True)]
     if specs is None:
         return tree
     pl = placements(specs, mesh)

@@ -147,13 +147,13 @@ def _kv_step(m, l, acc, qc, kck, vck, q0: int, k0: int, *, cfg: ModelConfig, cau
         mask = k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    masked = replicated(~mask[None, None], s)
-    s = s.masked_fill(masked, NEG)
+    keep = replicated(mask[None, None], s)
+    s = torch.where(keep, s, NEG)
     m_new = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     # fully-masked rows must add zero mass even while the running
     # max sits at the sentinel
-    p = p.masked_fill(masked, 0.0)
+    p = torch.where(keep, p, 0.0)
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
     pv = einsum("bhst,bthd->bhsd", p.to(qc.dtype), vck)
@@ -286,7 +286,7 @@ def attention(
         scores = scores * (hd ** -0.5)
         if cfg.softcap > 0:
             scores = softcap(scores, cfg.softcap)
-        scores = scores.masked_fill(replicated(~mask[None, None], scores), NEG)
+        scores = torch.where(replicated(mask[None, None], scores), scores, NEG)
         w = torch.softmax(scores, dim=-1).to(x.dtype)
         out = einsum("bhst,bthd->bshd", w, v)
     out = einsum("bshk,hkd->bsd", out, p["wo"])

@@ -213,8 +213,8 @@ def mamba2(p: dict, u: torch.Tensor, cfg: ModelConfig, cache: dict | None = None
         if S % Q:
             raise ValueError(f"sequence length {S} is no multiple of the chunk {Q}")
         nc = S // Q
-        upper = replicated(~torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-                           [None, :, :, None], u)
+        tri = replicated(torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
+                         [None, :, :, None], u)
         h = cache["h"] if cache is not None else replicated(torch.zeros(
             (B, nh, N, hp), dtype=torch.float32, device=u.device), u)
         ys = []
@@ -229,7 +229,7 @@ def mamba2(p: dict, u: torch.Tensor, cfg: ModelConfig, cache: dict | None = None
             # diagonal exp(cum_q - cum_p) overflows; the mask discards it.
             M = einsum("bqn,bpn->bqp", C_c, B_c)  # (B,Q,Q)
             L = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,q,p,nh)
-            W = (M[..., None] * L).masked_fill(upper, 0.0)
+            W = torch.where(tri, M[..., None] * L, 0.0)
             y_intra = einsum("bqph,bphd->bqhd", W, x_c)
             # inter-chunk: contribution of the carried state
             y_inter = einsum("bqn,bhnd->bqhd", C_c, h) * torch.exp(cum)[..., None]

@@ -30,7 +30,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed.constraints import local, spec_of
 from repro_torch.distributed.meshutil import dp_axes, mesh_device, set_mesh
-from repro_torch.distributed.sharding import batch_specs, cache_specs, param_specs, place_tree
+from repro_torch.distributed.sharding import batch_specs, cache_specs, param_specs, shard_tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import vocab_pad_mask
 from repro_torch.models.model import forward, tree_map
@@ -56,9 +56,9 @@ def _placer(device, mesh, example_params, example_cache, fsdp):
     cspecs = cache_specs(example_cache, mesh, dp_axes=dp)
 
     def place(p, b, c):
-        return (place_tree(p, pspecs, mesh, dev),
-                place_tree(b, batch_specs(b, mesh, dp_axes=dp), mesh, dev),
-                place_tree(c, cspecs, mesh, dev))
+        return (shard_tree(p, pspecs, mesh, dev),
+                shard_tree(b, batch_specs(b, mesh, dp_axes=dp), mesh, dev),
+                shard_tree(c, cspecs, mesh, dev))
 
     return place, lambda: set_mesh(mesh)
 
@@ -82,7 +82,7 @@ def make_prefill_step(cfg: ModelConfig, device=None, *, mesh=None, example_param
                 if isinstance(logits, DTensor):
                     spec = batch_specs({"l": logits}, logits.device_mesh,
                                        dp_axes=dp_axes(logits.device_mesh))["l"]
-                    logits = place_tree(logits, spec, logits.device_mesh)
+                    logits = shard_tree(logits, spec, logits.device_mesh)
             return logits, cache
 
     return prefill

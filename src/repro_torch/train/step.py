@@ -42,7 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.constraints import replicated, whole
 from repro_torch.distributed.meshutil import dp_axes, mesh_device, set_mesh
 from repro_torch.distributed.sharding import (
-    SSM_WEIGHT_NAMES, batch_specs, param_specs, place_tree,
+    SSM_WEIGHT_NAMES, batch_specs, param_specs, shard_tree,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
@@ -108,7 +108,7 @@ def make_train_step(cfg: ModelConfig, device=None, *, mesh=None, microbatches: i
                  {"m": pspecs(example_opt["m"]), "v": pspecs(example_opt["v"]), "step": ()})
 
         def place_batch(b):
-            return place_tree(b, batch_specs(b, mesh, dp_axes=dp), mesh, dev)
+            return shard_tree(b, batch_specs(b, mesh, dp_axes=dp), mesh, dev)
     else:
         def place_batch(b):
             return {k: v if isinstance(v, DTensor) else torch.as_tensor(v).to(dev)
@@ -148,8 +148,8 @@ def make_train_step(cfg: ModelConfig, device=None, *, mesh=None, microbatches: i
                 params, opt_state = _copy(params), _copy(opt_state)
             if not placed:
                 return body(params, opt_state, batch, step)
-            params = place_tree(params, specs[0], mesh, dev)
-            opt_state = place_tree(opt_state, specs[1], mesh, dev)
+            params = shard_tree(params, specs[0], mesh, dev)
+            opt_state = shard_tree(opt_state, specs[1], mesh, dev)
             if microbatches == 1:
                 batch = place_batch(batch)
             with set_mesh(mesh):

@@ -120,7 +120,7 @@ def grad_pair(cfg, mesh, *, batch: int, seq: int):
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed.meshutil import set_mesh
     from repro_torch.distributed.sharding import (
-        SSM_WEIGHT_NAMES, batch_specs, param_specs, place_tree,
+        SSM_WEIGHT_NAMES, batch_specs, param_specs, shard_tree,
     )
     from repro_torch.models import init_params
     from repro_torch.train.step import value_and_grad
@@ -129,9 +129,9 @@ def grad_pair(cfg, mesh, *, batch: int, seq: int):
     data = {k: torch.as_tensor(v) for k, v in SyntheticLM(cfg, batch, seq).batch(0).items()}
     one = value_and_grad(cfg, params, data)
     no_tp = frozenset() if cfg.ssm_tp else SSM_WEIGHT_NAMES
-    placed = place_tree(params, param_specs(params, mesh, no_tp_names=no_tp), mesh)
+    placed = shard_tree(params, param_specs(params, mesh, no_tp_names=no_tp), mesh)
     with set_mesh(mesh):
-        on_mesh = value_and_grad(cfg, placed, place_tree(
+        on_mesh = value_and_grad(cfg, placed, shard_tree(
             data, batch_specs(data, mesh, dp_axes=("data",)), mesh))
     return one, on_mesh
 
@@ -307,7 +307,7 @@ def test_bare_step_and_donation_on_one_rank_mesh(tmp_path):
     sets the mesh); ``donate=False`` leaves the caller's trees as they were."""
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed.meshutil import set_mesh
-    from repro_torch.distributed.sharding import batch_specs, param_specs, place_tree
+    from repro_torch.distributed.sharding import batch_specs, param_specs, shard_tree
     from repro_torch.models import init_params
     from repro_torch.models.model import tree_leaves
     from repro_torch.train import adamw_init, make_train_step
@@ -319,9 +319,9 @@ def test_bare_step_and_donation_on_one_rank_mesh(tmp_path):
     _, _, m0 = make_train_step(cfg, "cpu")(copy(params), copy(opt), batch, 0)
     with one_rank_mesh(tmp_path) as mesh:
         specs = param_specs(params, mesh)
-        p = place_tree(copy(params), specs, mesh)
-        o = place_tree(copy(opt), {"m": specs, "v": specs, "step": ()}, mesh)
-        b = place_tree(batch, batch_specs(batch, mesh, dp_axes=("data",)), mesh)
+        p = shard_tree(copy(params), specs, mesh)
+        o = shard_tree(copy(opt), {"m": specs, "v": specs, "step": ()}, mesh)
+        b = shard_tree(batch, batch_specs(batch, mesh, dp_axes=("data",)), mesh)
         with set_mesh(mesh):
             _, _, m1 = make_train_step(cfg, mesh=mesh)(p, o, b, 0)
         assert rel(m1["loss"], m0["loss"]) <= TOL
@@ -366,6 +366,8 @@ def test_production_mesh_needs_its_world():
 # chunks, so the carried state meets the next chunk, and "dpm" (no SSM
 # TP); zamba2's SSD blocks run on a 2x2 mesh in chip_smoke.py's phase 18a
 MORE_2X2 = {"falcon-mamba-7b": {}, "falcon-mamba-7b/no-ssm-tp": {"ssm_tp": False}}
+# the attention and MLP path's gradients on the 2x2 mesh, leaf by leaf
+ATTN_2X2 = {"llama3.2-1b": {}}
 
 
 def _rank(rank: int, D: int, out: str) -> None:
@@ -400,7 +402,7 @@ def _rank(rank: int, D: int, out: str) -> None:
                 placed_as_specs(o1[k], specs, mesh) for k in ("m", "v")),
         }
     tstep.param_specs = sharding.param_specs
-    for run, over in MORE_2X2.items():
+    for run, over in {**ATTN_2X2, **MORE_2X2}.items():
         (l0, g0), (l1, g1) = grad_pair(config(run.split("/")[0], **over), mesh, batch=4,
                                        seq=32)
         report[f"grads/{run}"] = {"loss": rel(l1, l0), "grads": tree_err(g1, g0)}
@@ -453,6 +455,13 @@ def four_ranks(tmp_path_factory):
 
 @pytest.mark.parametrize("run", MORE_2X2)
 def test_ssm_gradients_on_2x2_mesh(four_ranks, run):
+    for rank, rep in enumerate(four_ranks()):
+        r = rep[f"grads/{run}"]
+        assert r["loss"] <= TOL and r["grads"] <= TOL, (rank, r)
+
+
+@pytest.mark.parametrize("run", ATTN_2X2)
+def test_attention_gradients_on_2x2_mesh(four_ranks, run):
     for rank, rep in enumerate(four_ranks()):
         r = rep[f"grads/{run}"]
         assert r["loss"] <= TOL and r["grads"] <= TOL, (rank, r)
